@@ -1,0 +1,648 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (exit code != 0, no result line):
+
+  1. environment: the card (nvidia-smi), torch, CUDA and nvcc versions;
+  2. build: every CUDA kernel under src/repro_torch/csrc/ with nvcc for
+     sm_90a, one process per source, with the ptxas report;
+  3. kernels vs plain versions on the card, at the main path's shapes
+     (Qwen3-8B widths, engine defaults), over length mixes with
+     seq_len == 0 rows, sub-block rows, full-table rows and a NaN-poisoned
+     page 0 that no live row maps;
+  4. card vs CPU: Qwen3-8B widths at reduced depth, one paged prefill and
+     a few decode steps through the same port on both devices;
+  5. full-width serve: ``Zipage.from_config("qwen3-8b")`` at the engine
+     defaults (36 layers, fp32, random weights from a seed) serves greedy
+     requests; compression must fire and every kernel must launch;
+  6. timing of each kernel at the serve's own inputs with CUDA events:
+     kernel, plain version, a library call where one computes the same
+     function, and the bound from bytes and flops;
+  7. a profiled window of decode steps: device-busy share of wall time and
+     kernel time by group.
+
+The last two lines of standard output are the card's name and power
+limit, and ``{"ok": true, "device": {...}}``; the line before them is the
+``{"kernels": [...]}`` record. Exits non-zero without a card.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+SEED = 0
+TOL = 1e-4            # atol = rtol for fp32 kernel-vs-plain comparisons:
+#                       the kernels sum in another order than PyTorch
+CARD_CPU_TOL = 1e-3   # atol = rtol for card-vs-CPU logits of a 4096-wide
+#                       model: each matmul sums 4096-12288 products in a
+#                       different order on each device
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
+FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+N_REQUESTS = 8
+NEW_TOKENS = 128
+
+#: where each ported TPU kernel lived (function definition line)
+REPLACES = {
+    "ragged_paged_attention": "src/repro/kernels/ragged_paged_attention.py:129",
+    "paged_score": "src/repro/kernels/paged_score.py:43",
+    "lightning_redundancy": "src/repro/kernels/redundancy.py:61",
+}
+
+
+def log(phase, msg):
+    print(f"{phase}: {msg}", flush=True)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+# ----------------------------------------------------------------------
+# phase 1-2
+
+
+def phase_env(torch, native):
+    card = card_line()
+    nvcc = subprocess.run([native.nvcc_path(), "--version"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[-1]
+    log("env", f"card={card} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | nvcc {nvcc}")
+    return card
+
+
+def phase_build(native):
+    t = time.monotonic()
+    reports = native.build_all()
+    log("build", f"{len(reports)} kernel libraries ready in "
+        f"{time.monotonic() - t:.1f} s (sm_90a)")
+    for name, text in sorted(reports.items()):
+        for line in text.splitlines():
+            if "Used" in line or "spill" in line:
+                log("build", f"{name}: {line.strip()}")
+    return reports
+
+
+# ----------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+
+
+def make_pool(torch, rng, n_pages, b, hkv, d, dev, *, similar=False):
+    """Random pool on the card; page 0 is NaN. ``similar`` makes the keys
+    of a page near-duplicates, so cosines cross the redundancy
+    threshold."""
+    import numpy as np
+    k = rng.normal(size=(n_pages, b, hkv, d)).astype(np.float32)
+    if similar:
+        base = rng.normal(size=(n_pages, 1, hkv, d)).astype(np.float32)
+        k = 0.35 * k + base
+    v = rng.normal(size=(n_pages, b, hkv, d)).astype(np.float32)
+    k[0] = np.nan
+    v[0] = np.nan
+    return torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
+
+
+def make_tables(torch, rng, seq_lens, b, mb, n_pages, dev, pool_k=None,
+                pool_v=None):
+    """-1 padded tables drawing live pages from 1..n_pages-1 (never page
+    0); the stale tail past each row's seq_len in its last page is NaN."""
+    import numpy as np
+    free = list(rng.permutation(np.arange(1, n_pages)))
+    bt = np.full((len(seq_lens), mb), -1, np.int32)
+    for i, s in enumerate(seq_lens):
+        for j in range(-(-s // b)):
+            bt[i, j] = free.pop()
+        if s % b and pool_k is not None:
+            blk = int(bt[i, s // b])
+            pool_k[blk, s % b:] = float("nan")
+            pool_v[blk, s % b:] = float("nan")
+    return (torch.from_numpy(bt).to(dev),
+            torch.tensor(seq_lens, dtype=torch.int32, device=dev))
+
+
+def max_err(torch, got, want, name):
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: kernel output is not finite")
+    err = (got - want).abs()
+    bad = err > TOL + TOL * want.abs()
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} entries off by up to "
+                             f"{float(err.max()):.3e} (tol {TOL})")
+    return float(err.max())
+
+
+def phase_kernels(torch, dev, cfg, opts):
+    import numpy as np
+    from repro_torch.kernels import paged_score as ps
+    from repro_torch.kernels import ragged_paged_attention as rpa
+    from repro_torch.kernels import redundancy as red
+
+    b, mb = opts.block_size, -(-opts.max_model_len // opts.block_size)
+    n_pages, B = opts.n_total_blocks, opts.max_batch
+    hq, hkv, d, w = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
+        opts.window
+    T = mb * b
+    rng = np.random.default_rng(SEED)
+    errs = {rpa.NAME: 0.0, ps.NAME: 0.0, red.NAME: 0.0}
+    decode_mixes = {
+        "mixed": [0, 1, 7, 15, 16, 17, 33, 64, 100, 127, 200, 255, T, T - 1,
+                  0, 48],
+        "full": [T] * 7 + [0] * (B - 7),
+        "inactive": [0] * B,
+    }
+    for label, lens in decode_mixes.items():
+        k, v = make_pool(torch, rng, n_pages, b, hkv, d, dev)
+        bt, sl = make_tables(torch, rng, lens, b, mb, n_pages, dev, k, v)
+        q = torch.randn(B, hq, d, device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED))
+        got = rpa.ragged_paged_attention_cuda(q, k, v, bt, sl)
+        want = rpa.ragged_paged_attention_plain(q, k, v, bt, sl)
+        torch.cuda.synchronize()
+        if not bool((got[sl == 0] == 0).all()):
+            raise AssertionError("ragged: seq_len == 0 rows are not zeros")
+        e = max_err(torch, got, want, f"ragged[{label}]")
+        errs[rpa.NAME] = max(errs[rpa.NAME], e)
+        log("kernels", f"{rpa.NAME}[{label}]: max_abs_err={e:.3e} "
+            f"(atol=rtol={TOL}) ok")
+    comp_mixes = {
+        "compress": [64, 176, 4, T, 16, 80, 0, 48],
+        "similar": [64, 64, 128, 200, 31, T, 5, 0],
+    }
+    n_thresh_hits = 0
+    for label, lens in comp_mixes.items():
+        k, v = make_pool(torch, rng, n_pages, b, hkv, d, dev,
+                         similar=label == "similar")
+        bt, sl = make_tables(torch, rng, lens, b, mb, n_pages, dev, k, v)
+        q_win = torch.randn(len(lens), w, hq, d, device=dev,
+                            generator=torch.Generator(dev).manual_seed(SEED))
+        got = ps.paged_score_logits_cuda(q_win, k, bt, sl)
+        want = ps.paged_score_logits_plain(q_win, k, bt, sl)
+        e = max_err(torch, got, want, f"paged_score[{label}]")
+        errs[ps.NAME] = max(errs[ps.NAME], e)
+        log("kernels", f"{ps.NAME}[{label}]: max_abs_err={e:.3e} "
+            f"(atol=rtol={TOL}) ok")
+        got = red.lightning_redundancy_cuda(k, bt, sl,
+                                            p_thresh=opts.compress.p_thresh)
+        want = red.lightning_redundancy_plain(k, bt, sl,
+                                              p_thresh=opts.compress.p_thresh)
+        e = max_err(torch, got, want, f"redundancy[{label}]")
+        errs[red.NAME] = max(errs[red.NAME], e)
+        no_thresh = red.lightning_redundancy_plain(k, bt, sl, p_thresh=2.0)
+        n_thresh_hits += int((no_thresh != want).sum())
+        log("kernels", f"{red.NAME}[{label}]: max_abs_err={e:.3e} "
+            f"(atol=rtol={TOL}) ok")
+    if n_thresh_hits == 0:
+        raise AssertionError("redundancy: the p_thresh zero-out never fired")
+    log("kernels", f"{red.NAME}: the p_thresh zero-out changed "
+        f"{n_thresh_hits} row sums (exercised)")
+    torch.cuda.synchronize()
+    return errs
+
+
+# ----------------------------------------------------------------------
+# phase 4: card vs CPU at reduced depth
+
+
+def phase_card_vs_cpu(torch, dev, cfg):
+    from repro_torch.core import serve_model
+    from repro_torch.models import lm
+
+    # what the card's fp32 matmul does at these widths: full fp32 leaves
+    # ~1e-6 against float64, TF32 ~1e-3
+    gen = torch.Generator("cpu").manual_seed(SEED)
+    a = torch.randn(128, cfg.d_model, generator=gen) / cfg.d_model ** 0.5
+    w = torch.randn(cfg.d_model, cfg.d_model, generator=gen)
+    probe = float(((a.to(dev) @ w.to(dev)).cpu().double()
+                   - a.double() @ w.double()).abs().max())
+    log("card-vs-cpu", f"fp32 matmul probe 128x{cfg.d_model}x{cfg.d_model} "
+        f"on the card vs float64: max_abs_err={probe:.2e} (allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32})")
+
+    small = dataclasses.replace(cfg, num_layers=2)
+    spec = serve_model.ServeSpec(n_slots=4, block_size=16, max_blocks=8,
+                                 n_total_blocks=32, m_qslots=4, window=4,
+                                 prefill_rows=2, prefill_len=64)
+    gen = torch.Generator("cpu").manual_seed(SEED)
+    p_cpu = lm.init(small, gen, "cpu")
+    p_dev = _tree_to(p_cpu, dev)
+    results = {}
+    for name, device, params in (("cpu", "cpu", p_cpu), ("card", dev, p_dev)):
+        st = serve_model.make_state(small, spec, device)
+        i32 = dict(dtype=torch.int32, device=device)
+        st["block_tables"][0, :4] = torch.tensor([3, 5, 7, 9], **i32)
+        st["block_tables"][1, :5] = torch.tensor([11, 2, 4, 6, 8], **i32)
+        st["seq_lens"][:2] = torch.tensor([45, 60], **i32)
+        st["qslot"][:2] = torch.tensor([0, 1], **i32)
+        prefill = serve_model.build_prefill_step(small, spec)
+        decode = serve_model.build_decode_step(small, spec)
+        toks = torch.arange(2 * 64, device=device).reshape(2, 64) * 97 \
+            % small.vocab_size
+        lengths = torch.tensor([45, 60], dtype=torch.int32, device=device)
+        zero = torch.zeros(2, dtype=torch.int32, device=device)
+        outs = [prefill(params, st, toks, torch.tensor(
+            [0, 1], dtype=torch.int32, device=device), lengths, zero)]
+        st["positions"][:2] = lengths
+        active = torch.tensor([True, True, False, False], device=device)
+        tok = torch.tensor([5, 6, 0, 0], device=device)
+        for i in range(6):
+            outs.append(decode(params, st, tok, active)[:2])
+            tok = (tok + 1000 * (i + 1)) % small.vocab_size
+        results[name] = [o.cpu() for o in outs]
+    errs = []
+    for a, b in zip(results["cpu"], results["card"]):
+        err = (a - b).abs()
+        if bool((err > CARD_CPU_TOL + CARD_CPU_TOL * a.abs()).any()):
+            raise AssertionError(f"card vs cpu: logits off by "
+                                 f"{float(err.max()):.3e}")
+        errs.append(float(err.max()))
+    worst = max(errs)
+    log("card-vs-cpu", f"qwen3-8b widths, 2 layers: prefill + 6 decode "
+        f"steps, max_abs_err={worst:.3e} (atol=rtol={CARD_CPU_TOL}) ok; "
+        f"per output {', '.join(f'{e:.1e}' for e in errs)}")
+    del p_dev
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _tree_to(t, dev):
+    if isinstance(t, dict):
+        return {k: _tree_to(v, dev) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_tree_to(v, dev) for v in t]
+    return t.to(dev)
+
+
+# ----------------------------------------------------------------------
+# phase 5: full-width serve
+
+
+class Recorder:
+    """Keeps references to the inputs of the kernels' calls during the
+    serve (no copies, no syncs), so phase 6 times the kernels on exactly
+    the main path's inputs."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.orig = {n: getattr(ops, n) for n in
+                     ("ragged_decode_attention", "score_logits",
+                      "lightning_redundancy")}
+        self.calls = {n: [] for n in self.orig}
+
+    def __enter__(self):
+        for name, fn in self.orig.items():
+            setattr(self.ops, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        calls = self.calls[name]
+
+        def wrapped(*args, **kw):
+            calls.append((args, kw))
+            if len(calls) > 400:
+                del calls[:200]
+            return fn(*args, **kw)
+        return wrapped
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.ops, name, fn)
+
+
+def phase_serve(torch, card):
+    import numpy as np
+    from repro_torch.api import SamplingParams, Zipage
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+
+    t = time.monotonic()
+    z = Zipage.from_config("qwen3-8b", param_seed=SEED)
+    torch.cuda.synchronize()
+    eng = z.engine
+    cfg = z.cfg
+    n_params = lm.param_count(eng.params)
+    log("serve", f"{cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params / 1e9:.2f} B params fp32 on the card, "
+        f"ready in {time.monotonic() - t:.1f} s; defaults block_size="
+        f"{eng.opts.block_size} n_max={eng.opts.n_max} window="
+        f"{eng.opts.window} n_total_blocks={eng.opts.n_total_blocks} "
+        f"max_batch={eng.opts.max_batch}")
+    rng = np.random.default_rng(SEED)
+    lens = [int(x) for x in rng.integers(40, 181, N_REQUESTS)]
+    prompts = [[int(x) for x in rng.integers(0, cfg.vocab_size, n)]
+               for n in lens]
+    sp = SamplingParams(max_new_tokens=NEW_TOKENS)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    with Recorder(ops) as rec:
+        outs = z.generate(prompts, sp)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    launches = dict(ops.launch_counts)
+    n_tok = sum(len(o.token_ids) for o in outs)
+    steps = [m["t_total"] for m in eng.metrics]
+    n_comp = sum(o.metrics.compression.n_compressions for o in outs)
+    t_dev = sum(m["t_device"] for m in eng.metrics)
+    visited = sum(m["pages_visited"] for m in eng.metrics)
+    dense = sum(m["pages_dense"] for m in eng.metrics)
+    for i, o in enumerate(outs):
+        log("serve", f"request {i}: prompt {lens[i]} tokens, "
+            f"{len(o.token_ids)} new, {o.metrics.compression.n_compressions} "
+            f"compressions, first tokens {o.token_ids[:8]}")
+    log("serve", f"{N_REQUESTS} requests, {n_tok} tokens in {wall:.2f} s = "
+        f"{n_tok / wall:.1f} tok/s over {len(steps)} steps (step median "
+        f"{1e3 * statistics.median(steps):.1f} ms, max "
+        f"{1e3 * max(steps):.1f} ms, host wait on device "
+        f"{t_dev / sum(steps):.3f} of step time) on {card}")
+    log("serve", f"{n_comp} compressions; kernel launches {launches}; "
+        f"decode pages visited {visited} vs {dense} for a dense grid")
+    # the repo's own checks of a finished serve
+    assert all(len(o.token_ids) == NEW_TOKENS for o in outs), "short output"
+    assert all(o.finish_reason == "length" for o in outs)
+    assert all(0 <= t < cfg.vocab_size for o in outs for t in o.token_ids)
+    assert n_comp > 0, "compression never fired"
+    assert z.num_free_blocks == eng.opts.n_total_blocks, "blocks leaked"
+    z.bm.check_invariants()
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} never launched on the main path"
+    summary = {"tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
+               "steps": len(steps), "step_median_ms": 1e3 * statistics.median(
+                   steps), "compressions": n_comp, "launches": launches,
+               "pages_visited": visited, "pages_dense": dense}
+    return z, rec, launches, summary
+
+
+# ----------------------------------------------------------------------
+# phase 6: timing
+
+
+def time_ms(torch, fn, n=50):
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _live_entries(bt, sl, b):
+    """Cache entries a call really reads: per row, seq_len capped by the
+    pages its table maps (a finished slot keeps a stale seq_len over an
+    empty table)."""
+    mapped = (bt >= 0).sum(1) * b
+    return int(sl.clamp(min=0).minimum(mapped.to(sl.dtype)).sum())
+
+
+def _pick(calls, key):
+    """The recorded call whose live work is largest."""
+    best, best_v = None, -1
+    for args, kw in calls:
+        v = key(args)
+        if v > best_v:
+            best, best_v = (args, kw), v
+    return best
+
+
+def phase_timing(torch, z, rec, launches, errs):
+    from repro_torch.core.paged import gather_entries
+    from repro_torch.kernels import paged_score as ps
+    from repro_torch.kernels import ragged_paged_attention as rpa
+    from repro_torch.kernels import redundancy as red
+
+    F = torch.nn.functional
+    eng = z.engine
+    pools = eng.state["pools"]
+    rows = []
+
+    # ragged decode: the decode call with the most live cache entries
+    args, _ = _pick(rec.calls["ragged_decode_attention"],
+                    lambda a: _live_entries(a[3], a[4], a[1].shape[1]))
+    q, kp, vp, bt, sl = args
+    B, hq, d = q.shape
+    hkv = kp.shape[2]
+    n_live = _live_entries(bt, sl, kp.shape[1])
+    nbytes = 4 * (2 * q.numel() + 2 * n_live * hkv * d + bt.numel()
+                  + sl.numel())
+    flops = 4 * n_live * hq * d
+    kg = gather_entries(kp, bt).repeat_interleave(hq // hkv, dim=2)
+    vg = gather_entries(vp, bt).repeat_interleave(hq // hkv, dim=2)
+    kg, vg = kg.transpose(1, 2).contiguous(), vg.transpose(1, 2).contiguous()
+    T = kg.shape[2]
+    mask = (torch.arange(T, device=q.device)[None] < sl[:, None])[:, None,
+                                                                  None]
+    q4 = q[:, :, None]
+    rows.append(_row(torch, rpa.NAME, "src/repro_torch/csrc/"
+                     "ragged_paged_attention.cu", launches, errs,
+                     lambda: rpa.ragged_paged_attention_cuda(q, kp, vp, bt,
+                                                             sl),
+                     lambda: rpa.ragged_paged_attention_plain(q, kp, vp, bt,
+                                                              sl),
+                     lambda: F.scaled_dot_product_attention(
+                         q4, kg, vg, attn_mask=mask),
+                     nbytes, flops,
+                     {"batch": B, "seq_lens": sl.tolist(),
+                      "table_width": bt.shape[1]}))
+
+    # window logits: the compression call with the most live entries
+    args, _ = _pick(rec.calls["score_logits"],
+                    lambda a: _live_entries(a[2], a[3], a[1].shape[1]))
+    q_win, kp, bt, sl = args
+    n, w, hq, d = q_win.shape
+    hkv = kp.shape[2]
+    n_live = _live_entries(bt, sl, kp.shape[1])
+    out_el = n * hkv * (hq // hkv) * w * bt.shape[1] * kp.shape[1]
+    nbytes = 4 * (q_win.numel() + n_live * hkv * d + bt.numel() + sl.numel()
+                  + out_el)
+    flops = 2 * n_live * hq * w * d
+    rows.append(_row(torch, ps.NAME, "src/repro_torch/csrc/paged_score.cu",
+                     launches, errs,
+                     lambda: ps.paged_score_logits_cuda(q_win, kp, bt, sl),
+                     lambda: ps.paged_score_logits_plain(q_win, kp, bt, sl),
+                     None, nbytes, flops,
+                     {"n": n, "seq_lens": sl.tolist(),
+                      "table_width": bt.shape[1]}))
+
+    # redundancy: the compression call with the most live entries
+    args, kw = _pick(rec.calls["lightning_redundancy"],
+                     lambda a: _live_entries(a[1], a[2], a[0].shape[1]))
+    kp, bt, sl = args
+    p = kw.get("p_thresh", 0.8)
+    N, b, h, d = kp.shape
+    n_live = _live_entries(bt, sl, b)
+    nbytes = 4 * (n_live * h * d + bt.numel() + sl.numel()
+                  + bt.shape[0] * bt.shape[1] * b * h)
+    flops = n_live * h * (2 * b * d + 3 * d)
+    rows.append(_row(torch, red.NAME, "src/repro_torch/csrc/redundancy.cu",
+                     launches, errs,
+                     lambda: red.lightning_redundancy_cuda(kp, bt, sl,
+                                                           p_thresh=p),
+                     lambda: red.lightning_redundancy_plain(kp, bt, sl,
+                                                            p_thresh=p),
+                     None, nbytes, flops,
+                     {"n": bt.shape[0], "seq_lens": sl.tolist(),
+                      "table_width": bt.shape[1]}))
+    del pools
+    return rows
+
+
+def _row(torch, name, source, launches, errs, kernel, plain, library,
+         nbytes, flops, shapes):
+    ms = time_ms(torch, kernel)
+    plain_ms = time_ms(torch, plain)
+    lib_ms = time_ms(torch, library) if library is not None else None
+    bound_ms, bound_by = bound(nbytes, flops)
+    lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+    log("timing", f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms by {bound_by}, library {lib_txt}) at {shapes}")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+# ----------------------------------------------------------------------
+# phase 7: profiled decode window
+
+
+def phase_profile(torch, z, card):
+    import numpy as np
+    from repro_torch.api import SamplingParams
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(SEED + 1)
+    for n in rng.integers(60, 121, 4):
+        z.add_request([int(x) for x in rng.integers(0, z.cfg.vocab_size,
+                                                    int(n))],
+                      SamplingParams(max_new_tokens=40))
+    for _ in range(3):              # admission + prefill, out of the window
+        z.step()
+    torch.cuda.synchronize()
+    n_steps = 8
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        for _ in range(n_steps):
+            z.step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t)
+    groups = {}
+    calls = {}                # device time and count of the port's kernels
+    busy = 0.0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if not dev_us or not str(ev.device_type).endswith("CUDA"):
+            continue          # host-side ops; their kernels are listed too
+        g = _group(ev.key)
+        groups[g] = groups.get(g, 0.0) + dev_us / 1e3
+        busy += dev_us / 1e3
+        if g.startswith("K"):
+            ms, n = calls.get(g, (0.0, 0))
+            calls[g] = (ms + dev_us / 1e3, n + ev.count)
+    while z.has_unfinished():
+        z.step()
+    if busy <= 0:
+        log("profile", "the profiler recorded no device time (not measured)")
+        return None
+    log("profile", f"{card}: {n_steps} steps in {wall_ms:.1f} ms wall, device "
+        f"busy {busy:.1f} ms ({busy / wall_ms:.3f} of wall)")
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log("profile", f"  {g:<24s} {ms:8.2f} ms ({ms / busy:.3f} of busy)")
+    for g, (ms, n) in sorted(calls.items()):
+        log("profile", f"  {g}: {n} launches, {ms / n:.4f} ms of device "
+            "time each")
+    return {"steps": n_steps, "wall_ms": wall_ms, "busy_ms": busy,
+            "groups_ms": groups, "kernel_calls": calls}
+
+
+def _group(key):
+    k = key.lower()
+    if "ragged_paged_attention" in k:
+        return "K1 ragged decode"
+    if "paged_score" in k:
+        return "K2 window logits"
+    if "lightning_redundancy" in k:
+        return "K3 redundancy"
+    if "gemm" in k or "gemv" in k or "sgemm" in k or "xmma" in k:
+        return "matmul"
+    if "reduce" in k or "softmax" in k or "sort" in k or "scan" in k:
+        return "reductions/sort"
+    if "index" in k or "gather" in k or "scatter" in k:
+        return "gather/scatter"
+    if "copy" in k or "memcpy" in k or "memset" in k:
+        return "copies"
+    if "elementwise" in k:
+        return "elementwise"
+    return "other"
+
+
+# ----------------------------------------------------------------------
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.core.engine import EngineOptions
+        from repro_torch.device import resolve_device
+        from repro_torch.kernels import native
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})",
+              file=sys.stderr)
+        return 2
+    dev = resolve_device("cuda")
+    t0 = time.monotonic()
+    card = phase_env(torch, native)
+    phase_build(native)
+    cfg = dataclasses.replace(get_config("qwen3-8b"), dtype="float32")
+    opts = EngineOptions()
+    errs = phase_kernels(torch, dev, cfg, opts)
+    phase_card_vs_cpu(torch, dev, cfg)
+    z, rec, launches, summary = phase_serve(torch, card)
+    rows = phase_timing(torch, z, rec, launches, errs)
+    prof = phase_profile(torch, z, card)
+    log("done", f"all phases passed in {time.monotonic() - t0:.1f} s")
+    os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+    with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
+        json.dump({"card": card, "serve": summary, "kernels": rows,
+                   "profile": prof}, f, indent=1)
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,46 @@
+"""Carry the JAX package's parameters into the port's layout.
+
+``repro.models.lm.init`` returns a pytree whose identical layers are
+stacked into scanned units (``head`` / ``main`` / ``tail``, the layout
+``repro.core.serve_model`` walks). Given that tree as numpy arrays (any
+nesting of dicts and lists), ``params_from_numpy`` returns the port's
+per-layer dict (``repro_torch.models.lm``), so both packages compute on
+the same weights.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models import lm
+
+
+def _tensor(a, device):
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+
+def _layer_tree(t, device, index=None):
+    if isinstance(t, dict):
+        return {k: _layer_tree(v, device, index) for k, v in t.items()}
+    a = np.asarray(t)
+    return _tensor(a if index is None else a[index], device)
+
+
+def params_from_numpy(cfg, tree, device="cpu") -> dict:
+    """JAX param tree (numpy leaves) -> port params on ``device``."""
+    lm.check_supported(cfg)
+    plan = lm.build_plan(cfg)
+    layers = [_layer_tree(p, device) for p in tree.get("head", [])]
+    for u in range(plan["n_units"]):
+        for j in range(len(plan["unit"])):
+            layers.append(_layer_tree(tree["main"][str(j)], device, u))
+    layers += [_layer_tree(p, device) for p in tree.get("tail", [])]
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"tree holds {len(layers)} layers, config "
+                         f"{cfg.name} has {cfg.num_layers}")
+    out = {"embed": _tensor(tree["embed"], device),
+           "final_norm": _layer_tree(tree["final_norm"], device),
+           "layers": layers}
+    if not cfg.tie_embeddings:
+        out["unembed"] = _tensor(tree["unembed"], device)
+    return out

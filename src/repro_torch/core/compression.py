@@ -1,0 +1,161 @@
+"""The compression operation of Compressed PagedAttention (paper §4.2),
+ported from ``repro.core.compression``.
+
+``build_compress_fn`` returns a function that compresses a padded batch of
+requests across all attention layers: window scores (``paged_score``
+kernel) and page-local redundancy (``lightning_redundancy`` kernel) ->
+final scores -> top-k tag -> stable keep-first compaction into the
+destination blocks. This is the JAX package's kernel route (scores
+precomputed for the whole batch, ``compression.py:124-150``). Pools are
+updated in place; padding rows (qslot < 0) write only to the pools' sink
+page (``paged.sink_page``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import scoring
+from repro_torch.core.paged import gather_entries
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressOptions:
+    """Paper-recommended defaults (App. C.8)."""
+    window: int = 16                 # observation window w
+    alpha: float = 0.8               # global-score decay
+    use_global: bool = True
+    redundancy: str = "lightning"    # lightning | none (flash: not ported)
+    lam: float = 0.2                 # λ in Eq. 4
+    tau: float = 0.4                 # redundancy softmax temperature
+    p_thresh: float = 0.8            # similarity zero-out threshold
+    pooling: str = "first"           # none | first | always
+    pool_kernel: int = 7
+    # the JAX package's kernel-backend switch; the port dispatches on the
+    # tensors' device, so only "auto" is accepted
+    backend: str = "auto"
+
+
+def _window_queries(qwin_l, qslots, seq_lens):
+    """Chronological window queries (n, w, h_q, d) from the ring pool."""
+    rings = qwin_l[qslots.clamp(min=0).long()]           # (n, w, hq, d)
+    w = rings.shape[1]
+    order = (seq_lens[:, None] - w
+             + torch.arange(w, device=rings.device)[None]) % w
+    return torch.gather(rings, 1, order.long()[:, :, None, None]
+                        .expand(-1, -1, *rings.shape[2:]))
+
+
+def _select_survivors(cfg, opts, k_keep, pre_s, pre_r, fscore, seq_lens,
+                      hist_lens, T):
+    """Scores -> survivors for every request of one layer. Returns
+    (src_cache (n, h, k) survivor cache positions in cache order, new_f
+    (n, T, h), stats (n, 2), final (n, T, h) keep scores)."""
+    valid = torch.arange(T, device=pre_s.device)[None] < seq_lens[:, None]
+    s = pre_s
+    if opts.redundancy != "none":
+        raw = pre_r
+        red = scoring.redundancy_softmax(raw, valid, tau=opts.tau)
+    else:
+        raw = torch.zeros_like(s)
+        red = torch.zeros_like(s)
+    stats = scoring.quality_stats(s, raw, valid, seq_lens)
+    if opts.use_global and opts.alpha > 0:
+        s = scoring.global_score_update(s, fscore, hist_lens, opts.alpha)
+    new_f = s
+    if opts.pooling == "always":
+        s = scoring.max_pool_scores(s, valid, kernel=opts.pool_kernel)
+    elif opts.pooling == "first":
+        pooled = scoring.max_pool_scores(s, valid, kernel=opts.pool_kernel)
+        s = torch.where((hist_lens == 0)[:, None, None], pooled, s)
+    final = scoring.combine_scores(s, red, valid, opts.window, seq_lens,
+                                   lam=opts.lam)
+    tag = scoring.topk_tag(final, k_keep)                 # (n, T, h)
+    # stable keep-first sort == survivors in original cache order
+    order_keep = torch.sort((~tag).transpose(1, 2).to(torch.uint8), dim=-1,
+                            stable=True)[1]
+    return order_keep[..., :k_keep], new_f, stats, final
+
+
+def _compact(pool, src_bt, src_cache, dest_flat):
+    """Move one request's surviving entries (per-head streams) in place
+    (``_compact_pool`` of the JAX package). pool: (N + 1, b, h, ...) with
+    the sink page last; src_bt: (mb,) clamped source table; src_cache:
+    (h, k) survivor cache positions; dest_flat: (k,) destination flat
+    slots (sink slots where nothing is written). The request's reads all
+    happen before its writes."""
+    h = src_cache.shape[0]
+    b = pool.shape[1]
+    flat = pool.view((-1, h) + tuple(pool.shape[3:]))
+    src_slot = src_bt[src_cache // b] * b + src_cache % b       # (h, k)
+    heads = torch.arange(h, device=pool.device)[:, None]
+    flat[dest_flat[None, :], heads] = flat[src_slot, heads]
+
+
+def build_compress_fn(cfg, *, block_size, max_blocks, budget_blocks,
+                      opts: CompressOptions):
+    """Returns compress(pools, qwin, req) -> (new_seq_lens, stats).
+
+    pools: {"k", "v": (L, N + 1, b, h, d), "f": (L, N + 1, b, h)} with
+    the sink page last, updated in place; qwin: (L, M, w, h_q, d)
+    observation-window query pool (ring order).
+    req (tensors on the pools' device, leading dim n):
+      src_bt (n, max_blocks) source tables (-1 padded), dest_bt
+      (n, budget_blocks) destination blocks, qslots (n,) (-1 = padding
+      row), seq_lens (n,) valid entries, hist_lens (n,) entries carrying
+      global-score history.
+    stats is (n, 2) ``scoring.quality_stats`` averaged over layers.
+    """
+    if opts.redundancy not in ("lightning", "none"):
+        raise NotImplementedError(
+            f"redundancy={opts.redundancy!r} is not ported (its kernel, "
+            "flash_redundancy, is still to be ported)")
+    if opts.backend != "auto":
+        raise ValueError("the port dispatches kernels on the tensors' "
+                         f"device; backend={opts.backend!r} is not accepted")
+    b = block_size
+    T = max_blocks * b
+    k_keep = budget_blocks * b
+
+    def compress(pools, qwin, req):
+        src_bt, dest_bt, qslots, seq_lens, hist_lens = req
+        dev = src_bt.device
+        sink = pools["k"].shape[1] - 1
+        writes = (dest_bt >= 0) & (qslots >= 0)[:, None]
+        dest_blk = torch.where(writes, dest_bt.long(), sink)
+        dest_flat = (dest_blk.repeat_interleave(b, dim=1) * b
+                     + torch.arange(b, device=dev).repeat(budget_blocks))
+        src_c = src_bt.long().clamp(min=0)
+        stats_sum = 0.0
+        for l in range(pools["k"].shape[0]):
+            k_l = pools["k"][l]
+            q_wins = _window_queries(qwin[l], qslots, seq_lens)
+            logits = ops.score_logits(q_wins, k_l, src_bt, seq_lens)
+            pre_s = ops.attention_scores_from_logits(logits, seq_lens)
+            pre_r = (ops.lightning_redundancy(k_l, src_bt, seq_lens,
+                                              p_thresh=opts.p_thresh)
+                     if opts.redundancy == "lightning" else None)
+            fscore = gather_entries(pools["f"][l], src_bt)
+            src_cache, new_f, stats, _ = _select_survivors(
+                cfg, opts, k_keep, pre_s, pre_r, fscore, seq_lens,
+                hist_lens, T)
+            stats_sum = stats_sum + stats
+            # the moves go request by request, in order, as the JAX
+            # package's scan over apply_one does
+            h_s = new_f.shape[2]
+            heads = torch.arange(h_s, device=dev)[:, None]
+            f_flat = pools["f"][l].view(-1, h_s)
+            for i in range(src_bt.shape[0]):
+                _compact(pools["k"][l], src_c[i], src_cache[i], dest_flat[i])
+                _compact(pools["v"][l], src_c[i], src_cache[i], dest_flat[i])
+                # F is refreshed (post-global scores) and moved with its
+                # entries
+                f_flat[dest_flat[i][None, :], heads] = \
+                    new_f[i].T[heads, src_cache[i]]
+        new_seq = torch.where(qslots >= 0,
+                              torch.full_like(seq_lens, k_keep), seq_lens)
+        return new_seq, stats_sum / pools["k"].shape[0]
+
+    return compress

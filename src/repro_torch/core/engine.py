@@ -1,0 +1,613 @@
+"""Zipage: the Compressed-PagedAttention serving engine (paper §4), ported
+from ``repro.core.engine``.
+
+The engine owns the device state and the host mirrors that feed it. Every
+scheduling decision lives in the host ``Scheduler``
+(``repro_torch.core.scheduler``, a copy of the JAX package's); ``step()``
+executes the plan it produces: paged prefill, compression launches
+(async: compressing requests sit out one decode step), and one fused
+decode+sample step over the running batch.
+
+Ported so far: dense GQA models, compression with lightning redundancy,
+recompute preemption, block-level prefix caching of raw KV, and
+``decode_steps=1``. Swap preemption, compressed-prefix caching, multi-step
+decode, the unfused sampler, the dense decode kernel, flash redundancy and
+other dtypes than float32 raise ``NotImplementedError``.
+
+Setting ``n_max=None`` disables compression (plain PagedAttention).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import serve_model
+from repro_torch.core.block_manager import BlockManager
+from repro_torch.core.compression import CompressOptions, build_compress_fn
+from repro_torch.core.request import FinishReason, Request, State
+from repro_torch.core.sampling import (SamplingParams, sample_batch,
+                                       sampling_noise)
+from repro_torch.core.scheduler import (PrefillChunk, Scheduler,
+                                        SchedulerOutputs, SchedulerParams)
+from repro_torch.device import resolve_device
+from repro_torch.kernels import native, ops
+from repro_torch.models import lm
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineOptions:
+    """The JAX package's ``EngineOptions``, field for field."""
+    block_size: int = 16
+    n_total_blocks: int = 256
+    max_batch: int = 16              # decode slots
+    m_qslots: int = 8                # paper's M (query-slot pool)
+    n_max: Optional[int] = 4         # block cap; None => full-KV baseline
+    window: int = 4                  # observation window w
+    scheduling: str = "hybrid"       # hybrid | constrained
+    prefix_caching: bool = True
+    prefix_cache_policy: str = "radix"
+    prefix_cache_watermark: float = 1.0
+    cache_compressed_prefixes: bool = False
+    async_compression: bool = True
+    compress: CompressOptions = dataclasses.field(
+        default_factory=lambda: CompressOptions(window=4))
+    max_model_len: int = 512
+    prefill_rows: int = 4
+    prefill_len: int = 128
+    policy: str = "fcfs"             # fcfs | priority | srpt | cache_aware
+    preemption: Optional[str] = None  # victim-order policy; None => policy
+    preemption_mode: str = "recompute"
+    swap_space_blocks: int = 0
+    swap_cost_per_token: float = 0.5
+    token_budget: Optional[int] = None
+    max_prefill_chunk: Optional[int] = None
+    admission_margin: float = 0.0
+    quality_aware: bool = False
+    compression_deferral: int = 2
+    quality_defer_min_free: int = 16
+    quality_entropy_threshold: float = 0.85
+    fuse_sampling: bool = True
+    decode_steps: int = 1
+    temperature: float = 0.0         # used only without SamplingParams
+    seed: int = 0
+    dtype: str = "float32"
+    measure_phases: bool = False     # block per phase for timing benches
+    kernel_backend: str = "auto"
+    decode_kernel: str = "ragged"
+
+
+def unported_options(opts: EngineOptions) -> List[str]:
+    """Engine knobs whose settings the port does not support yet."""
+    out = []
+    if opts.preemption_mode != "recompute" or opts.swap_space_blocks:
+        out.append("swap preemption (preemption_mode / swap_space_blocks)")
+    if opts.cache_compressed_prefixes:
+        out.append("cache_compressed_prefixes")
+    if opts.decode_steps != 1:
+        out.append(f"decode_steps={opts.decode_steps}")
+    if not opts.fuse_sampling:
+        out.append("fuse_sampling=False")
+    if opts.decode_kernel != "ragged":
+        out.append(f"decode_kernel={opts.decode_kernel!r}")
+    if opts.kernel_backend != "auto":
+        out.append(f"kernel_backend={opts.kernel_backend!r} (kernels follow "
+                   "the device)")
+    if opts.dtype != "float32":
+        out.append(f"dtype={opts.dtype!r}")
+    if opts.compress.redundancy == "flash":
+        out.append("compress.redundancy='flash'")
+    if opts.compress.backend != "auto":
+        out.append(f"compress.backend={opts.compress.backend!r}")
+    return out
+
+
+class ZipageEngine:
+    def __init__(self, cfg: ArchConfig, params, opts: EngineOptions,
+                 device=None):
+        lm.check_supported(cfg)
+        missing = unported_options(opts)
+        if missing:
+            raise NotImplementedError(
+                "not ported to repro_torch yet: " + "; ".join(missing))
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, "
+                             f"the engine runs on {self.device}")
+        self.cfg = cfg
+        self.opts = opts
+        self.params = params
+        b = opts.block_size
+        assert opts.window == opts.compress.window
+        self.compression_enabled = opts.n_max is not None
+        self.budget_blocks = (opts.n_max - 1) if self.compression_enabled else 0
+        self.max_blocks = -(-opts.max_model_len // b)
+        self.spec = serve_model.ServeSpec(
+            n_slots=opts.max_batch, block_size=b, max_blocks=self.max_blocks,
+            n_total_blocks=opts.n_total_blocks, m_qslots=opts.m_qslots,
+            window=opts.window, prefill_rows=opts.prefill_rows,
+            prefill_len=opts.prefill_len)
+        self.prefix_ok = opts.prefix_caching
+        self.state = serve_model.make_state(cfg, self.spec, self.device)
+        self.scheduler = Scheduler(
+            SchedulerParams(
+                block_size=b, max_batch=opts.max_batch,
+                m_qslots=opts.m_qslots, n_max=opts.n_max,
+                window=opts.window, scheduling=opts.scheduling,
+                async_compression=opts.async_compression,
+                prefill_rows=opts.prefill_rows,
+                policy=opts.policy, preemption=opts.preemption,
+                preemption_mode=opts.preemption_mode,
+                swap_cost_per_token=opts.swap_cost_per_token,
+                block_bytes=self._kv_block_bytes(),
+                token_budget=opts.token_budget,
+                max_prefill_chunk=opts.max_prefill_chunk,
+                admission_margin=opts.admission_margin,
+                quality_aware=opts.quality_aware,
+                compression_deferral=opts.compression_deferral,
+                quality_defer_min_free=opts.quality_defer_min_free,
+                quality_entropy_threshold=opts.quality_entropy_threshold,
+                cache_compressed_prefixes=False,
+                decode_steps=opts.decode_steps,
+                compression_enabled=self.compression_enabled,
+                budget_blocks=self.budget_blocks,
+                prefix_ok=self.prefix_ok, attention_free=False,
+                ring_blocks=0),
+            BlockManager(opts.n_total_blocks, b,
+                         enable_prefix_cache=self.prefix_ok,
+                         swap_space_blocks=0,
+                         prefix_cache_policy=opts.prefix_cache_policy,
+                         prefix_cache_watermark=opts.prefix_cache_watermark))
+        self._prefill = serve_model.build_prefill_step(cfg, self.spec)
+        self._fused = serve_model.build_fused_decode_step(cfg, self.spec)
+        self._compress_fns: Dict[int, callable] = {}
+        # host mirrors of the device tables (rebuilt from scheduler state
+        # before each push)
+        self.host_bt = np.full((opts.max_batch, self.max_blocks), -1, np.int32)
+        self.host_seq = np.zeros((opts.max_batch,), np.int32)
+        self.host_pos = np.zeros((opts.max_batch,), np.int32)
+        self.host_qslot = np.full((opts.max_batch,), -1, np.int32)
+        self.tokens_next = np.zeros((opts.max_batch,), np.int64)
+        # dirty tracking: device tables are re-pushed only when the
+        # scheduler's state version moved past what was last uploaded;
+        # the sampling-state mirrors track what lives on the device
+        self._pushed_version = -1
+        self._tokens_dirty = True
+        self._dev_mask: Optional[np.ndarray] = None
+        self._dev_counters: Optional[np.ndarray] = None
+        self._samp_version = -1
+        self._samp_arrays = None
+        self._eos_width = 1
+        self._t_blocked = 0.0
+        self._step_decoded = 0
+        self._last_horizon = 0
+        self._step_pages_visited = 0
+        self._step_pages_dense = 0
+        self._rid = 0
+        self._pending_quality = None
+        self.metrics: List[dict] = []
+        self.step_hooks = []
+        self.step_count = 0
+        if self.device.type == "cuda":
+            native.build_all()       # compile before the first step, not in it
+
+    # ------------------------------------------------------------------
+    # scheduler views
+
+    @property
+    def bm(self) -> BlockManager:
+        return self.scheduler.bm
+
+    @property
+    def waiting(self):
+        return self.scheduler.waiting
+
+    @property
+    def running(self) -> List[Request]:
+        return self.scheduler.running
+
+    @property
+    def finished(self) -> Dict[int, Request]:
+        return self.scheduler.finished
+
+    # ------------------------------------------------------------------
+    def add_request(self, prompt, sampling: Optional[SamplingParams] = None,
+                    priority: int = 0) -> int:
+        if sampling is None:
+            sampling = SamplingParams(temperature=self.opts.temperature,
+                                      seed=self._default_seed())
+        if len(prompt) + sampling.max_new_tokens > self.opts.max_model_len:
+            raise ValueError("request exceeds max_model_len")
+        rid = self._rid
+        self._rid += 1
+        self.scheduler.add_request(Request(
+            rid=rid, prompt=list(map(int, prompt)),
+            max_new_tokens=sampling.max_new_tokens, sampling=sampling,
+            priority=priority, arrival=time.monotonic()))
+        return rid
+
+    def _default_seed(self) -> int:
+        return (self.opts.seed * 1_000_003 + self._rid) & 0xFFFFFFFF
+
+    def abort(self, rid: int) -> bool:
+        r = self.scheduler.abort(rid)
+        if r is None:
+            return False
+        r.state = State.FINISHED
+        r.finish_reason = FinishReason.ABORT
+        r.t_finish = time.monotonic()
+        self.scheduler.finished[rid] = r
+        return True
+
+    # ------------------------------------------------------------------
+    # device traffic
+
+    def _dev(self, a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    def _fetch(self, *xs):
+        """Device->host read; the wait counts as blocked-on-device time
+        (the ``t_device`` share of the per-step metrics)."""
+        t = time.monotonic()
+        out = tuple(x.cpu().numpy() for x in xs)
+        self._t_blocked += time.monotonic() - t
+        return out if len(out) > 1 else out[0]
+
+    def _sync(self):
+        t = time.monotonic()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._t_blocked += time.monotonic() - t
+
+    def _kv_block_bytes(self) -> int:
+        pools = self.state["pools"]
+        return int(sum(leaf.numel() // leaf.shape[1] * leaf.element_size()
+                       for leaf in pools.values()))
+
+    def _push_host_state(self, force: bool = False):
+        v = self.scheduler.version
+        if not force and v == self._pushed_version:
+            return
+        self.host_bt.fill(-1)
+        self.host_qslot.fill(-1)
+        for r in self.scheduler.running:
+            if r.slot < 0:
+                continue
+            self.host_bt[r.slot, :r.n_blocks] = r.blocks
+            self.host_seq[r.slot] = r.seq_len
+            self.host_pos[r.slot] = r.position
+            self.host_qslot[r.slot] = r.qslot
+        self.state["block_tables"] = self._dev(self.host_bt)
+        self.state["seq_lens"] = self._dev(self.host_seq)
+        self.state["positions"] = self._dev(self.host_pos)
+        self.state["qslot"] = self._dev(self.host_qslot)
+        self._pushed_version = v
+
+    # ------------------------------------------------------------------
+    # plan execution: prefill
+
+    def _run_prefill(self, chunks: Sequence[PrefillChunk]):
+        """Execute the planned prefill chunks; a chunk longer than the
+        device bucket S is fed in several rounds, and only a request's
+        final chunk samples its first token."""
+        P, S = self.opts.prefill_rows, self.opts.prefill_len
+        remaining: Dict[int, List[int]] = {}
+        offset: Dict[int, int] = {}
+        final_chunk: Dict[int, bool] = {}
+        pending: List[Request] = []
+        for c in chunks:
+            r = c.request
+            remaining[r.rid] = list(r.full_prompt[c.start:c.start
+                                                  + c.n_tokens])
+            offset[r.rid] = c.start
+            final_chunk[r.rid] = c.is_final
+            pending.append(r)
+        while pending:
+            batch = pending[:P]
+            toks = np.zeros((P, S), np.int64)
+            slot_ids = np.full((P,), -1, np.int32)
+            lengths = np.zeros((P,), np.int32)
+            start = np.zeros((P,), np.int32)
+            rope = np.zeros((P,), np.int32)
+            final = []
+            for i, r in enumerate(batch):
+                chunk = remaining[r.rid][:S]
+                toks[i, :len(chunk)] = chunk
+                slot_ids[i] = r.slot
+                lengths[i] = len(chunk)
+                start[i] = offset[r.rid] - r.pos_gap
+                rope[i] = offset[r.rid]
+                remaining[r.rid] = remaining[r.rid][len(chunk):]
+                offset[r.rid] += len(chunk)
+                r.n_prefilled = offset[r.rid]
+                if not remaining[r.rid] and final_chunk[r.rid]:
+                    final.append((i, r, len(chunk)))
+            self._push_host_state()
+            logits = self._prefill(
+                self.params, self.state, self._dev(toks), self._dev(slot_ids),
+                self._dev(lengths), self._dev(start),
+                rope_start=self._dev(rope))
+            if final:
+                row_reqs: List[Optional[Request]] = [None] * P
+                for i, r, _n in final:
+                    row_reqs[i] = r
+                tok, lp = self._sample_rows(logits, row_reqs)
+                for i, r, chunk_len in final:
+                    self.tokens_next[r.slot] = tok[i]
+                    self._tokens_dirty = True
+                    self._record_token(r, tok[i],
+                                       None if lp is None else lp[i])
+                    if r.qslot >= 0:
+                        r.win_count = min(self.opts.window, chunk_len)
+            still = [r for r in batch if remaining[r.rid]]
+            pending = still + pending[P:]
+
+    def _sample_rows(self, logits, reqs: Sequence[Optional[Request]]):
+        """One token per row; ``reqs[i]`` occupies row i (None = padding).
+        All-greedy batches without logprobs take the argmax alone. Returns
+        (tokens, logprobs) as numpy; logprobs is None on that fast path."""
+        if not any(r is not None and (not r.sampling.is_greedy
+                                      or r.sampling.logprobs)
+                   for r in reqs):
+            return self._fetch(torch.argmax(logits, -1)), None
+        n = logits.shape[0]
+        seeds = np.zeros((n,), np.int64)
+        counters = np.zeros((n,), np.int64)
+        temps = np.zeros((n,), np.float32)
+        top_k = np.zeros((n,), np.int32)
+        top_p = np.ones((n,), np.float32)
+        for i, r in enumerate(reqs):
+            if r is None:
+                continue
+            sp = r.sampling
+            seeds[i] = sp.seed & 0xFFFFFFFF
+            counters[i] = len(r.output)
+            temps[i] = sp.temperature
+            top_k[i] = sp.top_k
+            top_p[i] = sp.top_p
+        noise = sampling_noise(seeds, counters, temps > 0, logits.shape[-1],
+                               self.device)
+        tok, lp = sample_batch(logits, noise, self._dev(temps),
+                               self._dev(top_k), self._dev(top_p))
+        return self._fetch(tok, lp)
+
+    @staticmethod
+    def _record_token(r: Request, tok: int, lp) -> None:
+        r.output.append(int(tok))
+        if r.sampling.logprobs and lp is not None:
+            r.logprobs.append(float(lp))
+        if r.t_first_token is None:
+            r.t_first_token = time.monotonic()
+
+    # ------------------------------------------------------------------
+    # plan execution: compression
+
+    def _compress_fn(self, width):
+        fn = self._compress_fns.get(width)
+        if fn is None:
+            fn = build_compress_fn(
+                self.cfg, block_size=self.opts.block_size, max_blocks=width,
+                budget_blocks=self.budget_blocks, opts=self.opts.compress)
+            self._compress_fns[width] = fn
+        return fn
+
+    def _launch_compression(self, outs: SchedulerOutputs):
+        """Run the compression over the planned launches, then let the
+        scheduler commit the (deterministic) host bookkeeping. On a card
+        the kernels are queued and the host goes on; the quality stats are
+        read at the start of the next step."""
+        planned = outs.compress
+        if not planned:
+            return
+        n = 1
+        while n < len(planned):
+            n *= 2
+        width = ops.block_table_width(
+            max(c.request.n_blocks for c in planned), self.max_blocks)
+        src_bt = np.full((n, width), -1, np.int32)
+        dest_bt = np.full((n, self.budget_blocks), -1, np.int32)
+        qslots = np.full((n,), -1, np.int32)
+        seq_lens = np.zeros((n,), np.int32)
+        hist = np.zeros((n,), np.int32)
+        for i, c in enumerate(planned):
+            r = c.request
+            src_bt[i, :r.n_blocks] = r.blocks
+            dest_bt[i] = c.dest
+            qslots[i] = r.qslot
+            seq_lens[i] = r.seq_len
+            hist[i] = self.budget_blocks * self.opts.block_size \
+                if r.compressed else 0
+        req = tuple(self._dev(a) for a in (src_bt, dest_bt, qslots,
+                                           seq_lens, hist))
+        _, qstats = self._compress_fn(width)(self.state["pools"],
+                                             self.state["qwin"], req)
+        self._pending_quality = ([c.request.rid for c in planned], qstats)
+        self.scheduler.commit_compression(outs)
+        if self.opts.measure_phases or not self.opts.async_compression:
+            self._sync()
+
+    def _drain_quality_stats(self):
+        pq = self._pending_quality
+        if pq is None:
+            return
+        self._pending_quality = None
+        rids, dev = pq
+        stats = self._fetch(dev)
+        live = {r.rid: r for r in self.scheduler.running}
+        for i, rid in enumerate(rids):
+            r = live.get(rid)
+            if r is None:
+                continue
+            r.redundancy = float(stats[i, 0])
+            r.attn_entropy = float(stats[i, 1])
+
+    # ------------------------------------------------------------------
+    # plan execution: fused decode
+
+    def _advance_decoded(self, r: Request) -> None:
+        if r.qslot >= 0:
+            r.win_count = min(self.opts.window, r.win_count + 1)
+        r.seq_len += 1
+        r.position += 1
+        self.host_seq[r.slot] = r.seq_len
+        self.host_pos[r.slot] = r.position
+        self._step_decoded += 1
+
+    def _track_pages(self, active, caps, k):
+        """Page-visit telemetry: the ragged decode kernel reads
+        ``ceil(attend_len / b)`` pages per row, while a dense-grid launch
+        would pay ``max_blocks`` for every slot. Host arithmetic only."""
+        b = self.opts.block_size
+        for r, c in zip(active, caps):
+            self._step_pages_visited += sum(
+                -(-(r.seq_len + j + 1) // b) for j in range(c))
+        self._step_pages_dense += k * self.opts.max_batch * self.max_blocks
+
+    def _sampling_tensors(self):
+        """Per-slot sampling parameters, rebuilt only when the scheduler's
+        slot assignments changed. Returns (seeds (host), temps (host),
+        device temps, top_k, top_p, eos)."""
+        v = self.scheduler.version
+        if self._samp_arrays is not None and self._samp_version == v:
+            return self._samp_arrays
+        B = self.opts.max_batch
+        seeds = np.zeros((B,), np.int64)
+        temps = np.zeros((B,), np.float32)
+        top_k = np.zeros((B,), np.int32)
+        top_p = np.ones((B,), np.float32)
+        e = self._eos_width
+        for r in self.scheduler.running:
+            if r.slot >= 0 and r.sampling.eos_ids:
+                e = max(e, len(r.sampling.eos_ids))
+        self._eos_width = 1 << (e - 1).bit_length()
+        eos = np.full((B, self._eos_width), -1, np.int64)
+        for r in self.scheduler.running:
+            if r.slot < 0:
+                continue
+            sp = r.sampling
+            seeds[r.slot] = sp.seed & 0xFFFFFFFF
+            temps[r.slot] = sp.temperature
+            top_k[r.slot] = sp.top_k
+            top_p[r.slot] = sp.top_p
+            if sp.eos_ids:
+                eos[r.slot, :len(sp.eos_ids)] = sp.eos_ids
+        self._samp_arrays = (seeds, temps, self._dev(temps), self._dev(top_k),
+                             self._dev(top_p), self._dev(eos))
+        self._samp_version = v
+        return self._samp_arrays
+
+    def _push_sampling_state(self, active):
+        """Sync the device-carried sampling state with the host's view,
+        pushing only what diverged."""
+        B = self.opts.max_batch
+        mask = np.zeros((B,), bool)
+        counters = np.zeros((B,), np.int32)
+        for r in active:
+            mask[r.slot] = True
+            counters[r.slot] = len(r.output)
+        if self._dev_mask is None \
+                or not np.array_equal(mask, self._dev_mask):
+            self.state["active_mask"] = self._dev(mask)
+        if self._dev_counters is None \
+                or not np.array_equal(counters, self._dev_counters):
+            self.state["sample_counters"] = self._dev(counters)
+        if self._tokens_dirty:
+            self.state["tokens_next"] = self._dev(self.tokens_next)
+            self._tokens_dirty = False
+        self._dev_mask = mask
+        self._dev_counters = counters
+
+    def _run_decode_fused(self, active, plan=None):
+        if not active:
+            return
+        K, caps = self.scheduler.quiescent_horizon(active, plan)
+        self._last_horizon = K
+        self._track_pages(active, caps, K)
+        self._push_host_state()
+        self._push_sampling_state(active)
+        seeds, temps_host, temps, top_k, top_p, eos = self._sampling_tensors()
+        caps_arr = np.zeros((self.opts.max_batch,), np.int32)
+        for r, c in zip(active, caps):
+            caps_arr[r.slot] = c
+        sampled = temps_host > 0
+        noise = None
+        if sampled.any():
+            noise = sampling_noise(seeds, self._dev_counters, sampled,
+                                   self.cfg.vocab_size, self.device)
+        tok, lp = self._fused(self.params, self.state, self._dev(caps_arr),
+                              temps, top_k, top_p, eos, noise)
+        tok, lp = self._fetch(tok, lp)
+        for r in active:
+            t = int(tok[r.slot])
+            self.tokens_next[r.slot] = t
+            self._dev_counters[r.slot] += 1
+            self._record_token(r, t, float(lp[r.slot]))
+            self._advance_decoded(r)
+            sp = r.sampling
+            if sp.eos_ids is not None and t in sp.eos_ids:
+                self._dev_mask[r.slot] = False
+
+    # ------------------------------------------------------------------
+    def step(self):
+        """One serving step: ask the scheduler for a plan, execute it."""
+        t0 = time.monotonic()
+        self._drain_quality_stats()
+        self._t_blocked = 0.0
+        self._step_decoded = 0
+        self._last_horizon = 0
+        self._step_pages_visited = 0
+        self._step_pages_dense = 0
+        self.step_count += 1
+        plan = self.scheduler.schedule(self.step_count)
+        t_admit = time.monotonic()
+        if plan.prefill_chunks:
+            self._run_prefill(plan.prefill_chunks)
+            if self.opts.measure_phases:
+                self._sync()
+        t_prefill = time.monotonic()
+        self.scheduler.plan_compression(plan)
+        self._launch_compression(plan)
+        t_comp = time.monotonic()
+        active = self.scheduler.schedule_decode(plan)
+        self._run_decode_fused(active, plan)
+        if self.opts.measure_phases:
+            self._sync()
+        t_dec = time.monotonic()
+        self.scheduler.end_step(plan)
+        used = self.opts.n_total_blocks - self.bm.num_free
+        entry = {
+            "step": self.step_count,
+            "t_total": t_dec - t0,
+            "t_prefill": t_prefill - t_admit,
+            "t_compress": t_comp - t_prefill,
+            "t_decode": t_dec - t_comp,
+            # host planning/bookkeeping vs blocked-on-device split
+            "t_device": self._t_blocked,
+            "t_host": max(0.0, (t_dec - t0) - self._t_blocked),
+            "n_running": len(self.scheduler.running),
+            "n_waiting": len(self.scheduler.waiting),
+            "n_active": len(active),
+            "n_compressing": len(plan.compress),
+            "n_prefilled": len(plan.admitted),
+            "block_util": used / self.opts.n_total_blocks,
+            "tokens": self._step_decoded + len(plan.admitted),
+            "decode_horizon": self._last_horizon,
+            "pages_visited": self._step_pages_visited,
+            "pages_dense": self._step_pages_dense,
+        }
+        entry.update(self.scheduler.stats(plan,
+                                          n_decoded=self._step_decoded))
+        self.metrics.append(entry)
+        self.scheduler.observe_latency(
+            (t_dec - t0) / max(1, self._last_horizon))
+        for hook in self.step_hooks:
+            hook(entry)
+
+    def run(self, max_steps=10_000):
+        while self.scheduler.has_work() and self.step_count < max_steps:
+            self.step()
+        return {r.rid: r for r in self.scheduler.finished.values()}

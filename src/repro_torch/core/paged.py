@@ -1,0 +1,134 @@
+"""Paged KV-pool operations in plain PyTorch (``repro.core.paged``).
+
+Pool layout per attention layer: ``(N_total, b, h_kv, d)`` for K and V.
+Block tables are ``(B, max_blocks)`` int32, padded with ``-1``.
+
+The JAX package writes with ``.at[idx].set(..., mode="drop")`` and an
+out-of-range sentinel for rows that must not write. PyTorch has no dropping
+scatter, and selecting the writing rows with a boolean mask would make the
+host wait for the device on every write. So the port's pools carry one
+extra page at the end, the *sink*: block tables never map it, and a write
+that must be dropped is sent there instead (``sink_page``). Writes update
+the pool in place.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+# ----------------------------------------------------------------------
+# writes (in place)
+
+def scatter_token(pool, block_tables, positions, values):
+    """Write one token per request into its page slot.
+
+    pool: (N_total + 1, b, ...) with the sink page last; block_tables:
+    (B, max_blocks); positions: (B,) cache position; values: (B, ...).
+    Rows with position < 0 write nothing (inactive slots).
+    """
+    scatter_positions(pool, block_tables, positions[:, None],
+                      values[:, None])
+
+
+def sink_page(pool) -> int:
+    """Index of the pool's sink page (the last one), where dropped writes
+    go."""
+    return pool.shape[0] - 1
+
+
+def scatter_positions(pool, block_tables, wpos, values):
+    """Write (B, S, ...) values at cache positions ``wpos`` (B, S);
+    entries with wpos < 0 go to the sink page. block_tables:
+    (B, max_blocks)."""
+    b = pool.shape[1]
+    live = wpos >= 0
+    pos = torch.where(live, wpos, torch.zeros_like(wpos)).long()
+    blk = torch.gather(block_tables.long(), 1, pos // b)
+    idx = torch.where(live, blk * b + pos % b, sink_page(pool) * b)
+    flat = pool.view((-1,) + tuple(pool.shape[2:]))
+    flat[idx.reshape(-1)] = values.reshape(
+        (-1,) + tuple(values.shape[2:])).to(pool.dtype)
+
+
+def scatter_prefill(pool, block_tables, values, lengths, start=None):
+    """Write a whole prefill segment. values: (B, S, ...); lengths: (B,)
+    total valid cache length; start: (B,) first cache position."""
+    B, S = values.shape[:2]
+    ar = torch.arange(S, device=values.device)[None, :]
+    st = torch.zeros_like(lengths) if start is None else start
+    pos = ar + st[:, None]
+    wpos = torch.where(pos < lengths[:, None], pos, torch.full_like(pos, -1))
+    scatter_positions(pool, block_tables, wpos, values)
+
+
+# ----------------------------------------------------------------------
+# reads
+
+def gather_entries(pool, block_tables):
+    """Gather each request's pages into cache order.
+
+    pool: (N_total, b, ...); block_tables: (B, max_blocks). Returns
+    (B, max_blocks*b, ...). ``-1`` entries read page 0 — callers mask by
+    seq_len.
+    """
+    out = pool[block_tables.long().clamp(min=0)]       # (B, mb, b, ...)
+    return out.reshape((out.shape[0], -1) + tuple(out.shape[3:]))
+
+
+# ----------------------------------------------------------------------
+# attention
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, seq_lens):
+    """One-token GQA attention against the paged pool (the dense
+    reference). q: (B, h_q, d); pools: (N, b, h_kv, d). Returns
+    (B, h_q, d). Masked V lanes are zeroed before ``p·V``: a masked
+    position carries zero probability, but the gathered V there is pool
+    garbage and 0·NaN = NaN."""
+    B, hq, d = q.shape
+    hkv = k_pool.shape[2]
+    g = hq // hkv
+    ks = gather_entries(k_pool, block_tables)          # (B, T, hkv, d)
+    vs = gather_entries(v_pool, block_tables)
+    T = ks.shape[1]
+    qg = q.reshape(B, hkv, g, d).float()
+    s = torch.einsum("bhgd,bthd->bhgt", qg, ks.float()) / math.sqrt(d)
+    mask = torch.arange(T, device=q.device)[None, :] < seq_lens[:, None]
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, -1)
+    vs = torch.where(mask[..., None, None], vs.float(),
+                     torch.zeros((), device=q.device))
+    o = torch.einsum("bhgt,bthd->bhgd", p, vs)
+    return o.reshape(B, hq, d).to(q.dtype)
+
+
+def paged_prefill_attention(q, k_pool, v_pool, block_tables, q_start,
+                            kv_lens):
+    """Prefill chunk attention against pages (no kernel: plain PyTorch, as
+    in the JAX package).
+
+    q: (B, S, h_q, d) at cache positions q_start + arange(S); kv_lens: (B,)
+    valid cache entries including this chunk, already written. Causal
+    within the chunk.
+    """
+    B, S, hq, d = q.shape
+    hkv = k_pool.shape[2]
+    g = hq // hkv
+    ks = gather_entries(k_pool, block_tables)
+    vs = gather_entries(v_pool, block_tables)
+    T = ks.shape[1]
+    qg = q.reshape(B, S, hkv, g, d).float()
+    s = torch.einsum("bshgd,bthd->bhgst", qg, ks.float()) / math.sqrt(d)
+    qpos = q_start[:, None] + torch.arange(S, device=q.device)[None]
+    kpos = torch.arange(T, device=q.device)[None]
+    kv_valid = kpos < kv_lens[:, None]                             # (B, T)
+    mask = (kpos[:, None] <= qpos[..., None]) & kv_valid[:, None]  # (B,S,T)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, -1)
+    vs = torch.where(kv_valid[..., None, None], vs.float(),
+                     torch.zeros((), device=q.device))
+    o = torch.einsum("bhgst,bthd->bshgd", p, vs)
+    return o.reshape(B, S, hq, d).to(q.dtype)

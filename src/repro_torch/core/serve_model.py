@@ -1,0 +1,217 @@
+"""Serving-time model execution over the paged KV pool, dense GQA
+(``repro.core.serve_model`` for the layer kind the port serves).
+
+State layout (a dict of tensors on one device; the steps update it in
+place where the JAX package returned a new state):
+  pools:  {"k", "v": (L, N + 1, b, h_kv, d), "f": (L, N + 1, b, h_kv)}
+  qwin:   (L, M + 1, w, h_q, d) ring-ordered observation-window queries
+The extra last page of the pools and the extra last query slot are sinks:
+nothing maps them, and writes that must be dropped land there
+(``paged.sink_page``).
+  block_tables (B, max_blocks) int32, seq_lens (B,), positions (B,),
+  qslot (B,) int32, and the fused-decode carry tokens_next (B,),
+  active_mask (B,) bool, sample_counters (B,).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import paged
+from repro_torch.core.sampling import sample_batch
+from repro_torch.kernels import ops
+from repro_torch.models import layers as ML
+from repro_torch.models import lm
+from repro_torch.models.common import apply_norm, apply_rope
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeSpec:
+    n_slots: int                # decode batch slots
+    block_size: int
+    max_blocks: int             # block-table width per request
+    n_total_blocks: int         # pool size
+    m_qslots: int               # query-slot pool (paper's M)
+    window: int = 16            # observation window w
+    prefill_rows: int = 4       # prefill bucket rows
+    prefill_len: int = 256      # padded prefill length
+
+
+def make_state(cfg: ArchConfig, spec: ServeSpec, device) -> dict:
+    lm.check_supported(cfg)
+    L, B = cfg.num_layers, spec.n_slots
+    N, b = spec.n_total_blocks, spec.block_size
+    h, d = cfg.num_kv_heads, cfg.head_dim
+    f32, i32 = torch.float32, torch.int32
+    return {
+        "block_tables": torch.full((B, spec.max_blocks), -1, dtype=i32,
+                                   device=device),
+        "seq_lens": torch.zeros(B, dtype=i32, device=device),
+        "positions": torch.zeros(B, dtype=i32, device=device),
+        "qslot": torch.full((B,), -1, dtype=i32, device=device),
+        "pools": {"k": torch.zeros((L, N + 1, b, h, d), dtype=f32,
+                                   device=device),
+                  "v": torch.zeros((L, N + 1, b, h, d), dtype=f32,
+                                   device=device),
+                  "f": torch.zeros((L, N + 1, b, h), dtype=f32,
+                                   device=device)},
+        "qwin": torch.zeros((L, spec.m_qslots + 1, spec.window,
+                             cfg.num_heads, d), dtype=f32, device=device),
+        "tokens_next": torch.zeros(B, dtype=torch.int64, device=device),
+        "active_mask": torch.zeros(B, dtype=torch.bool, device=device),
+        "sample_counters": torch.zeros(B, dtype=i32, device=device),
+    }
+
+
+def _write_qwin(qwin_l, rows, qslot, ring_pos, q):
+    """Write q into the ring pool at (qslot, ring_pos % w) where ``rows``
+    holds; other entries go to the sink slot (the last)."""
+    M1, w = qwin_l.shape[:2]
+    flat = qwin_l.view((M1 * w,) + tuple(qwin_l.shape[2:]))
+    idx = torch.where(rows, qslot.long() * w + ring_pos.long() % w,
+                      (M1 - 1) * w)
+    flat[idx.reshape(-1)] = q.reshape((-1,) + tuple(q.shape[-2:])).to(
+        flat.dtype)
+
+
+def build_decode_step(cfg: ArchConfig, spec: ServeSpec):
+    """decode_step(params, state, tokens, active) -> logits (B, V) fp32.
+
+    tokens: (B,) int; active: (B,) bool. Inactive slots produce garbage
+    logits and leave all their state untouched: they write no KV and no
+    observation-window query (their ring position is frozen, so a write
+    would overwrite an entry compression scoring still needs).
+    """
+    lm.check_supported(cfg)
+
+    def step(params, state, tokens, active):
+        x = params["embed"][tokens]
+        positions = state["positions"]
+        seq = state["seq_lens"]
+        bt = state["block_tables"]
+        qslot = state["qslot"]
+        write_pos = torch.where(active, seq, torch.full_like(seq, -1))
+        attend_len = seq + 1
+        live_q = (qslot >= 0) & active
+        pools, qwin = state["pools"], state["qwin"]
+        B = x.shape[0]
+        for li, p in enumerate(params["layers"]):
+            h = apply_norm(cfg, p["ln1"], x)
+            q, k, v = ML.attn_qkv(cfg, p["attn"], h)          # (B, h, d)
+            q = apply_rope(q[:, None], positions[:, None], cfg.rope_theta)[:, 0]
+            k = apply_rope(k[:, None], positions[:, None], cfg.rope_theta)[:, 0]
+            k_l, v_l = pools["k"][li], pools["v"][li]
+            paged.scatter_token(k_l, bt, write_pos, k)
+            paged.scatter_token(v_l, bt, write_pos, v)
+            o = ops.ragged_decode_attention(q, k_l, v_l, bt, attend_len)
+            _write_qwin(qwin[li], live_q, qslot, seq, q)
+            x = x + o.reshape(B, -1) @ p["attn"]["wo"]
+            x = x + ML.ffn_forward(cfg, p["ffn"],
+                                   apply_norm(cfg, p["ln2"], x))
+        x = apply_norm(cfg, params["final_norm"], x)
+        logits = (x @ lm.unembed_matrix(cfg, params)).float()
+        inc = active.to(seq.dtype)
+        state["seq_lens"] = seq + inc
+        state["positions"] = positions + inc
+        return logits
+
+    return step
+
+
+def build_fused_decode_step(cfg: ArchConfig, spec: ServeSpec):
+    """One decode+sample iteration on the device-carried sampling state
+    (``decode_steps=1`` of the JAX package's fused step).
+
+    fused(params, state, step_caps, temps, top_k, top_p, eos_ids,
+          noise=None) -> (tokens (B,), logprobs (B,))
+
+    A row decodes if its ``active_mask`` bit is set and its cap is > 0.
+    ``tokens_next``, ``sample_counters`` and ``active_mask`` advance on the
+    device, so consecutive steps chain without the host writing them; a
+    row that samples one of its ``eos_ids`` (padded with -1) clears its own
+    mask bit. ``noise`` is the (B, V) uniform noise of ``sample_batch``
+    (``sampling.sampling_noise``); ``None`` means every row is greedy, and
+    then no sort and no noise are needed.
+    """
+    core = build_decode_step(cfg, spec)
+
+    def fused(params, state, step_caps, temps, top_k, top_p, eos_ids,
+              noise=None):
+        gate = state["active_mask"] & (step_caps > 0)
+        logits = core(params, state, state["tokens_next"], gate)
+        if noise is not None:
+            tok, lp = sample_batch(logits, noise, temps, top_k, top_p)
+        else:
+            tok = torch.argmax(logits, -1)
+            lp = torch.gather(torch.log_softmax(logits, -1), 1,
+                              tok[:, None])[:, 0]
+        tok = torch.where(gate, tok, state["tokens_next"])
+        eos_hit = gate & (tok[:, None] == eos_ids).any(-1)
+        state["tokens_next"] = tok
+        state["sample_counters"] = state["sample_counters"] + gate.to(
+            state["sample_counters"].dtype)
+        state["active_mask"] = state["active_mask"] & ~eos_hit
+        return tok, lp
+
+    return fused
+
+
+def build_prefill_step(cfg: ArchConfig, spec: ServeSpec):
+    """prefill_step(params, state, tokens, slot_ids, lengths, start_pos,
+    rope_start=None) -> last-token logits (P, V).
+
+    tokens: (P, S) padded prompts; slot_ids: (P,) destination slots (-1 =
+    padding row); lengths: (P,) valid length; start_pos: (P,) KV entries
+    already cached (the cache-write index of each row's first token);
+    rope_start: (P,) the rotary position of that token, defaulting to
+    start_pos. The caller must have installed block tables / seq_lens for
+    these slots first. Writes K/V into the pools and seeds the observation
+    window with each row's last ``window`` queries.
+    """
+    lm.check_supported(cfg)
+    w_obs = spec.window
+
+    def step(params, state, tokens, slot_ids, lengths, start_pos,
+             rope_start=None):
+        P, S = tokens.shape
+        dev = tokens.device
+        x = params["embed"][tokens]
+        if rope_start is None:
+            rope_start = start_pos
+        ar = torch.arange(S, device=dev)[None]
+        positions = rope_start[:, None] + ar
+        valid = ar < lengths[:, None]
+        row_ok = slot_ids >= 0
+        slot_c = slot_ids.clamp(min=0).long()
+        bt = state["block_tables"][slot_c]
+        cache_pos = start_pos[:, None] + ar
+        wpos = torch.where(valid & row_ok[:, None], cache_pos,
+                           torch.full_like(cache_pos, -1))
+        kv_lens = start_pos + lengths
+        qslot = state["qslot"][slot_c]
+        in_win = valid & (cache_pos >= kv_lens[:, None] - w_obs) \
+            & ((qslot >= 0) & row_ok)[:, None]
+        qslot_rows = qslot[:, None].expand(P, S)
+        pools, qwin = state["pools"], state["qwin"]
+        for li, p in enumerate(params["layers"]):
+            h = apply_norm(cfg, p["ln1"], x)
+            q, k, v = ML.attn_qkv(cfg, p["attn"], h)       # (P, S, h, d)
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+            k_l, v_l = pools["k"][li], pools["v"][li]
+            paged.scatter_positions(k_l, bt, wpos, k)
+            paged.scatter_positions(v_l, bt, wpos, v)
+            o = paged.paged_prefill_attention(q, k_l, v_l, bt, start_pos,
+                                              kv_lens)
+            _write_qwin(qwin[li], in_win, qslot_rows, cache_pos, q)
+            x = x + o.reshape(P, S, -1) @ p["attn"]["wo"]
+            x = x + ML.ffn_forward(cfg, p["ffn"],
+                                   apply_norm(cfg, p["ln2"], x))
+        x = apply_norm(cfg, params["final_norm"], x)
+        last = (lengths - 1).clamp(min=0).long()
+        x_last = x[torch.arange(P, device=dev), last]
+        return (x_last @ lm.unembed_matrix(cfg, params)).float()
+
+    return step

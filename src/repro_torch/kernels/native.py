@@ -1,0 +1,138 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``) into its own shared library
+with a plain C interface, and loaded with ``ctypes``. Building happens at
+first use, from the sources in the checkout, into ``_build/`` beside the
+package (listed in ``.gitignore``); a library is named after the hash of
+its sources and flags, so an edited kernel is rebuilt and an unchanged one
+is reused. Nothing here runs at import time: modules that import this one
+also run on machines without ``nvcc`` or a card.
+
+The launch counters live here too: each kernel wrapper adds one to its
+kernel's count right after a successful launch, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: kernel name -> source file under csrc/ (each also includes common.cuh)
+SOURCES = {
+    "ragged_paged_attention": "ragged_paged_attention.cu",
+    "paged_score": "paged_score.cu",
+    "lightning_redundancy": "redundancy.cu",
+}
+
+#: launches per kernel since the last ``reset_launch_counts()``
+launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_build_logs: Dict[str, str] = {}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "ragged_paged_attention_launch":
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "paged_score_launch":
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "lightning_redundancy_launch":
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+}
+
+
+def count_launch(name: str) -> None:
+    launch_counts[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin): "
+                       "the CUDA kernels are built from source at first use")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in (SOURCES[name], "common.cuh"):
+        h.update((CSRC / f).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every kernel library that is not built yet, with one
+    ``nvcc`` process per source, all started together. Returns each
+    kernel's compiler report (``-Xptxas -v``: registers, shared memory,
+    spills); raises with the compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name, src in SOURCES.items():
+        out = _lib_path(name)
+        log = out.with_suffix(".log")
+        if out.exists() and log.exists():
+            _build_logs[name] = log.read_text()
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, log)
+    failed = []
+    for name, (proc, tmp, out, log) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{text}")
+            continue
+        os.replace(tmp, out)
+        log.write_text(text)
+        _build_logs[name] = text
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return dict(_build_logs)
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in _ARGTYPES.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+        lib.zp_error_string.argtypes = [ctypes.c_int]
+        lib.zp_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
+
+def check(name: str, lib: ctypes.CDLL, code: int) -> None:
+    """Raise if a launch returned a CUDA error; else count the launch."""
+    if code != 0:
+        msg = lib.zp_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} at launch: {msg}")
+    count_launch(name)

@@ -1,0 +1,64 @@
+"""Paged observation-window attention logits (paper Alg. 1): the CUDA
+kernel's wrapper and its plain version.
+
+Replaces ``src/repro/kernels/paged_score.py`` (``paged_score_logits``).
+Contract: q_win (n, w, h_q, d) chronological window queries; pool
+(N, b, h_kv, d); block_tables (n, mb) int32; seq_lens (n,) int32. Returns
+logits (n, h_kv, g, w, mb*b) float32, Q_win·Kᵀ/√d where
+kpos <= seq_len - w + u and kpos < seq_len, and -1e30 elsewhere.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.paged import NEG_INF, gather_entries
+from repro_torch.kernels import native
+from repro_torch.kernels._checks import cuda_tensor, require
+
+NAME = "paged_score"
+
+
+def paged_score_logits_plain(q_win, k_pages, block_tables, seq_lens):
+    n, w, hq, d = q_win.shape
+    hkv = k_pages.shape[2]
+    g = hq // hkv
+    ks = gather_entries(k_pages, block_tables)            # (n, T, hkv, d)
+    T = ks.shape[1]
+    qg = q_win.reshape(n, w, hkv, g, d).float()
+    s = torch.einsum("nwhgd,nthd->nhgwt", qg, ks.float()) / math.sqrt(d)
+    ar = torch.arange(T, device=q_win.device)
+    qpos = seq_lens[:, None] - w + torch.arange(w, device=q_win.device)
+    mask = (ar[None, None] <= qpos[..., None]) & \
+        (ar[None, None] < seq_lens[:, None, None])         # (n, w, T)
+    return torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+
+
+def paged_score_logits_cuda(q_win, k_pages, block_tables, seq_lens):
+    """Launch ``csrc/paged_score.cu`` on the current stream."""
+    dev = q_win.device
+    for arg, t in (("q_win", q_win), ("k_pages", k_pages)):
+        cuda_tensor(NAME, arg, t, torch.float32, dev)
+    for arg, t in (("block_tables", block_tables), ("seq_lens", seq_lens)):
+        cuda_tensor(NAME, arg, t, torch.int32, dev)
+    n, w, hq, d = q_win.shape
+    N, b, hkv, dk = k_pages.shape
+    require(dk == d and hq % hkv == 0, NAME,
+            f"q_win {tuple(q_win.shape)} vs pool {tuple(k_pages.shape)}")
+    require(block_tables.dim() == 2 and block_tables.shape[0] == n, NAME,
+            f"block_tables {tuple(block_tables.shape)} vs n={n}")
+    require(tuple(seq_lens.shape) == (n,), NAME, "seq_lens must be (n,)")
+    g = hq // hkv
+    mb = block_tables.shape[1]
+    out = torch.empty((n, hkv, g, w, mb * b), dtype=torch.float32,
+                      device=dev)
+    lib = native.library(NAME)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.paged_score_launch(
+            q_win.data_ptr(), k_pages.data_ptr(), block_tables.data_ptr(),
+            seq_lens.data_ptr(), out.data_ptr(), n, hkv, g, w, d, b, mb,
+            1.0 / math.sqrt(d), stream)
+    native.check(NAME, lib, code)
+    return out

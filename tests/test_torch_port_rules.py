@@ -1,0 +1,99 @@
+"""Rules of the port itself: it imports neither JAX nor the JAX package,
+and its entry points run on the card unless the caller asks for the CPU.
+"""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.api import Zipage
+from repro_torch.configs import get_config
+from repro_torch.core.engine import EngineOptions, ZipageEngine
+from repro_torch.device import resolve_device
+from repro_torch.models import lm
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
+    [REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+        elif isinstance(node, ast.Call) and node.args and isinstance(
+                node.args[0], ast.Constant) and isinstance(
+                    node.args[0].value, str) and (
+                getattr(node.func, "attr", None) == "import_module"
+                or getattr(node.func, "id", None) == "__import__"):
+            yield node.lineno, node.args[0].value
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    assert len(PORT_FILES) > 20
+    bad = [f"{p.relative_to(REPO)}:{line}: {mod}"
+           for p in PORT_FILES for line, mod in _imported_modules(p)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_scan_catches_a_forbidden_import(tmp_path):
+    f = tmp_path / "x.py"
+    f.write_text("import os\nfrom repro.core import paged\n"
+                 "importlib.import_module('jax.numpy')\n")
+    assert [m for _l, m in _imported_modules(f)] == \
+        ["os", "repro.core", "jax.numpy"]
+
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_need_a_card_by_default(monkeypatch):
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Zipage.from_config("tiny-lm")
+    cfg = get_config("tiny-lm")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ZipageEngine(cfg, params, EngineOptions())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Zipage(cfg, params)
+
+
+def test_cpu_when_asked(monkeypatch):
+    _no_card(monkeypatch)
+    assert resolve_device("cpu").type == "cpu"
+    z = Zipage.from_config("tiny-lm", device="cpu", block_size=8,
+                           n_total_blocks=16, max_batch=2, max_model_len=64,
+                           prefill_rows=1, prefill_len=32)
+    assert z.engine.device.type == "cpu"
+    assert z.engine.state["pools"]["k"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("knob", [
+    dict(preemption_mode="swap", swap_space_blocks=8),
+    dict(cache_compressed_prefixes=True),
+    dict(decode_steps=4),
+    dict(fuse_sampling=False),
+    dict(decode_kernel="dense"),
+    dict(dtype="bfloat16"),
+])
+def test_unported_knobs_raise(knob):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Zipage.from_config("tiny-lm", device="cpu", **knob)
+
+
+def test_unported_architectures_raise():
+    import dataclasses
+    cfg = dataclasses.replace(get_config("tiny-lm"), attn_type="mla")
+    with pytest.raises(NotImplementedError, match="attn_type"):
+        lm.init(cfg, torch.Generator(), "cpu")
