@@ -6,22 +6,31 @@
 Phases, each fatal on failure (exit code != 0, no result line):
 
   1. environment: the card (nvidia-smi), torch, CUDA and nvcc versions;
-  2. build: every CUDA kernel under src/repro_torch/csrc/ with nvcc for
-     sm_90a, one process per source, with the ptxas report;
-  3. kernels vs plain versions on the card, at the main path's shapes
+  2. build: all six CUDA kernels under src/repro_torch/csrc/ with nvcc for
+     sm_90a, one process per source, all started together, with the
+     ptxas report;
+  3. kernels vs plain versions on the card, at the serves' shapes
      (Qwen3-8B widths, engine defaults), over length mixes with
      seq_len == 0 rows, sub-block rows, full-table rows and a NaN-poisoned
-     page 0 that no live row maps;
-  4. card vs CPU: Qwen3-8B widths at reduced depth, one paged prefill and
-     a few decode steps through the same port on both devices;
-  5. full-width serve: ``Zipage.from_config("qwen3-8b")`` at the engine
-     defaults (36 layers, fp32, random weights from a seed) serves greedy
-     requests; compression must fire and every kernel must launch;
-  6. timing of each kernel at the serve's own inputs with CUDA events:
-     kernel, plain version, a library call where one computes the same
-     function, and the bound from bytes and flops;
-  7. a profiled window of decode steps: device-busy share of wall time and
-     kernel time by group.
+     page 0 that no live row maps; the dense decode kernel against the
+     ragged one on live rows (bit for bit is the aim), the flash
+     redundancy's p_thresh zero-out firing, and an in-place compaction
+     whose ranks overlap their sources beside a prefix-shared pair;
+  4. card vs CPU at Qwen3-8B widths and 2 layers: one paged prefill and a
+     few decode steps (logits), the threefry sampling noise (bit for bit),
+     and greedy and seeded streams through the dense-decode / flash path;
+  5. the main serve at full width: ``Zipage.from_config("qwen3-8b")`` at
+     the engine defaults (36 layers, fp32, random weights from a seed)
+     serves greedy requests; compression must fire, every compression goes
+     through the compaction kernel and no plain version runs;
+  5b. the paper's Alg. 3 / Alg. 4 serve at full width on the same weight
+     tensors: ``decode_kernel="dense"`` and flash redundancy, four greedy
+     and four seeded requests (Qwen3's thinking-mode sampling);
+  6. timing of each kernel at the serves' own inputs with CUDA events:
+     kernel, plain version, a library call that computes the same
+     function (or its product), and the bound from bytes and flops;
+  7. a profiled window of decode steps of the main serve: device-busy
+     share of wall time and kernel time by group.
 
 The last two lines of standard output are the card's name and power
 limit, and ``{"ok": true, "device": {...}}``; the line before them is the
@@ -52,12 +61,23 @@ FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 N_REQUESTS = 8
 NEW_TOKENS = 128
 
+#: Qwen3's published thinking-mode sampling (the model card's advice)
+THINKING = dict(temperature=0.6, top_p=0.95, top_k=20)
+
 #: where each ported TPU kernel lived (function definition line)
 REPLACES = {
     "ragged_paged_attention": "src/repro/kernels/ragged_paged_attention.py:129",
     "paged_score": "src/repro/kernels/paged_score.py:43",
     "lightning_redundancy": "src/repro/kernels/redundancy.py:61",
+    "paged_attention": "src/repro/kernels/paged_attention.py:71",
+    "flash_redundancy": "src/repro/kernels/redundancy.py:125",
+    "compaction": "src/repro/kernels/compaction.py:26",
 }
+#: the kernels of each serve path
+MAIN_PATH = ("ragged_paged_attention", "paged_score", "lightning_redundancy",
+             "compaction")
+ALG34_PATH = ("paged_attention", "paged_score", "flash_redundancy",
+              "compaction")
 
 
 def log(phase, msg):
@@ -211,7 +231,147 @@ def phase_kernels(torch, dev, cfg, opts):
     log("kernels", f"{red.NAME}: the p_thresh zero-out changed "
         f"{n_thresh_hits} row sums (exercised)")
     torch.cuda.synchronize()
+    errs.update(phase_kernels_alg34(torch, dev, cfg, opts, rng, decode_mixes,
+                                    comp_mixes))
     return errs
+
+
+def phase_kernels_alg34(torch, dev, cfg, opts, rng, decode_mixes,
+                        comp_mixes):
+    """B4 dense decode, B5 flash redundancy and B6 compaction against their
+    plain versions on the card."""
+    from repro_torch.kernels import compaction as cmp
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ragged_paged_attention as rpa
+    from repro_torch.kernels import redundancy as red
+
+    b, mb = opts.block_size, -(-opts.max_model_len // opts.block_size)
+    n_pages, B = opts.n_total_blocks, opts.max_batch
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    errs = {pa.NAME: 0.0, red.FLASH_NAME: 0.0, cmp.NAME: 0.0}
+    dense_vs_ragged = 0.0
+    bitwise = True
+    for label, lens in decode_mixes.items():
+        k, v = make_pool(torch, rng, n_pages, b, hkv, d, dev)
+        bt, sl = make_tables(torch, rng, lens, b, mb, n_pages, dev, k, v)
+        q = torch.randn(B, hq, d, device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED))
+        got = pa.paged_attention_cuda(q, k, v, bt, sl)
+        want = pa.paged_attention_plain(q, k, v, bt, sl)
+        ragged = rpa.ragged_paged_attention_cuda(q, k, v, bt, sl)
+        torch.cuda.synchronize()
+        e = max_err(torch, got, want, f"dense[{label}]")
+        errs[pa.NAME] = max(errs[pa.NAME], e)
+        if not bool((got[sl == 0] == 0).all()):
+            raise AssertionError("dense: seq_len == 0 rows are not zeros")
+        live = sl > 0
+        if bool(live.any()):
+            diff = float((got[live] - ragged[live]).abs().max())
+            dense_vs_ragged = max(dense_vs_ragged, diff)
+            bitwise = bitwise and bool(torch.equal(got[live], ragged[live]))
+        log("kernels", f"{pa.NAME}[{label}]: max_abs_err={e:.3e} "
+            f"(atol=rtol={TOL}) ok")
+    if dense_vs_ragged > TOL:
+        raise AssertionError(f"dense vs ragged on live rows: "
+                             f"{dense_vs_ragged:.3e}")
+    log("kernels", f"dense vs ragged on live rows: max_abs_diff="
+        f"{dense_vs_ragged:.3e}, bit-identical={bitwise}")
+
+    n_hits = 0
+    for label, lens in comp_mixes.items():
+        k, _ = make_pool(torch, rng, n_pages, b, hkv, d, dev,
+                         similar=label == "similar")
+        bt, sl = make_tables(torch, rng, lens, b, mb, n_pages, dev, k, k)
+        p = opts.compress.p_thresh
+        got = red.flash_redundancy_cuda(k, bt, sl, p_thresh=p)
+        want = red.flash_redundancy_plain(k, bt, sl, p_thresh=p)
+        e = max_err(torch, got, want, f"flash[{label}]")
+        errs[red.FLASH_NAME] = max(errs[red.FLASH_NAME], e)
+        if not bool(torch.equal(got, red.flash_redundancy_cuda(
+                k, bt, sl, p_thresh=p))):
+            raise AssertionError("flash: two runs differ")
+        no_thresh = red.flash_redundancy_plain(k, bt, sl, p_thresh=2.0)
+        n_hits += int((no_thresh != want).sum())
+        log("kernels", f"{red.FLASH_NAME}[{label}]: max_abs_err={e:.3e} "
+            f"(atol=rtol={TOL}), the same in two runs, ok")
+    if n_hits == 0:
+        raise AssertionError("flash: the p_thresh zero-out never fired")
+    log("kernels", f"{red.FLASH_NAME}: the p_thresh zero-out changed "
+        f"{n_hits} row sums (exercised)")
+
+    errs[cmp.NAME] = check_compaction(torch, dev, cfg, opts, rng)
+    torch.cuda.synchronize()
+    return errs
+
+
+def compaction_case(torch, dev, cfg, opts, rng, L=4, width=8):
+    """A compression batch as the block manager plans it, at the serve's
+    widths: six requests compacting in place (destination = their first
+    budget blocks, so ranks overlap their sources), a pair sharing a
+    two-block prefix that compact copy-on-write (fresh blocks for the
+    shared part), and two padding rows writing the sink page."""
+    import numpy as np
+    b, N = opts.block_size, opts.n_total_blocks
+    h, d = cfg.num_kv_heads, cfg.head_dim
+    budget = opts.n_max - 1
+    kk, T = budget * b, width * b
+    pools = {"k": torch.randn(L, N + 1, b, h, d, device=dev),
+             "v": torch.randn(L, N + 1, b, h, d, device=dev),
+             "f": torch.rand(L, N + 1, b, h, device=dev)}
+    free = [int(x) for x in rng.permutation(np.arange(1, N))]
+    n_req = 10
+    src = np.full((n_req, width), -1, np.int32)
+    dest = np.full((n_req, budget), N, np.int64)        # sink by default
+    seq = np.zeros(n_req, np.int64)
+    for i in range(6):
+        nb = int(rng.integers(budget + 1, width + 1))
+        src[i, :nb] = [free.pop() for _ in range(nb)]
+        dest[i] = src[i, :budget]
+        seq[i] = nb * b
+    shared = [free.pop(), free.pop()]
+    for i in (6, 7):
+        nb = int(rng.integers(budget + 1, width + 1))
+        src[i, :nb] = shared + [free.pop() for _ in range(nb - 2)]
+        dest[i] = [free.pop(), free.pop()] + list(src[i, 2:budget])
+        seq[i] = nb * b
+    dest_flat = np.repeat(dest, b, axis=1) * b + np.tile(np.arange(b), budget)
+    src_cache = np.zeros((L, n_req, h, kk), np.int64)
+    for l in range(L):
+        for i in range(n_req):
+            for hh in range(h):
+                n_live = max(int(seq[i]), kk)
+                src_cache[l, i, hh] = np.sort(rng.choice(n_live, kk,
+                                                         replace=False))
+    new_f = torch.rand(L, n_req, T, h, device=dev)
+    return (pools, new_f, torch.from_numpy(src).to(dev),
+            torch.from_numpy(src_cache).to(dev),
+            torch.from_numpy(dest_flat).to(dev))
+
+
+def check_compaction(torch, dev, cfg, opts, rng):
+    from repro_torch.kernels import compaction as cmp
+    pools, new_f, src, src_cache, dest_flat = compaction_case(
+        torch, dev, cfg, opts, rng)
+    N = opts.n_total_blocks
+    want = {n: x.clone() for n, x in pools.items()}
+    cmp.compact_plain(want["k"], want["v"], want["f"], new_f, src, src_cache,
+                      dest_flat)
+    cmp.compact_cuda(pools["k"], pools["v"], pools["f"], new_f, src,
+                     src_cache, dest_flat)
+    torch.cuda.synchronize()
+    for n in pools:                 # page N is the sink: garbage on both
+        got, ref = pools[n][:, :N], want[n][:, :N]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"compaction: {n} pool not finite")
+        if not bool(torch.equal(got, ref)):
+            raise AssertionError(f"compaction: {n} pool differs from the "
+                                 "sequential plain version by "
+                                 f"{float((got - ref).abs().max()):.3e}")
+    log("kernels", f"{cmp.NAME}: {src.shape[0]} rows x {pools['k'].shape[0]} "
+        "layers (in place with overlapping ranks, a prefix-shared pair "
+        "copy-on-write, padding rows) equal to the sequential plain version "
+        "bit for bit, max_abs_err=0.000e+00 ok")
+    return 0.0
 
 
 # ----------------------------------------------------------------------
@@ -274,9 +434,66 @@ def phase_card_vs_cpu(torch, dev, cfg):
     log("card-vs-cpu", f"qwen3-8b widths, 2 layers: prefill + 6 decode "
         f"steps, max_abs_err={worst:.3e} (atol=rtol={CARD_CPU_TOL}) ok; "
         f"per output {', '.join(f'{e:.1e}' for e in errs)}")
+    check_noise(torch, dev, small.vocab_size)
+    check_streams(torch, dev, small, p_cpu, p_dev)
     del p_dev
     torch.cuda.empty_cache()
     return worst
+
+
+def check_noise(torch, dev, vocab):
+    """The threefry sampling noise is the same bits on the card and the
+    CPU (integer arithmetic only)."""
+    from repro_torch.core.sampling import sampling_noise
+    seeds = torch.tensor([0, 1, 7, 2**31 - 1, 2**31, 2**31 + 12345,
+                          2**32 - 1, 123456789], dtype=torch.int64)
+    counters = torch.tensor([0, 5, 127, 1, 0, 2**31 - 1, 4096, 64],
+                            dtype=torch.int32)
+    on_cpu = sampling_noise(seeds, counters, vocab)
+    on_card = sampling_noise(seeds.to(dev), counters.to(dev), vocab).cpu()
+    if not torch.equal(on_cpu.view(torch.int32), on_card.view(torch.int32)):
+        n = int((on_cpu != on_card).sum())
+        raise AssertionError(f"threefry noise: {n} of {on_cpu.numel()} "
+                             "values differ between card and CPU")
+    log("card-vs-cpu", f"threefry noise {tuple(on_cpu.shape)} for 8 "
+        "(seed, counter) pairs, seeds up to 2**32-1: bit-identical on the "
+        "card and the CPU ok")
+
+
+def check_streams(torch, dev, small, p_cpu, p_dev):
+    """Greedy and seeded streams through the Alg. 3 / Alg. 4 path (dense
+    decode, flash redundancy, compaction), card against CPU."""
+    import numpy as np
+    from repro_torch.api import SamplingParams, Zipage
+    from repro_torch.core.compression import CompressOptions
+
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [[int(x) for x in rng.integers(0, small.vocab_size, int(n))]
+               for n in (70, 96, 81, 110)]
+    sps = [SamplingParams(max_new_tokens=24),
+           SamplingParams(max_new_tokens=24),
+           SamplingParams(max_new_tokens=24, seed=SEED + 1, **THINKING),
+           SamplingParams(max_new_tokens=24, seed=2**31 + 3, **THINKING)]
+    knobs = dict(decode_kernel="dense", max_batch=4,
+                 compress=CompressOptions(window=4, redundancy="flash"))
+    outs = {}
+    for name, device, params in (("cpu", "cpu", p_cpu), ("card", dev, p_dev)):
+        z = Zipage(small, params, device=device, **knobs)
+        outs[name] = z.generate(prompts, sps)
+        n_comp = sum(o.metrics.compression.n_compressions
+                     for o in outs[name])
+        if n_comp == 0:
+            raise AssertionError(f"streams on {name}: no compression")
+    for i, (a, b) in enumerate(zip(outs["cpu"], outs["card"])):
+        kind = "greedy" if sps[i].is_greedy else "seeded"
+        log("card-vs-cpu", f"{kind} stream {i}: card {b.token_ids[:12]}...")
+        if a.token_ids != b.token_ids:
+            j = next(j for j, (x, y) in enumerate(zip(a.token_ids,
+                                                      b.token_ids)) if x != y)
+            raise AssertionError(f"{kind} stream {i} differs at token {j}: "
+                                 f"cpu {a.token_ids} card {b.token_ids}")
+    log("card-vs-cpu", "dense decode + flash redundancy, 2 greedy and 2 "
+        "seeded streams of 24 tokens: card == CPU ok")
 
 
 def _tree_to(t, dev):
@@ -292,15 +509,16 @@ def _tree_to(t, dev):
 
 
 class Recorder:
-    """Keeps references to the inputs of the kernels' calls during the
-    serve (no copies, no syncs), so phase 6 times the kernels on exactly
-    the main path's inputs."""
+    """Keeps references to the inputs of the kernels' calls during a serve
+    (no copies, no syncs), so phase 6 times the kernels on exactly the
+    serve's inputs."""
+
+    NAMES = ("ragged_decode_attention", "score_logits", "lightning_redundancy",
+             "paged_decode_attention", "flash_redundancy", "compact")
 
     def __init__(self, ops):
         self.ops = ops
-        self.orig = {n: getattr(ops, n) for n in
-                     ("ragged_decode_attention", "score_logits",
-                      "lightning_redundancy")}
+        self.orig = {n: getattr(ops, n) for n in self.NAMES}
         self.calls = {n: [] for n in self.orig}
 
     def __enter__(self):
@@ -323,10 +541,109 @@ class Recorder:
             setattr(self.ops, name, fn)
 
 
-def phase_serve(torch, card):
+class PlainGuard:
+    """While on, any kernel's plain PyTorch version raises: on the card the
+    serve must launch the kernels and never run their plain versions."""
+
+    def __init__(self):
+        from repro_torch.kernels import (compaction, paged_attention,
+                                         paged_score, ragged_paged_attention,
+                                         redundancy)
+        self.targets = [(m, n) for m in (compaction, paged_attention,
+                                         paged_score, ragged_paged_attention,
+                                         redundancy)
+                        for n in dir(m) if n.endswith("_plain")]
+        self.saved = []
+
+    def __enter__(self):
+        for m, n in self.targets:
+            self.saved.append((m, n, getattr(m, n)))
+            setattr(m, n, self._refuse(n))
+        return self
+
+    @staticmethod
+    def _refuse(name):
+        def refuse(*args, **kw):
+            raise AssertionError(f"{name} ran on the serve path")
+        return refuse
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def make_prompts(cfg):
     import numpy as np
-    from repro_torch.api import SamplingParams, Zipage
+    rng = np.random.default_rng(SEED)
+    lens = [int(x) for x in rng.integers(40, 181, N_REQUESTS)]
+    return [[int(x) for x in rng.integers(0, cfg.vocab_size, n)]
+            for n in lens]
+
+
+def run_serve(torch, card, z, label, prompts, sps, path):
+    """Serve ``prompts`` through ``z`` with the launch counts set to 0 just
+    before and read just after; check the result by the repo's own means
+    and that every kernel of ``path`` launched and no plain version ran."""
+    import numpy as np
     from repro_torch.kernels import ops
+
+    eng = z.engine
+    cfg = z.cfg
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    with Recorder(ops) as rec, PlainGuard():
+        outs = z.generate(prompts, sps)
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    launches = dict(ops.launch_counts)
+    n_tok = sum(len(o.token_ids) for o in outs)
+    steps = [m["t_total"] for m in eng.metrics]
+    n_comp = sum(o.metrics.compression.n_compressions for o in outs)
+    n_batches = sum(1 for m in eng.metrics if m["n_compressing"] > 0)
+    t_dev = sum(m["t_device"] for m in eng.metrics)
+    visited = sum(m["pages_visited"] for m in eng.metrics)
+    dense = sum(m["pages_dense"] for m in eng.metrics)
+    for i, o in enumerate(outs):
+        kind = "greedy" if sps[i].is_greedy else "seeded"
+        log(label, f"request {i} ({kind}): prompt {len(prompts[i])} tokens, "
+            f"{len(o.token_ids)} new, {o.metrics.compression.n_compressions} "
+            f"compressions, first tokens {o.token_ids[:8]}")
+    log(label, f"{len(prompts)} requests, {n_tok} tokens in {wall:.2f} s = "
+        f"{n_tok / wall:.1f} tok/s over {len(steps)} steps (step median "
+        f"{1e3 * statistics.median(steps):.1f} ms, max "
+        f"{1e3 * max(steps):.1f} ms, host wait on device "
+        f"{t_dev / sum(steps):.3f} of step time) on {card}")
+    log(label, f"{n_comp} compressions in {n_batches} launches; kernel "
+        f"launches {launches}; decode pages visited {visited} (ragged) vs "
+        f"{dense} (dense, decode_kernel={eng.opts.decode_kernel!r})")
+    # the repo's own checks of a finished serve
+    assert all(len(o.token_ids) == NEW_TOKENS for o in outs), "short output"
+    assert all(o.finish_reason == "length" for o in outs)
+    assert all(0 <= t < cfg.vocab_size for o in outs for t in o.token_ids)
+    assert all(np.isfinite(o.logprobs).all() for o in outs
+               if o.logprobs is not None)
+    assert n_comp > 0, "compression never fired"
+    assert z.num_free_blocks == eng.opts.n_total_blocks, "blocks leaked"
+    z.bm.check_invariants()
+    for name in path:
+        assert launches[name] > 0, f"kernel {name} never launched ({label})"
+    for name, n in launches.items():
+        assert name in path or n == 0, f"{name} launched off its path"
+    assert launches["compaction"] == n_batches, \
+        "a compression did not go through the compaction kernel"
+    summary = {"tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
+               "steps": len(steps), "step_median_ms": 1e3 * statistics.median(
+                   steps), "compressions": n_comp,
+               "compression_launches": n_batches, "launches": launches,
+               "pages_visited": visited, "pages_dense": dense,
+               "decode_kernel": eng.opts.decode_kernel,
+               "redundancy": eng.opts.compress.redundancy}
+    return rec, launches, summary
+
+
+def phase_serve(torch, card):
+    from repro_torch.api import SamplingParams, Zipage
     from repro_torch.models import lm
 
     t = time.monotonic()
@@ -341,49 +658,29 @@ def phase_serve(torch, card):
         f"{eng.opts.block_size} n_max={eng.opts.n_max} window="
         f"{eng.opts.window} n_total_blocks={eng.opts.n_total_blocks} "
         f"max_batch={eng.opts.max_batch}")
-    rng = np.random.default_rng(SEED)
-    lens = [int(x) for x in rng.integers(40, 181, N_REQUESTS)]
-    prompts = [[int(x) for x in rng.integers(0, cfg.vocab_size, n)]
-               for n in lens]
-    sp = SamplingParams(max_new_tokens=NEW_TOKENS)
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t = time.monotonic()
-    with Recorder(ops) as rec:
-        outs = z.generate(prompts, sp)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t
-    launches = dict(ops.launch_counts)
-    n_tok = sum(len(o.token_ids) for o in outs)
-    steps = [m["t_total"] for m in eng.metrics]
-    n_comp = sum(o.metrics.compression.n_compressions for o in outs)
-    t_dev = sum(m["t_device"] for m in eng.metrics)
-    visited = sum(m["pages_visited"] for m in eng.metrics)
-    dense = sum(m["pages_dense"] for m in eng.metrics)
-    for i, o in enumerate(outs):
-        log("serve", f"request {i}: prompt {lens[i]} tokens, "
-            f"{len(o.token_ids)} new, {o.metrics.compression.n_compressions} "
-            f"compressions, first tokens {o.token_ids[:8]}")
-    log("serve", f"{N_REQUESTS} requests, {n_tok} tokens in {wall:.2f} s = "
-        f"{n_tok / wall:.1f} tok/s over {len(steps)} steps (step median "
-        f"{1e3 * statistics.median(steps):.1f} ms, max "
-        f"{1e3 * max(steps):.1f} ms, host wait on device "
-        f"{t_dev / sum(steps):.3f} of step time) on {card}")
-    log("serve", f"{n_comp} compressions; kernel launches {launches}; "
-        f"decode pages visited {visited} vs {dense} for a dense grid")
-    # the repo's own checks of a finished serve
-    assert all(len(o.token_ids) == NEW_TOKENS for o in outs), "short output"
-    assert all(o.finish_reason == "length" for o in outs)
-    assert all(0 <= t < cfg.vocab_size for o in outs for t in o.token_ids)
-    assert n_comp > 0, "compression never fired"
-    assert z.num_free_blocks == eng.opts.n_total_blocks, "blocks leaked"
-    z.bm.check_invariants()
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} never launched on the main path"
-    summary = {"tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
-               "steps": len(steps), "step_median_ms": 1e3 * statistics.median(
-                   steps), "compressions": n_comp, "launches": launches,
-               "pages_visited": visited, "pages_dense": dense}
+    prompts = make_prompts(cfg)
+    sps = [SamplingParams(max_new_tokens=NEW_TOKENS)] * N_REQUESTS
+    rec, launches, summary = run_serve(torch, card, z, "serve", prompts, sps,
+                                       MAIN_PATH)
+    return z, rec, launches, summary
+
+
+def phase_serve_alg34(torch, card, z_main):
+    """The paper's Alg. 3 / Alg. 4 path at full width, on the main serve's
+    weight tensors (no second copy): dense decode, flash redundancy."""
+    from repro_torch.api import SamplingParams, Zipage
+    from repro_torch.core.compression import CompressOptions
+
+    z = Zipage(z_main.cfg, z_main.engine.params, decode_kernel="dense",
+               compress=CompressOptions(window=4, redundancy="flash"))
+    assert z.engine.params is z_main.engine.params
+    prompts = make_prompts(z.cfg)
+    half = N_REQUESTS // 2
+    sps = [SamplingParams(max_new_tokens=NEW_TOKENS)] * half + [
+        SamplingParams(max_new_tokens=NEW_TOKENS, seed=SEED + i, **THINKING)
+        for i in range(N_REQUESTS - half)]
+    rec, launches, summary = run_serve(torch, card, z, "serve-alg34", prompts,
+                                       sps, ALG34_PATH)
     return z, rec, launches, summary
 
 
@@ -429,19 +726,37 @@ def _pick(calls, key):
     return best
 
 
-def phase_timing(torch, z, rec, launches, errs):
+def phase_timing(torch, rec, rec34, launches, launches34, errs):
+    """Times every kernel at a recorded input of its serve: K1-K3 from the
+    main serve, B4-B6 from the Alg. 3 / Alg. 4 serve, whose launch count is
+    the row's ``launches``; ``launches_per_serve`` has both."""
+    per_serve = {n: {"main": launches[n], "alg34": launches34[n]}
+                 for n in launches}
+    return [time_decode(torch, rec, "ragged_decode_attention", errs,
+                        per_serve, "main"),
+            time_score(torch, rec, errs, per_serve, "main"),
+            time_redundancy(torch, rec, "lightning_redundancy", errs,
+                            per_serve, "main"),
+            time_decode(torch, rec34, "paged_decode_attention", errs,
+                        per_serve, "alg34"),
+            time_redundancy(torch, rec34, "flash_redundancy", errs,
+                            per_serve, "alg34"),
+            time_compaction(torch, rec34, errs, per_serve, "alg34")]
+
+
+def time_decode(torch, rec, op, errs, per_serve, serve):
+    """K1 (ragged) or B4 (dense): the decode call with the most live cache
+    entries. The bound counts the live entries either way: the function's
+    output depends on them alone, whatever the kernel reads."""
     from repro_torch.core.paged import gather_entries
-    from repro_torch.kernels import paged_score as ps
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ragged_paged_attention as rpa
-    from repro_torch.kernels import redundancy as red
 
     F = torch.nn.functional
-    eng = z.engine
-    pools = eng.state["pools"]
-    rows = []
-
-    # ragged decode: the decode call with the most live cache entries
-    args, _ = _pick(rec.calls["ragged_decode_attention"],
+    mod = rpa if op == "ragged_decode_attention" else pa
+    cuda_fn = getattr(mod, mod.NAME + "_cuda")
+    plain_fn = getattr(mod, mod.NAME + "_plain")
+    args, _ = _pick(rec.calls[op],
                     lambda a: _live_entries(a[3], a[4], a[1].shape[1]))
     q, kp, vp, bt, sl = args
     B, hq, d = q.shape
@@ -457,73 +772,154 @@ def phase_timing(torch, z, rec, launches, errs):
     mask = (torch.arange(T, device=q.device)[None] < sl[:, None])[:, None,
                                                                   None]
     q4 = q[:, :, None]
-    rows.append(_row(torch, rpa.NAME, "src/repro_torch/csrc/"
-                     "ragged_paged_attention.cu", launches, errs,
-                     lambda: rpa.ragged_paged_attention_cuda(q, kp, vp, bt,
-                                                             sl),
-                     lambda: rpa.ragged_paged_attention_plain(q, kp, vp, bt,
-                                                              sl),
-                     lambda: F.scaled_dot_product_attention(
-                         q4, kg, vg, attn_mask=mask),
-                     nbytes, flops,
-                     {"batch": B, "seq_lens": sl.tolist(),
-                      "table_width": bt.shape[1]}))
+    return _row(torch, mod.NAME, f"src/repro_torch/csrc/{mod.NAME}.cu",
+                per_serve, serve, errs,
+                lambda: cuda_fn(q, kp, vp, bt, sl),
+                lambda: plain_fn(q, kp, vp, bt, sl),
+                lambda: F.scaled_dot_product_attention(q4, kg, vg,
+                                                       attn_mask=mask),
+                nbytes, flops,
+                {"batch": B, "seq_lens": sl.tolist(),
+                 "table_width": bt.shape[1]})
 
-    # window logits: the compression call with the most live entries
+
+def time_score(torch, rec, errs, per_serve, serve):
+    """K2: the compression call with the most live entries; the library
+    yardstick is the matmul of the pre-gathered queries and keys, without
+    the mask."""
+    from repro_torch.core.paged import gather_entries
+    from repro_torch.kernels import paged_score as ps
+
     args, _ = _pick(rec.calls["score_logits"],
                     lambda a: _live_entries(a[2], a[3], a[1].shape[1]))
     q_win, kp, bt, sl = args
     n, w, hq, d = q_win.shape
     hkv = kp.shape[2]
+    g = hq // hkv
     n_live = _live_entries(bt, sl, kp.shape[1])
-    out_el = n * hkv * (hq // hkv) * w * bt.shape[1] * kp.shape[1]
+    out_el = n * hkv * g * w * bt.shape[1] * kp.shape[1]
     nbytes = 4 * (q_win.numel() + n_live * hkv * d + bt.numel() + sl.numel()
                   + out_el)
     flops = 2 * n_live * hq * w * d
-    rows.append(_row(torch, ps.NAME, "src/repro_torch/csrc/paged_score.cu",
-                     launches, errs,
-                     lambda: ps.paged_score_logits_cuda(q_win, kp, bt, sl),
-                     lambda: ps.paged_score_logits_plain(q_win, kp, bt, sl),
-                     None, nbytes, flops,
-                     {"n": n, "seq_lens": sl.tolist(),
-                      "table_width": bt.shape[1]}))
+    qg = q_win.reshape(n, w, hkv, g, d).permute(0, 2, 3, 1, 4) \
+        .reshape(n, hkv, g * w, d).contiguous()
+    kt = gather_entries(kp, bt).permute(0, 2, 3, 1).contiguous()
+    return _row(torch, ps.NAME, "src/repro_torch/csrc/paged_score.cu",
+                per_serve, serve, errs,
+                lambda: ps.paged_score_logits_cuda(q_win, kp, bt, sl),
+                lambda: ps.paged_score_logits_plain(q_win, kp, bt, sl),
+                lambda: torch.matmul(qg, kt), nbytes, flops,
+                {"n": n, "seq_lens": sl.tolist(),
+                 "table_width": bt.shape[1]})
 
-    # redundancy: the compression call with the most live entries
-    args, kw = _pick(rec.calls["lightning_redundancy"],
+
+def time_redundancy(torch, rec, op, errs, per_serve, serve):
+    """K3 (lightning) or B5 (flash): the compression call with the most
+    live entries. The library yardstick is the matmul of the pre-gathered,
+    normalised keys: all pairs (flash) or the pairs of each page
+    (lightning), without the mask and zero-out."""
+    from repro_torch.core.paged import gather_entries
+    from repro_torch.kernels import redundancy as red
+
+    flash = op == "flash_redundancy"
+    name = red.FLASH_NAME if flash else red.NAME
+    cuda_fn = red.flash_redundancy_cuda if flash else \
+        red.lightning_redundancy_cuda
+    plain_fn = red.flash_redundancy_plain if flash else \
+        red.lightning_redundancy_plain
+    args, kw = _pick(rec.calls[op],
                      lambda a: _live_entries(a[1], a[2], a[0].shape[1]))
     kp, bt, sl = args
     p = kw.get("p_thresh", 0.8)
     N, b, h, d = kp.shape
+    n, mb = bt.shape
     n_live = _live_entries(bt, sl, b)
-    nbytes = 4 * (n_live * h * d + bt.numel() + sl.numel()
-                  + bt.shape[0] * bt.shape[1] * b * h)
-    flops = n_live * h * (2 * b * d + 3 * d)
-    rows.append(_row(torch, red.NAME, "src/repro_torch/csrc/redundancy.cu",
-                     launches, errs,
-                     lambda: red.lightning_redundancy_cuda(kp, bt, sl,
-                                                           p_thresh=p),
-                     lambda: red.lightning_redundancy_plain(kp, bt, sl,
-                                                            p_thresh=p),
-                     None, nbytes, flops,
-                     {"n": bt.shape[0], "seq_lens": sl.tolist(),
-                      "table_width": bt.shape[1]}))
-    del pools
-    return rows
+    nbytes = 4 * (n_live * h * d + bt.numel() + sl.numel() + n * mb * b * h)
+    e = gather_entries(kp, bt).float()                      # (n, T, h, d)
+    eh = (e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
+          .clamp(min=1e-12)).permute(0, 2, 1, 3).contiguous()  # (n,h,T,d)
+    if flash:
+        per_req = (sl.clamp(min=0).minimum((bt >= 0).sum(1).to(sl.dtype) * b)
+                   .to(torch.float64))
+        flops = int((per_req * per_req).sum()) * h * 2 * d + 3 * n_live * h * d
+        lib = lambda: torch.matmul(eh, eh.transpose(-1, -2))  # noqa: E731
+        source = "src/repro_torch/csrc/flash_redundancy.cu"
+    else:
+        flops = n_live * h * (2 * b * d + 3 * d)
+        ep = eh.reshape(n, h, mb, b, d)
+        lib = lambda: torch.matmul(ep, ep.transpose(-1, -2))  # noqa: E731
+        source = "src/repro_torch/csrc/redundancy.cu"
+    return _row(torch, name, source, per_serve, serve, errs,
+                lambda: cuda_fn(kp, bt, sl, p_thresh=p),
+                lambda: plain_fn(kp, bt, sl, p_thresh=p),
+                lib, nbytes, flops,
+                {"n": n, "seq_lens": sl.tolist(), "table_width": mb})
 
 
-def _row(torch, name, source, launches, errs, kernel, plain, library,
+def time_compaction(torch, rec, errs, per_serve, serve):
+    """B6: the compression call with the most live rows (a padding row
+    writes only the sink page and needs no move). The library yardstick is
+    one advanced-indexing gather and one ``index_copy_`` per pool. The
+    timed calls move the serve's pools again, after the serve is over."""
+    from repro_torch.kernels import compaction as cmp
+
+    def live_rows(a):
+        dest, sink = a[6], a[0].shape[1] - 1
+        return int(((dest // a[0].shape[2]) != sink).any(1).sum())
+
+    args, _ = _pick(rec.calls["compact"], live_rows)
+    kp, vp, fp, new_f, src_bt, src_cache, dest_flat = args
+    L, N1, b, h, d = kp.shape
+    n, kk = dest_flat.shape
+    n_rows = live_rows(args)
+    moved = L * n_rows * h * kk
+    nbytes = 4 * (2 * 2 * moved * d + 2 * moved) \
+        + 4 * n_rows * (src_bt.shape[1] + kk) + 4 * L * n_rows * h * kk
+    # flat row indices over (L * slots * h) rows of d (K, V) or 1 (F)
+    S = N1 * b
+    dev = kp.device
+    sc = src_cache.long()
+    blk = torch.gather(src_bt.long().clamp(min=0)[None, :, None, :]
+                       .expand(L, n, h, -1), 3, sc // b)
+    slot = blk * b + sc % b                                  # (L, n, h, k)
+    lay = torch.arange(L, device=dev)[:, None, None, None]
+    hd = torch.arange(h, device=dev)[None, None, :, None]
+    src_idx = ((lay * S + slot) * h + hd).reshape(-1)
+    dst_idx = ((lay * S + dest_flat.long()[None, :, None, :]) * h + hd) \
+        .reshape(-1)
+    nf_idx = (((lay * n + torch.arange(n, device=dev)[None, :, None, None])
+               * (new_f.shape[2]) + sc) * h + hd).reshape(-1)
+    kf, vf = kp.view(-1, d), vp.view(-1, d)
+    ff, nff = fp.view(-1), new_f.reshape(-1)
+
+    def library():
+        kf.index_copy_(0, dst_idx, kf[src_idx])
+        vf.index_copy_(0, dst_idx, vf[src_idx])
+        ff.index_copy_(0, dst_idx, nff[nf_idx])
+
+    return _row(torch, cmp.NAME, "src/repro_torch/csrc/compaction.cu",
+                per_serve, serve, errs,
+                lambda: cmp.compact_cuda(*args),
+                lambda: cmp.compact_plain(*args),
+                library, nbytes, 0,
+                {"layers": L, "n": n, "live_rows": n_rows, "k": kk})
+
+
+def _row(torch, name, source, per_serve, serve, errs, kernel, plain, library,
          nbytes, flops, shapes):
     ms = time_ms(torch, kernel)
-    plain_ms = time_ms(torch, plain)
+    plain_ms = time_ms(torch, plain, n=10)
     lib_ms = time_ms(torch, library) if library is not None else None
     bound_ms, bound_by = bound(nbytes, flops)
     lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
     log("timing", f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.5f} ms by {bound_by}, library {lib_txt}) at {shapes}")
+        f"{bound_ms:.5f} ms by {bound_by}, library {lib_txt}) at {shapes}; "
+        f"launches per serve {per_serve[name]}")
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": per_serve[name][serve],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "launches_per_serve": per_serve[name]}
 
 
 # ----------------------------------------------------------------------
@@ -563,7 +959,7 @@ def phase_profile(torch, z, card):
         g = _group(ev.key)
         groups[g] = groups.get(g, 0.0) + dev_us / 1e3
         busy += dev_us / 1e3
-        if g.startswith("K"):
+        if g[0] in "KB" and g[1].isdigit():
             ms, n = calls.get(g, (0.0, 0))
             calls[g] = (ms + dev_us / 1e3, n + ev.count)
     while z.has_unfinished():
@@ -590,6 +986,12 @@ def _group(key):
         return "K2 window logits"
     if "lightning_redundancy" in k:
         return "K3 redundancy"
+    if "paged_attention" in k:
+        return "B4 dense decode"
+    if "flash_redundancy" in k:
+        return "B5 flash redundancy"
+    if "compaction" in k:
+        return "B6 compaction"
     if "gemm" in k or "gemv" in k or "sgemm" in k or "xmma" in k:
         return "matmul"
     if "reduce" in k or "softmax" in k or "sort" in k or "scan" in k:
@@ -622,20 +1024,36 @@ def main():
         return 2
     dev = resolve_device("cuda")
     t0 = time.monotonic()
+    took = {}
+
+    def lap(name):
+        took[name] = time.monotonic() - t0 - sum(took.values())
+
     card = phase_env(torch, native)
     phase_build(native)
+    lap("env+build")
     cfg = dataclasses.replace(get_config("qwen3-8b"), dtype="float32")
     opts = EngineOptions()
     errs = phase_kernels(torch, dev, cfg, opts)
+    lap("kernels")
     phase_card_vs_cpu(torch, dev, cfg)
+    lap("card-vs-cpu")
     z, rec, launches, summary = phase_serve(torch, card)
-    rows = phase_timing(torch, z, rec, launches, errs)
+    lap("serve")
+    z34, rec34, launches34, summary34 = phase_serve_alg34(torch, card, z)
+    lap("serve-alg34")
+    rows = phase_timing(torch, rec, rec34, launches, launches34, errs)
+    del z34, rec34, rec
+    torch.cuda.empty_cache()
+    lap("timing")
     prof = phase_profile(torch, z, card)
-    log("done", f"all phases passed in {time.monotonic() - t0:.1f} s")
+    lap("profile")
+    log("done", f"all phases passed in {time.monotonic() - t0:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")")
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
-        json.dump({"card": card, "serve": summary, "kernels": rows,
-                   "profile": prof}, f, indent=1)
+        json.dump({"card": card, "serve": summary, "serve_alg34": summary34,
+                   "kernels": rows, "profile": prof}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 
 from repro_torch.core.compression import CompressOptions
 from repro_torch.core.engine import EngineOptions
+from repro_torch.core.serve_model import DECODE_KERNELS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,9 +119,6 @@ class SchedulerConfig:
 #: hand-written kernel, a CPU tensor runs its plain version), so "auto" is
 #: the only setting; the JAX package's Pallas backend names do not apply.
 KERNEL_BACKENDS = ("auto",)
-
-#: decode kernel families accepted by ``ModelRunnerConfig.decode_kernel``
-DECODE_KERNELS = ("ragged", "dense")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,12 +3,15 @@ ported from ``repro.core.compression``.
 
 ``build_compress_fn`` returns a function that compresses a padded batch of
 requests across all attention layers: window scores (``paged_score``
-kernel) and page-local redundancy (``lightning_redundancy`` kernel) ->
-final scores -> top-k tag -> stable keep-first compaction into the
-destination blocks. This is the JAX package's kernel route (scores
-precomputed for the whole batch, ``compression.py:124-150``). Pools are
-updated in place; padding rows (qslot < 0) write only to the pools' sink
-page (``paged.sink_page``).
+kernel) and redundancy (page-local ``lightning_redundancy`` or
+full-sequence ``flash_redundancy`` kernel) -> final scores -> top-k tag ->
+stable keep-first compaction into the destination blocks (``compaction``
+kernel). This is the JAX package's kernel route (scores precomputed for
+the whole batch, ``compression.py:124-150``). Scoring a layer never reads
+what another layer's moves write, so every layer is scored first and one
+compaction launch then moves K, V and F of all layers. Pools are updated
+in place; padding rows (qslot < 0) write only to the pools' sink page
+(``paged.sink_page``).
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ class CompressOptions:
     window: int = 16                 # observation window w
     alpha: float = 0.8               # global-score decay
     use_global: bool = True
-    redundancy: str = "lightning"    # lightning | none (flash: not ported)
+    redundancy: str = "lightning"    # lightning | flash | none
     lam: float = 0.2                 # λ in Eq. 4
     tau: float = 0.4                 # redundancy softmax temperature
     p_thresh: float = 0.8            # similarity zero-out threshold
@@ -79,21 +82,6 @@ def _select_survivors(cfg, opts, k_keep, pre_s, pre_r, fscore, seq_lens,
     return order_keep[..., :k_keep], new_f, stats, final
 
 
-def _compact(pool, src_bt, src_cache, dest_flat):
-    """Move one request's surviving entries (per-head streams) in place
-    (``_compact_pool`` of the JAX package). pool: (N + 1, b, h, ...) with
-    the sink page last; src_bt: (mb,) clamped source table; src_cache:
-    (h, k) survivor cache positions; dest_flat: (k,) destination flat
-    slots (sink slots where nothing is written). The request's reads all
-    happen before its writes."""
-    h = src_cache.shape[0]
-    b = pool.shape[1]
-    flat = pool.view((-1, h) + tuple(pool.shape[3:]))
-    src_slot = src_bt[src_cache // b] * b + src_cache % b       # (h, k)
-    heads = torch.arange(h, device=pool.device)[:, None]
-    flat[dest_flat[None, :], heads] = flat[src_slot, heads]
-
-
 def build_compress_fn(cfg, *, block_size, max_blocks, budget_blocks,
                       opts: CompressOptions):
     """Returns compress(pools, qwin, req) -> (new_seq_lens, stats).
@@ -108,10 +96,9 @@ def build_compress_fn(cfg, *, block_size, max_blocks, budget_blocks,
       global-score history.
     stats is (n, 2) ``scoring.quality_stats`` averaged over layers.
     """
-    if opts.redundancy not in ("lightning", "none"):
-        raise NotImplementedError(
-            f"redundancy={opts.redundancy!r} is not ported (its kernel, "
-            "flash_redundancy, is still to be ported)")
+    if opts.redundancy not in ("lightning", "flash", "none"):
+        raise ValueError(f"unknown redundancy {opts.redundancy!r}; "
+                         "expected lightning | flash | none")
     if opts.backend != "auto":
         raise ValueError("the port dispatches kernels on the tensors' "
                          f"device; backend={opts.backend!r} is not accepted")
@@ -127,33 +114,30 @@ def build_compress_fn(cfg, *, block_size, max_blocks, budget_blocks,
         dest_blk = torch.where(writes, dest_bt.long(), sink)
         dest_flat = (dest_blk.repeat_interleave(b, dim=1) * b
                      + torch.arange(b, device=dev).repeat(budget_blocks))
-        src_c = src_bt.long().clamp(min=0)
         stats_sum = 0.0
+        survivors, new_fs = [], []
         for l in range(pools["k"].shape[0]):
             k_l = pools["k"][l]
             q_wins = _window_queries(qwin[l], qslots, seq_lens)
             logits = ops.score_logits(q_wins, k_l, src_bt, seq_lens)
             pre_s = ops.attention_scores_from_logits(logits, seq_lens)
-            pre_r = (ops.lightning_redundancy(k_l, src_bt, seq_lens,
-                                              p_thresh=opts.p_thresh)
-                     if opts.redundancy == "lightning" else None)
+            pre_r = None
+            if opts.redundancy == "lightning":
+                pre_r = ops.lightning_redundancy(k_l, src_bt, seq_lens,
+                                                 p_thresh=opts.p_thresh)
+            elif opts.redundancy == "flash":
+                pre_r = ops.flash_redundancy(k_l, src_bt, seq_lens,
+                                             p_thresh=opts.p_thresh)
             fscore = gather_entries(pools["f"][l], src_bt)
             src_cache, new_f, stats, _ = _select_survivors(
                 cfg, opts, k_keep, pre_s, pre_r, fscore, seq_lens,
                 hist_lens, T)
             stats_sum = stats_sum + stats
-            # the moves go request by request, in order, as the JAX
-            # package's scan over apply_one does
-            h_s = new_f.shape[2]
-            heads = torch.arange(h_s, device=dev)[:, None]
-            f_flat = pools["f"][l].view(-1, h_s)
-            for i in range(src_bt.shape[0]):
-                _compact(pools["k"][l], src_c[i], src_cache[i], dest_flat[i])
-                _compact(pools["v"][l], src_c[i], src_cache[i], dest_flat[i])
-                # F is refreshed (post-global scores) and moved with its
-                # entries
-                f_flat[dest_flat[i][None, :], heads] = \
-                    new_f[i].T[heads, src_cache[i]]
+            survivors.append(src_cache)
+            new_fs.append(new_f)
+        # F is refreshed (post-global scores) and moved with its entries
+        ops.compact(pools["k"], pools["v"], pools["f"], torch.stack(new_fs),
+                    src_bt, torch.stack(survivors), dest_flat)
         new_seq = torch.where(qslots >= 0,
                               torch.full_like(seq_lens, k_keep), seq_lens)
         return new_seq, stats_sum / pools["k"].shape[0]

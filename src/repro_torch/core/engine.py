@@ -8,11 +8,11 @@ executes the plan it produces: paged prefill, compression launches
 (async: compressing requests sit out one decode step), and one fused
 decode+sample step over the running batch.
 
-Ported so far: dense GQA models, compression with lightning redundancy,
-recompute preemption, block-level prefix caching of raw KV, and
-``decode_steps=1``. Swap preemption, compressed-prefix caching, multi-step
-decode, the unfused sampler, the dense decode kernel, flash redundancy and
-other dtypes than float32 raise ``NotImplementedError``.
+Ported so far: dense GQA models, compression with lightning or flash
+redundancy, the ragged and the dense decode kernel, recompute preemption,
+block-level prefix caching of raw KV, and ``decode_steps=1``. Swap
+preemption, compressed-prefix caching, multi-step decode, the unfused
+sampler and other dtypes than float32 raise ``NotImplementedError``.
 
 Setting ``n_max=None`` disables compression (plain PagedAttention).
 """
@@ -78,7 +78,7 @@ class EngineOptions:
     dtype: str = "float32"
     measure_phases: bool = False     # block per phase for timing benches
     kernel_backend: str = "auto"
-    decode_kernel: str = "ragged"
+    decode_kernel: str = "ragged"    # ragged | dense
 
 
 def unported_options(opts: EngineOptions) -> List[str]:
@@ -92,15 +92,11 @@ def unported_options(opts: EngineOptions) -> List[str]:
         out.append(f"decode_steps={opts.decode_steps}")
     if not opts.fuse_sampling:
         out.append("fuse_sampling=False")
-    if opts.decode_kernel != "ragged":
-        out.append(f"decode_kernel={opts.decode_kernel!r}")
     if opts.kernel_backend != "auto":
         out.append(f"kernel_backend={opts.kernel_backend!r} (kernels follow "
                    "the device)")
     if opts.dtype != "float32":
         out.append(f"dtype={opts.dtype!r}")
-    if opts.compress.redundancy == "flash":
-        out.append("compress.redundancy='flash'")
     if opts.compress.backend != "auto":
         out.append(f"compress.backend={opts.compress.backend!r}")
     return out
@@ -130,7 +126,7 @@ class ZipageEngine:
             n_slots=opts.max_batch, block_size=b, max_blocks=self.max_blocks,
             n_total_blocks=opts.n_total_blocks, m_qslots=opts.m_qslots,
             window=opts.window, prefill_rows=opts.prefill_rows,
-            prefill_len=opts.prefill_len)
+            prefill_len=opts.prefill_len, decode_kernel=opts.decode_kernel)
         self.prefix_ok = opts.prefix_caching
         self.state = serve_model.make_state(cfg, self.spec, self.device)
         self.scheduler = Scheduler(
@@ -369,8 +365,8 @@ class ZipageEngine:
             temps[i] = sp.temperature
             top_k[i] = sp.top_k
             top_p[i] = sp.top_p
-        noise = sampling_noise(seeds, counters, temps > 0, logits.shape[-1],
-                               self.device)
+        noise = sampling_noise(self._dev(seeds), self._dev(counters),
+                               logits.shape[-1])
         tok, lp = sample_batch(logits, noise, self._dev(temps),
                                self._dev(top_k), self._dev(top_p))
         return self._fetch(tok, lp)
@@ -459,8 +455,9 @@ class ZipageEngine:
 
     def _track_pages(self, active, caps, k):
         """Page-visit telemetry: the ragged decode kernel reads
-        ``ceil(attend_len / b)`` pages per row, while a dense-grid launch
-        would pay ``max_blocks`` for every slot. Host arithmetic only."""
+        ``ceil(attend_len / b)`` pages per row, while the dense kernel
+        (``decode_kernel="dense"``) reads ``max_blocks`` for every slot.
+        Host arithmetic only."""
         b = self.opts.block_size
         for r, c in zip(active, caps):
             self._step_pages_visited += sum(
@@ -469,7 +466,7 @@ class ZipageEngine:
 
     def _sampling_tensors(self):
         """Per-slot sampling parameters, rebuilt only when the scheduler's
-        slot assignments changed. Returns (seeds (host), temps (host),
+        slot assignments changed. Returns (device seeds, temps (host),
         device temps, top_k, top_p, eos)."""
         v = self.scheduler.version
         if self._samp_arrays is not None and self._samp_version == v:
@@ -495,8 +492,9 @@ class ZipageEngine:
             top_p[r.slot] = sp.top_p
             if sp.eos_ids:
                 eos[r.slot, :len(sp.eos_ids)] = sp.eos_ids
-        self._samp_arrays = (seeds, temps, self._dev(temps), self._dev(top_k),
-                             self._dev(top_p), self._dev(eos))
+        self._samp_arrays = (self._dev(seeds), temps, self._dev(temps),
+                             self._dev(top_k), self._dev(top_p),
+                             self._dev(eos))
         self._samp_version = v
         return self._samp_arrays
 
@@ -533,11 +531,11 @@ class ZipageEngine:
         caps_arr = np.zeros((self.opts.max_batch,), np.int32)
         for r, c in zip(active, caps):
             caps_arr[r.slot] = c
-        sampled = temps_host > 0
         noise = None
-        if sampled.any():
-            noise = sampling_noise(seeds, self._dev_counters, sampled,
-                                   self.cfg.vocab_size, self.device)
+        if (temps_host > 0).any():
+            # keyed by the device-carried counters: no host round trip
+            noise = sampling_noise(seeds, self.state["sample_counters"],
+                                   self.cfg.vocab_size)
         tok, lp = self._fused(self.params, self.state, self._dev(caps_arr),
                               temps, top_k, top_p, eos, noise)
         tok, lp = self._fetch(tok, lp)

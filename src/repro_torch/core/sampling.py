@@ -10,11 +10,11 @@ heterogeneous requests.
 Randomness is an argument: ``sample_batch`` takes one uniform number per
 (row, rank), the noise of its Gumbel-max draw, exactly what
 ``jax.random.categorical`` draws from the JAX key internally. On the
-serving path ``sampling_noise`` makes it from a ``torch.Generator`` seeded
-by the request's (seed, n_generated), so a request's token stream depends
-only on its own seed and position, as in the JAX package — but the two
-packages' generators differ, so seeded streams differ between them (tests
-feed both the same noise).
+serving path ``sampling_noise`` makes it with the port's copy of JAX's
+threefry generator (``repro_torch.core.prng``) from each row's
+(seed, counter), as ``fold_in(key(seed), counter)``: a request's token
+stream depends only on its own seed and position, and seeded streams are
+the JAX package's, on the card and on the CPU alike.
 """
 from __future__ import annotations
 
@@ -23,6 +23,8 @@ import difflib
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.core import prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,35 +155,13 @@ def matched_stop(output: Sequence[int],
 # ----------------------------------------------------------------------
 # device-side sampler
 
-#: smallest normal float32: the uniform noise lies in [TINY, 1), as
-#: ``jax.random.gumbel`` draws it
-TINY = float(torch.finfo(torch.float32).tiny)
-
-
-def _stream_seed(seed: int, counter: int) -> int:
-    """Mix (seed, counter) into one 64-bit generator seed whose low 32 bits
-    already differ between streams (the CPU generator reads only those)."""
-    m = (1 << 64) - 1
-    h = ((seed & 0xFFFFFFFF) * 0x9E3779B97F4A7C15
-         + (counter & 0xFFFFFFFF) * 0xBF58476D1CE4E5B9 + 1) & m
-    h ^= h >> 31
-    h = (h * 0x94D049BB133111EB) & m
-    return h ^ (h >> 32)
-
-
-def sampling_noise(seeds, counters, sampled, vocab_size, device):
-    """(B, V) uniform noise in [TINY, 1) for the rows in ``sampled`` (a
-    host bool sequence); other rows get 0.5 and are never read. Row i's
-    noise comes from a generator seeded by (seeds[i], counters[i])."""
-    u = torch.full((len(seeds), vocab_size), 0.5, dtype=torch.float32,
-                   device=device)
-    for i, on in enumerate(sampled):
-        if not on:
-            continue
-        g = torch.Generator(device=device)
-        g.manual_seed(_stream_seed(int(seeds[i]), int(counters[i])))
-        u[i] = torch.rand(vocab_size, generator=g, device=device)
-    return u.clamp_(min=TINY)
+def sampling_noise(seeds, counters, vocab_size):
+    """(B, V) uniform noise in [``prng.TINY``, 1) for every row: row i's is what
+    ``jax.random.categorical`` draws from ``fold_in(key(seeds[i]),
+    counters[i])``. ``seeds`` and ``counters`` are (B,) integer tensors on
+    the device that is to hold the noise; nothing is read back to the
+    host."""
+    return prng.row_uniforms(seeds, counters, vocab_size)
 
 
 def sample_batch(logits, uniforms, temps, top_k, top_p):

@@ -27,6 +27,10 @@ from repro_torch.models import lm
 from repro_torch.models.common import apply_norm, apply_rope
 
 
+#: decode kernel families (``ServeSpec.decode_kernel``)
+DECODE_KERNELS = ("ragged", "dense")
+
+
 @dataclasses.dataclass(frozen=True)
 class ServeSpec:
     n_slots: int                # decode batch slots
@@ -37,6 +41,15 @@ class ServeSpec:
     window: int = 16            # observation window w
     prefill_rows: int = 4       # prefill bucket rows
     prefill_len: int = 256      # padded prefill length
+    # decode attention: "ragged" reads each slot's live pages only,
+    # "dense" every entry of its table (the baseline); live rows agree
+    # bit for bit
+    decode_kernel: str = "ragged"
+
+    def __post_init__(self):
+        if self.decode_kernel not in DECODE_KERNELS:
+            raise ValueError(f"unknown decode_kernel {self.decode_kernel!r}; "
+                             f"expected one of {DECODE_KERNELS}")
 
 
 def make_state(cfg: ArchConfig, spec: ServeSpec, device) -> dict:
@@ -85,6 +98,7 @@ def build_decode_step(cfg: ArchConfig, spec: ServeSpec):
     would overwrite an entry compression scoring still needs).
     """
     lm.check_supported(cfg)
+    dense = spec.decode_kernel == "dense"
 
     def step(params, state, tokens, active):
         x = params["embed"][tokens]
@@ -105,7 +119,10 @@ def build_decode_step(cfg: ArchConfig, spec: ServeSpec):
             k_l, v_l = pools["k"][li], pools["v"][li]
             paged.scatter_token(k_l, bt, write_pos, k)
             paged.scatter_token(v_l, bt, write_pos, v)
-            o = ops.ragged_decode_attention(q, k_l, v_l, bt, attend_len)
+            if dense:
+                o = ops.paged_decode_attention(q, k_l, v_l, bt, attend_len)
+            else:
+                o = ops.ragged_decode_attention(q, k_l, v_l, bt, attend_len)
             _write_qwin(qwin[li], live_q, qslot, seq, q)
             x = x + o.reshape(B, -1) @ p["attn"]["wo"]
             x = x + ML.ffn_forward(cfg, p["ffn"],

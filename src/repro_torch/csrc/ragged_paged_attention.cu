@@ -22,15 +22,14 @@
 // live pages' bytes over HBM bandwidth. This first version keeps the page
 // loop simple (one page in shared memory at a time, no cp.async/TMA
 // pipelining); a later revision should overlap the next page's load with
-// the current page's math.
+// the current page's math. The per-page math is zp_decode_page in
+// common.cuh, shared with the dense kernel (paged_attention.cu), so that
+// live rows of the two are bit-identical.
 #include "common.cuh"
 
 namespace {
-constexpr int kThreads = 128;
-constexpr int kMaxG = 8;     // query heads per kv head
-constexpr int kMaxDpt = 2;   // head_dim <= kThreads * kMaxDpt = 256
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDecodeThreads)
 ragged_paged_attention_kernel(const float* __restrict__ q,       // (B, hq, d)
                               const float* __restrict__ k_pool,  // (N, b, hkv, d)
                               const float* __restrict__ v_pool,  // (N, b, hkv, d)
@@ -39,110 +38,43 @@ ragged_paged_attention_kernel(const float* __restrict__ q,       // (B, hq, d)
                               float* __restrict__ out,               // (B, hq, d)
                               int hkv, int g, int d, int b, int mb, float scale) {
   extern __shared__ float smem[];
-  float* q_s = smem;               // g * d
-  float* k_s = q_s + g * d;        // b * d
-  float* v_s = k_s + b * d;        // b * d
-  float* p_s = v_s + b * d;        // g * b: scores, then probabilities
-  float* m_s = p_s + g * b;        // g running maxima
-  float* l_s = m_s + g;            // g running denominators
-  float* c_s = l_s + g;            // g rescale factors of this page
-
+  const ZpDecodeSmem s = zp_decode_layout(smem, g, d, b);
   const int slot = blockIdx.x;
   const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
   const int hq = hkv * g;
   const int seq_len = seq_lens[slot];
   float* o = out + ((size_t)slot * hq + (size_t)h * g) * d;
 
   if (seq_len <= 0) {  // inactive slot: exact zeros, no page touched
-    for (int i = tid; i < g * d; i += blockDim.x) o[i] = 0.f;
+    for (int i = threadIdx.x; i < g * d; i += blockDim.x) o[i] = 0.f;
     return;
   }
 
-  const float* qp = q + ((size_t)slot * hq + (size_t)h * g) * d;
-  for (int i = tid; i < g * d; i += blockDim.x) q_s[i] = qp[i];
-  if (tid < g) {
-    m_s[tid] = ZP_NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  float acc[kMaxG][kMaxDpt];
-#pragma unroll
-  for (int gi = 0; gi < kMaxG; ++gi)
-#pragma unroll
-    for (int j = 0; j < kMaxDpt; ++j) acc[gi][j] = 0.f;
-
+  float acc[kDecodeMaxG][kDecodeMaxDpt];
+  zp_decode_begin(s, q + ((size_t)slot * hq + (size_t)h * g) * d, acc, g, d);
   const int n_live = min((seq_len + b - 1) / b, mb);
   const int* bt = block_tables + (size_t)slot * mb;
   for (int i = 0; i < n_live; ++i) {
     const int page = bt[i];
-    const int n_valid = min(b, seq_len - i * b);  // valid tokens on this page
-    __syncthreads();  // the previous page's k_s/v_s/p_s are no longer read
-    for (int idx = tid; idx < b * d; idx += blockDim.x) {
+    // valid tokens on this page; a -1 entry is never dereferenced
+    const int n_valid = page >= 0 ? min(b, seq_len - i * b) : 0;
+    __syncthreads();  // the previous page's k/v/p are no longer read
+    for (int idx = threadIdx.x; idx < b * d; idx += blockDim.x) {
       const int t = idx / d;
       const int dd = idx - t * d;
       float kv = 0.f, vv = 0.f;
-      if (t < n_valid && page >= 0) {
+      if (t < n_valid) {
         const size_t off = (((size_t)page * b + t) * hkv + h) * d + dd;
         kv = k_pool[off];
         vv = v_pool[off];
       }
-      k_s[idx] = kv;
-      v_s[idx] = vv;
+      s.k[idx] = kv;
+      s.v[idx] = vv;
     }
     __syncthreads();
-    for (int pair = warp; pair < g * b; pair += n_warps) {
-      const int gi = pair / b;
-      const int t = pair - gi * b;
-      float s = 0.f;
-      for (int dd = lane; dd < d; dd += 32) s += q_s[gi * d + dd] * k_s[t * d + dd];
-      s = zp_warp_sum(s);
-      if (lane == 0) p_s[pair] = (t < n_valid && page >= 0) ? s * scale : ZP_NEG_INF;
-    }
-    __syncthreads();
-    if (tid < g) {
-      const float m_prev = m_s[tid];
-      float m_new = m_prev;
-      for (int t = 0; t < b; ++t) m_new = fmaxf(m_new, p_s[tid * b + t]);
-      float sum = 0.f;
-      for (int t = 0; t < b; ++t) {
-        const float p = (t < n_valid && page >= 0) ? expf(p_s[tid * b + t] - m_new) : 0.f;
-        p_s[tid * b + t] = p;
-        sum += p;
-      }
-      const float corr = expf(m_prev - m_new);
-      l_s[tid] = l_s[tid] * corr + sum;
-      m_s[tid] = m_new;
-      c_s[tid] = corr;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kMaxDpt; ++j) {
-      const int dd = tid + j * kThreads;
-      if (dd < d) {
-#pragma unroll
-        for (int gi = 0; gi < kMaxG; ++gi) {
-          if (gi < g) {
-            float a = acc[gi][j] * c_s[gi];
-            for (int t = 0; t < b; ++t) a += p_s[gi * b + t] * v_s[t * d + dd];
-            acc[gi][j] = a;
-          }
-        }
-      }
-    }
+    zp_decode_page(s, acc, n_valid, g, d, b, scale);
   }
-  // l_s was last written before the final barrier of the loop
-#pragma unroll
-  for (int j = 0; j < kMaxDpt; ++j) {
-    const int dd = tid + j * kThreads;
-    if (dd < d) {
-#pragma unroll
-      for (int gi = 0; gi < kMaxG; ++gi)
-        if (gi < g) o[gi * d + dd] = acc[gi][j] / fmaxf(l_s[gi], 1e-30f);
-    }
-  }
+  zp_decode_end(s, acc, o, g, d);
 }
 }  // namespace
 
@@ -151,12 +83,13 @@ extern "C" int ragged_paged_attention_launch(const void* q, const void* k_pool,
                                              const void* seq_lens, void* out, int batch,
                                              int hkv, int g, int d, int b, int mb,
                                              float scale, void* stream) {
-  if (g < 1 || g > kMaxG || d < 1 || d > kThreads * kMaxDpt) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)g * d + 2 * (size_t)b * d + (size_t)g * b + 3 * g);
+  if (g < 1 || g > kDecodeMaxG || d < 1 || d > kDecodeThreads * kDecodeMaxDpt)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = zp_decode_smem_bytes(g, d, b);
   cudaError_t err = zp_allow_smem(ragged_paged_attention_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(batch, hkv);
-  ragged_paged_attention_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  ragged_paged_attention_kernel<<<grid, kDecodeThreads, smem, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k_pool, (const float*)v_pool,
       (const int*)block_tables, (const int*)seq_lens, (float*)out, hkv, g, d, b, mb, scale);
   return (int)cudaGetLastError();

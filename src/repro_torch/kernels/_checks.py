@@ -15,3 +15,30 @@ def cuda_tensor(name: str, arg: str, t: torch.Tensor, dtype, device) -> None:
             f"{arg} is on {t.device}, expected {device}")
     require(t.dtype == dtype, name, f"{arg} must be {dtype}, got {t.dtype}")
     require(t.is_contiguous(), name, f"{arg} must be contiguous")
+
+
+#: the decode kernels' limits (csrc/common.cuh: kDecodeMaxG,
+#: kDecodeThreads * kDecodeMaxDpt)
+DECODE_MAX_G, DECODE_MAX_D = 8, 256
+
+
+def decode_args(name, q, k_pages, v_pages, block_tables, seq_lens):
+    """Check the arguments of a decode kernel (ragged or dense); returns
+    (B, h_kv, g, d, b, mb)."""
+    dev = q.device
+    for arg, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        cuda_tensor(name, arg, t, torch.float32, dev)
+    for arg, t in (("block_tables", block_tables), ("seq_lens", seq_lens)):
+        cuda_tensor(name, arg, t, torch.int32, dev)
+    B, hq, d = q.shape
+    N, b, hkv, dk = k_pages.shape
+    require(v_pages.shape == k_pages.shape, name, "k/v pool shapes differ")
+    require(dk == d, name, f"head_dim {d} vs pool {dk}")
+    require(hq % hkv == 0, name, f"h_q={hq} not a multiple of h_kv={hkv}")
+    g = hq // hkv
+    require(g <= DECODE_MAX_G and d <= DECODE_MAX_D, name,
+            f"g={g} (max {DECODE_MAX_G}), d={d} (max {DECODE_MAX_D})")
+    require(block_tables.dim() == 2 and block_tables.shape[0] == B, name,
+            f"block_tables {tuple(block_tables.shape)} vs batch {B}")
+    require(tuple(seq_lens.shape) == (B,), name, "seq_lens must be (B,)")
+    return B, hkv, g, d, b, block_tables.shape[1]

@@ -33,6 +33,9 @@ SOURCES = {
     "ragged_paged_attention": "ragged_paged_attention.cu",
     "paged_score": "paged_score.cu",
     "lightning_redundancy": "redundancy.cu",
+    "paged_attention": "paged_attention.cu",
+    "flash_redundancy": "flash_redundancy.cu",
+    "compaction": "compaction.cu",
 }
 
 #: launches per kernel since the last ``reset_launch_counts()``
@@ -49,6 +52,12 @@ _ARGTYPES = {
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "lightning_redundancy_launch":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "paged_attention_launch":
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "flash_redundancy_launch":
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "compaction_launch":
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -12,12 +12,16 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import compaction as _cmp
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_score as _ps
 from repro_torch.kernels import ragged_paged_attention as _rpa
 from repro_torch.kernels import redundancy as _red
 from repro_torch.kernels.native import launch_counts, reset_launch_counts  # noqa: F401
 
-KERNELS = (_rpa.NAME, _ps.NAME, _red.NAME)
+#: every kernel of the port, one per TPU kernel of the JAX package
+KERNELS = (_rpa.NAME, _ps.NAME, _red.NAME, _pa.NAME, _red.FLASH_NAME,
+           _cmp.NAME)
 
 
 def ragged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
@@ -27,6 +31,16 @@ def ragged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
                                                 block_tables, seq_lens)
     return _rpa.ragged_paged_attention_plain(q, k_pages, v_pages,
                                              block_tables, seq_lens)
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
+    """Dense decode attention over the whole table (the ragged kernel's
+    baseline); live rows equal ``ragged_decode_attention``'s."""
+    if q.is_cuda:
+        return _pa.paged_attention_cuda(q, k_pages, v_pages, block_tables,
+                                        seq_lens)
+    return _pa.paged_attention_plain(q, k_pages, v_pages, block_tables,
+                                     seq_lens)
 
 
 def score_logits(q_win, k_pages, block_tables, seq_lens):
@@ -45,6 +59,25 @@ def lightning_redundancy(k_pages, block_tables, seq_lens, p_thresh=0.8):
                                               seq_lens, p_thresh=p_thresh)
     return _red.lightning_redundancy_plain(k_pages, block_tables, seq_lens,
                                            p_thresh=p_thresh)
+
+
+def flash_redundancy(k_pages, block_tables, seq_lens, p_thresh=0.8):
+    """Full-sequence redundancy row sums (n, mb*b, h) (paper Alg. 3)."""
+    if k_pages.is_cuda:
+        return _red.flash_redundancy_cuda(k_pages, block_tables, seq_lens,
+                                          p_thresh=p_thresh)
+    return _red.flash_redundancy_plain(k_pages, block_tables, seq_lens,
+                                       p_thresh=p_thresh)
+
+
+def compact(k_pool, v_pool, f_pool, new_f, src_bt, src_cache, dest_flat):
+    """Move every request's survivors of K, V and F into its destination
+    slots, all layers at once, in place (paper Alg. 4)."""
+    if k_pool.is_cuda:
+        return _cmp.compact_cuda(k_pool, v_pool, f_pool, new_f, src_bt,
+                                 src_cache, dest_flat)
+    return _cmp.compact_plain(k_pool, v_pool, f_pool, new_f, src_bt,
+                              src_cache, dest_flat)
 
 
 def attention_scores_from_logits(logits, seq_lens):

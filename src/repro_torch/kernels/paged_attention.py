@@ -1,0 +1,45 @@
+"""Dense paged decode attention: the CUDA kernel's wrapper and its plain
+version.
+
+Replaces ``src/repro/kernels/paged_attention.py`` (``paged_attention``).
+Contract: q (B, h_q, d); pools (N, b, h_kv, d); block_tables (B, mb) int32
+padded with -1; seq_lens (B,) int32. Returns (B, h_q, d): one-token GQA
+attention over each slot's first seq_len cache entries, computed over every
+entry of the table (a -1 entry reads page 0, masked), as the baseline the
+ragged kernel is measured against. Live rows equal the ragged kernel's bit
+for bit; rows with seq_len == 0 are zeros.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core import paged
+from repro_torch.kernels import native
+from repro_torch.kernels._checks import decode_args
+
+NAME = "paged_attention"
+
+
+def paged_attention_plain(q, k_pages, v_pages, block_tables, seq_lens):
+    """The same function in plain PyTorch: the port's dense gathered
+    reference (``core.paged.paged_decode_attention``)."""
+    return paged.paged_decode_attention(q, k_pages, v_pages, block_tables,
+                                        seq_lens)
+
+
+def paged_attention_cuda(q, k_pages, v_pages, block_tables, seq_lens):
+    """Launch ``csrc/paged_attention.cu`` on the current stream."""
+    B, hkv, g, d, b, mb = decode_args(NAME, q, k_pages, v_pages,
+                                      block_tables, seq_lens)
+    out = torch.empty_like(q)
+    lib = native.library(NAME)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.paged_attention_launch(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            B, hkv, g, d, b, mb, 1.0 / math.sqrt(d), stream)
+    native.check(NAME, lib, code)
+    return out

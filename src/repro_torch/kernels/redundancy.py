@@ -1,12 +1,17 @@
-"""Lightning key redundancy (paper App. C.7): the CUDA kernel's wrapper and
-its plain version.
+"""Key redundancy: the CUDA kernels' wrappers and their plain versions.
 
-Replaces ``src/repro/kernels/redundancy.py`` (``lightning_redundancy``).
-Contract: pool (N, b, h, d); block_tables (n, mb) int32; seq_lens (n,)
-int32. Returns (n, mb*b, h) float32: per page, the row sums (divided by b)
-of the cosine matrix of L2-normalised keys with the diagonal and invalid
+Lightning redundancy (paper App. C.7) replaces
+``src/repro/kernels/redundancy.py`` (``lightning_redundancy``). Contract:
+pool (N, b, h, d); block_tables (n, mb) int32; seq_lens (n,) int32.
+Returns (n, mb*b, h) float32: per page, the row sums (divided by b) of the
+cosine matrix of L2-normalised keys with the diagonal and invalid
 rows/columns zeroed and, per column, the newest entry above ``p_thresh``
 zeroed.
+
+Flash redundancy (paper Alg. 3) replaces ``flash_redundancy`` of the same
+file: the same over the whole sequence instead of page by page, with row
+sums divided by ``max(seq_len, 1)`` (``scoring.redundancy_full`` of the JAX
+package, batched over requests).
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from repro_torch.kernels import native
 from repro_torch.kernels._checks import cuda_tensor, require
 
 NAME = "lightning_redundancy"
+FLASH_NAME = "flash_redundancy"
 
 
 def lightning_redundancy_plain(k_pages, block_tables, seq_lens, *,
@@ -45,23 +51,66 @@ def lightning_redundancy_plain(k_pages, block_tables, seq_lens, *,
     return r.permute(0, 1, 3, 2).reshape(n, T, h)
 
 
+def _launch(name, launch, k_pages, block_tables, seq_lens, p_thresh):
+    dev = k_pages.device
+    cuda_tensor(name, "k_pages", k_pages, torch.float32, dev)
+    for arg, t in (("block_tables", block_tables), ("seq_lens", seq_lens)):
+        cuda_tensor(name, arg, t, torch.int32, dev)
+    N, b, h, d = k_pages.shape
+    require(block_tables.dim() == 2, name, "block_tables must be (n, mb)")
+    n, mb = block_tables.shape
+    require(tuple(seq_lens.shape) == (n,), name, "seq_lens must be (n,)")
+    out = torch.empty((n, mb * b, h), dtype=torch.float32, device=dev)
+    lib = native.library(name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = getattr(lib, launch)(
+            k_pages.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
+            out.data_ptr(), n, h, d, b, mb, float(p_thresh), stream)
+    native.check(name, lib, code)
+    return out
+
+
 def lightning_redundancy_cuda(k_pages, block_tables, seq_lens, *,
                               p_thresh=0.8):
     """Launch ``csrc/redundancy.cu`` on the current stream."""
-    dev = k_pages.device
-    cuda_tensor(NAME, "k_pages", k_pages, torch.float32, dev)
-    for arg, t in (("block_tables", block_tables), ("seq_lens", seq_lens)):
-        cuda_tensor(NAME, arg, t, torch.int32, dev)
-    N, b, h, d = k_pages.shape
-    require(block_tables.dim() == 2, NAME, "block_tables must be (n, mb)")
-    n, mb = block_tables.shape
-    require(tuple(seq_lens.shape) == (n,), NAME, "seq_lens must be (n,)")
-    out = torch.empty((n, mb * b, h), dtype=torch.float32, device=dev)
-    lib = native.library(NAME)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.lightning_redundancy_launch(
-            k_pages.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
-            out.data_ptr(), n, h, d, b, mb, float(p_thresh), stream)
-    native.check(NAME, lib, code)
-    return out
+    return _launch(NAME, "lightning_redundancy_launch", k_pages,
+                   block_tables, seq_lens, p_thresh)
+
+
+def _cosine_matrix(entries, valid):
+    """(n, h, T, T) cosine similarity of L2-normalised keys (eps 1e-12);
+    invalid rows and columns zeroed (and their keys zeroed first, so stale
+    or NaN pool data cannot reach a valid entry)."""
+    zero = torch.zeros((), device=entries.device)
+    e = torch.where(valid[..., None, None], entries.float(), zero)
+    ehat = e / torch.linalg.vector_norm(e, dim=-1, keepdim=True) \
+        .clamp(min=1e-12)
+    c = torch.einsum("nthd,nshd->nhts", ehat, ehat)
+    vm = valid[:, :, None] & valid[:, None, :]
+    return torch.where(vm[:, None], c, zero)
+
+
+def flash_redundancy_plain(k_pages, block_tables, seq_lens, *,
+                           p_thresh=0.8):
+    e = gather_entries(k_pages, block_tables)              # (n, T, h, d)
+    T = e.shape[1]
+    valid = torch.arange(T, device=e.device)[None] < seq_lens[:, None]
+    zero = torch.zeros((), device=e.device)
+    c = _cosine_matrix(e, valid)
+    eye = torch.eye(T, dtype=torch.bool, device=e.device)
+    c = torch.where(eye, zero, c)
+    # per column, zero the last (newest-row) entry above the threshold
+    above = c > p_thresh
+    rows = torch.arange(T, device=e.device)[:, None]
+    last = torch.where(above, rows, torch.full_like(rows, -1)).amax(dim=-2)
+    hit = (rows == last[..., None, :]) & above.any(dim=-2)[..., None, :]
+    c = torch.where(hit, zero, c)
+    n_valid = valid.sum(1).clamp(min=1).float()
+    return (c.sum(-1) / n_valid[:, None, None]).transpose(1, 2)
+
+
+def flash_redundancy_cuda(k_pages, block_tables, seq_lens, *, p_thresh=0.8):
+    """Launch ``csrc/flash_redundancy.cu`` on the current stream."""
+    return _launch(FLASH_NAME, "flash_redundancy_launch", k_pages,
+                   block_tables, seq_lens, p_thresh)

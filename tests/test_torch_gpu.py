@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import compaction as cmp
 from repro_torch.kernels import native, ops
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_score as ps
 from repro_torch.kernels import ragged_paged_attention as rpa
 from repro_torch.kernels import redundancy as red
@@ -74,8 +76,67 @@ def test_kernels_match_plain_versions(cuda, lens):
     _close(ops.lightning_redundancy(k, bt, sl),
            red.lightning_redundancy_plain(k, bt, sl))
     torch.cuda.synchronize()
-    for name in ops.KERNELS:
+    for name in (rpa.NAME, ps.NAME, red.NAME):
         assert ops.launch_counts[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("lens", [[0, 1, 15, 16, 17, 100, 128, 0],
+                                  [128] * 4, [0] * 4])
+def test_dense_decode_matches_plain_and_ragged(cuda, lens):
+    q, _, k, v, bt, sl = [x.to(cuda) for x in _case(len(lens), lens)]
+    before = ops.launch_counts[pa.NAME]
+    dense = ops.paged_decode_attention(q, k, v, bt, sl)
+    _close(dense, pa.paged_attention_plain(q, k, v, bt, sl))
+    ragged = ops.ragged_decode_attention(q, k, v, bt, sl)
+    live = sl > 0
+    assert torch.equal(dense[live], ragged[live])   # bit for bit
+    assert (dense[~live] == 0).all()
+    assert ops.launch_counts[pa.NAME] == before + 1
+
+
+@pytest.mark.parametrize("lens", [[64, 17, 0, 128], [16, 128, 5, 33]])
+def test_flash_redundancy_matches_plain(cuda, lens):
+    _, _, k, _, bt, sl = [x.to(cuda) for x in _case(len(lens), lens)]
+    got = ops.flash_redundancy(k, bt, sl, p_thresh=0.8)
+    want = red.flash_redundancy_plain(k, bt, sl, p_thresh=0.8)
+    _close(got, want)
+    off = red.flash_redundancy_plain(k, bt, sl, p_thresh=2.0)
+    assert (off != want).any()          # the zero-out fired
+    again = ops.flash_redundancy(k, bt, sl, p_thresh=0.8)
+    assert torch.equal(got, again)      # no atomics: the same every run
+
+
+def test_compaction_matches_sequential_plain(cuda):
+    """In place with overlapping ranks, a prefix-shared pair compacting
+    copy-on-write, and a padding row, at Qwen3-8B head widths."""
+    rng = np.random.default_rng(3)
+    L, N, b, h, d, mb, budget = 3, 40, 16, 8, 128, 4, 3
+    T, kk = mb * b, budget * b
+    pools = {n: torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+             for n, shape in (("k", (L, N + 1, b, h, d)),
+                              ("v", (L, N + 1, b, h, d)),
+                              ("f", (L, N + 1, b, h)))}
+    src = torch.tensor([[3, 7, 1, 9], [3, 12, 5, 14], [2, 6, 8, 10],
+                        [-1, -1, -1, -1]], dtype=torch.int32)
+    dest = np.array([[20, 7, 1], [17, 12, 5], [2, 6, 8], [N, N, N]])
+    dest_flat = torch.from_numpy(np.repeat(dest, b, axis=1) * b
+                                 + np.tile(np.arange(b), budget))
+    src_cache = torch.from_numpy(np.stack([np.stack([np.stack([
+        np.sort(rng.choice(T, kk, replace=False)) for _ in range(h)])
+        for _ in range(4)]) for _ in range(L)]))
+    new_f = torch.from_numpy(rng.uniform(size=(L, 4, T, h)).astype(
+        np.float32))
+    want = {n: x.clone() for n, x in pools.items()}
+    cmp.compact_plain(want["k"], want["v"], want["f"], new_f, src,
+                      src_cache, dest_flat)
+    got = {n: x.to(cuda) for n, x in pools.items()}
+    before = ops.launch_counts[cmp.NAME]
+    ops.compact(got["k"], got["v"], got["f"], new_f.to(cuda), src.to(cuda),
+                src_cache.to(cuda), dest_flat.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.launch_counts[cmp.NAME] == before + 1
+    for n in pools:       # the sink page N is garbage on both sides
+        assert torch.equal(got[n][:, :N].cpu(), want[n][:, :N]), n
 
 
 def test_wrappers_refuse_bad_inputs(cuda):
@@ -98,6 +159,29 @@ def test_engine_on_card_matches_cpu(cuda):
     on_card = Zipage(cfg, _to(params, cuda), **shapes).generate(prompts, sp)
     assert [o.token_ids for o in on_card] == [o.token_ids for o in on_cpu]
     assert min(o.metrics.compression.n_compressions for o in on_card) > 0
+
+
+def test_second_path_and_seeded_streams_on_card_match_cpu(cuda):
+    """Dense decode + flash redundancy, greedy and seeded: the threefry
+    noise is the same on both devices, so the streams are too."""
+    from repro_torch.api import SamplingParams, Zipage
+    from repro_torch.core.compression import CompressOptions
+    cfg = get_config("tiny-lm")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    shapes = dict(block_size=8, n_total_blocks=64, max_batch=4,
+                  max_model_len=128, prefill_rows=2, prefill_len=64,
+                  decode_kernel="dense",
+                  compress=CompressOptions(window=4, redundancy="flash"))
+    prompts = [[1, 2, 3, 4, 5] * 6, list(range(10, 50))]
+    sp = [SamplingParams(max_new_tokens=24),
+          SamplingParams(max_new_tokens=24, temperature=0.6, top_p=0.95,
+                         top_k=20, seed=7)]
+    on_cpu = Zipage(cfg, params, device="cpu", **shapes).generate(prompts, sp)
+    ops.reset_launch_counts()
+    on_card = Zipage(cfg, _to(params, cuda), **shapes).generate(prompts, sp)
+    assert [o.token_ids for o in on_card] == [o.token_ids for o in on_cpu]
+    for name in (pa.NAME, red.FLASH_NAME, cmp.NAME, ps.NAME):
+        assert ops.launch_counts[name] > 0, name
 
 
 def _to(t, dev):

@@ -3,21 +3,29 @@
 On the CPU each kernel of ``repro_torch.kernels`` runs its plain PyTorch
 version; here those are compared with ``repro.kernels.ops`` run through the
 Pallas interpreter (``backend="pallas-interpret"``) on the same numpy
-inputs, at GQA shapes (8, 2) and (32, 8), over length mixes with inactive
-(seq_len == 0), sub-block, block-aligned and full-table rows, and with a
-NaN-poisoned page 0 that no live row maps. The CUDA wrappers themselves
+inputs, at GQA shapes (8, 2) and (32, 8) (the dense decode at (8, 2) and
+(4, 4)), over length mixes with inactive (seq_len == 0), sub-block,
+block-aligned and full-table rows, and with a NaN-poisoned page 0 that no
+live row maps. The kernels of the second slice (dense decode, flash
+redundancy, compaction) run at the interpreter's small sizes: n <= 2 or
+so requests, mb <= 4 pages. The CUDA wrappers themselves
 run only on a card (tests/test_torch_gpu.py); here they must refuse CPU
 tensors rather than fall back.
 
 Tolerance: atol = rtol = 1e-5 (fp32; the two frameworks sum the dot
 products in different orders).
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core.compression import _compact_pool
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import compaction as cmp
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_score as ps
 from repro_torch.kernels import ragged_paged_attention as rpa
 from repro_torch.kernels import redundancy as red
@@ -142,6 +150,8 @@ def test_cpu_dispatch_counts_no_launch():
     (rpa.ragged_paged_attention_cuda, "q kp vp bt sl"),
     (ps.paged_score_logits_cuda, "qw kp bt sl"),
     (red.lightning_redundancy_cuda, "kp bt sl"),
+    (pa.paged_attention_cuda, "q kp vp bt sl"),
+    (red.flash_redundancy_cuda, "kp bt sl"),
 ])
 def test_cuda_wrappers_refuse_cpu_tensors(wrapper, args):
     """No fallback: a wrapper handed CPU tensors raises before any launch
@@ -151,3 +161,159 @@ def test_cuda_wrappers_refuse_cpu_tensors(wrapper, args):
     env = {"q": q, "kp": kp, "vp": vp, "bt": bt, "sl": sl, "qw": qw}
     with pytest.raises(ValueError, match="CUDA tensor"):
         wrapper(*[t(env[a]) for a in args.split()])
+
+
+# ----------------------------------------------------------------------
+# second slice: dense decode (B4), flash redundancy (B5), compaction (B6)
+
+SMALL_MIXES = [[0, 13], [16, 5], [9, 0], [1, 16]]
+
+
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (4, 4)])
+@pytest.mark.parametrize("mix", range(len(SMALL_MIXES)))
+@pytest.mark.parametrize("poison", [False, True])
+def test_dense_decode_matches_pallas(hq, hkv, mix, poison):
+    lens = SMALL_MIXES[mix]
+    q, kp, vp, bt, sl = make_case(hq, hkv, lens, seed=30 + mix, mb=4,
+                                  n_pages=16, poison=poison)
+    _, kc, vc, _, _ = make_case(hq, hkv, lens, seed=30 + mix, mb=4,
+                                n_pages=16)
+    want = np.asarray(jops.paged_decode_attention(
+        q, kc, vc, bt, sl, backend="pallas-interpret"))
+    got = ops.paged_decode_attention(t(q), t(kp), t(vp), t(bt), t(sl))
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    # seq_len == 0 rows: what the JAX package's dense reference gives
+    np.testing.assert_array_equal(got.numpy()[sl == 0], 0.0)
+
+
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (4, 4), (32, 8)])
+@pytest.mark.parametrize("mix", range(len(LENGTH_MIXES)))
+def test_dense_equals_ragged_on_live_rows(hq, hkv, mix):
+    """The plain dense and ragged versions agree bit for bit on live rows
+    (the port's counterpart of the JAX package's ragged == dense), NaN
+    page 0 and stale tails included."""
+    q, kp, vp, bt, sl = make_case(hq, hkv, LENGTH_MIXES[mix], seed=40 + mix,
+                                  poison=True)
+    args = [t(a) for a in (q, kp, vp, bt, sl)]
+    dense = ops.paged_decode_attention(*args)
+    ragged = ops.ragged_decode_attention(*args)
+    live = sl > 0
+    assert torch.equal(dense[live], ragged[live])
+    assert (dense[~live] == 0).all() and (ragged[~live] == 0).all()
+
+
+FLASH_MIXES = [[16, 7], [0, 11], [13, 16]]
+
+
+@pytest.mark.parametrize("mix", range(len(FLASH_MIXES)))
+@pytest.mark.parametrize("similar", [False, True])
+def test_flash_redundancy_matches_pallas_and_ref(mix, similar):
+    lens = FLASH_MIXES[mix]
+    _, kp, _, bt, sl = make_case(4, 2, lens, seed=50 + mix, mb=4,
+                                 n_pages=16, poison=True, similar=similar)
+    _, kc, _, _, _ = make_case(4, 2, lens, seed=50 + mix, mb=4, n_pages=16,
+                               similar=similar)
+    want = np.asarray(jops.flash_redundancy(
+        kc, np.maximum(bt, 0), sl, p_thresh=0.8, backend="pallas-interpret"))
+    want_ref = np.asarray(jref.flash_redundancy_ref(kc, bt, sl, p_thresh=0.8))
+    got = ops.flash_redundancy(t(kp), t(bt), t(sl), p_thresh=0.8)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), want_ref, rtol=RTOL, atol=ATOL)
+
+
+def test_flash_threshold_is_exercised():
+    """The near-duplicate keys trip the cross-block zero-out."""
+    _, kp, _, bt, sl = make_case(4, 2, [16, 13], seed=51, mb=4, n_pages=16,
+                                 similar=True)
+    on = ops.flash_redundancy(t(kp), t(bt), t(sl), p_thresh=0.8)
+    off = ops.flash_redundancy(t(kp), t(bt), t(sl), p_thresh=2.0)
+    assert (on != off).any()
+    # a full-sequence score: it differs from the page-local one
+    light = ops.lightning_redundancy(t(kp), t(bt), t(sl), p_thresh=0.8)
+    assert not torch.allclose(on, light)
+
+
+def compaction_case(seed=0, L=2, N=24, b=4, h=2, d=8, mb=4, budget=3):
+    """Four requests, as the block manager plans them: 0 and 1 share their
+    first source block (a prefix), so each copies it to a fresh block and
+    compacts the rest in place (copy-on-write); 2 compacts wholly in place
+    (its destination blocks are its first source blocks, so ranks overlap
+    their sources); 3 is a padding row (destination: the sink page)."""
+    rng = np.random.default_rng(seed)
+    k = rng.normal(size=(L, N, b, h, d)).astype(np.float32)
+    v = rng.normal(size=(L, N, b, h, d)).astype(np.float32)
+    f = rng.uniform(size=(L, N, b, h)).astype(np.float32)
+    src = np.full((4, mb), -1, np.int32)
+    src[0] = [3, 7, 1, 9]
+    src[1] = [3, 12, 5, 14]
+    src[2] = [2, 6, 8, 10]
+    dest = np.full((4, budget), -1, np.int32)
+    dest[0] = [20, 7, 1]
+    dest[1] = [17, 12, 5]
+    dest[2] = src[2, :budget]
+    T, kk = mb * b, budget * b
+    # survivors per (layer, request, head): kk sorted positions of T
+    src_cache = np.stack([np.stack([np.stack([
+        np.sort(rng.choice(T, kk, replace=False)) for _ in range(h)])
+        for _ in range(4)]) for _ in range(L)]).astype(np.int64)
+    new_f = rng.uniform(size=(L, 4, T, h)).astype(np.float32)
+    return k, v, f, new_f, src, dest, src_cache
+
+
+def test_compaction_matches_jax_compact_pool():
+    k, v, f, new_f, src, dest, src_cache = compaction_case()
+    L, N, b, h, d = k.shape
+    # the port: pools with a sink page; padding/dropped slots go there
+    sink = N
+    dslots = np.where(dest >= 0, dest, sink)
+    dslots[3] = sink
+    dest_flat = (np.repeat(dslots, b, axis=1) * b
+                 + np.tile(np.arange(b), dest.shape[1]))
+    pools = {n: torch.from_numpy(np.concatenate(
+        [a, np.zeros_like(a[:, :1])], axis=1)) for n, a in
+        (("k", k), ("v", v), ("f", f))}
+    ops.compact(pools["k"], pools["v"], pools["f"], t(new_f), t(src),
+                t(src_cache), t(dest_flat))
+    # the JAX package: the engine's _compact_pool per request, in order,
+    # with out-of-range destinations dropped
+    jdest = np.where(dslots == sink, 2**30 // b, dslots)
+    jflat = (np.repeat(jdest, b, axis=1) * b
+             + np.tile(np.arange(b), dest.shape[1]))
+    heads = np.arange(h)[:, None]
+    for l in range(L):
+        kl, vl, fl = k[l], v[l], f[l].reshape(-1, h)
+        for i in range(4):
+            bt = np.maximum(src[i], 0)
+            kl = _compact_pool(jnp.asarray(kl), bt, src_cache[l, i], jflat[i])
+            vl = _compact_pool(jnp.asarray(vl), bt, src_cache[l, i], jflat[i])
+            fl = jnp.asarray(fl).at[jflat[i][None, :], heads].set(
+                new_f[l, i].T[heads, src_cache[l, i]], mode="drop")
+        np.testing.assert_array_equal(pools["k"][l, :N].numpy(),
+                                      np.asarray(kl))
+        np.testing.assert_array_equal(pools["v"][l, :N].numpy(),
+                                      np.asarray(vl))
+        np.testing.assert_array_equal(pools["f"][l, :N].numpy(),
+                                      np.asarray(fl).reshape(N, b, h))
+        # what lands at a live request's destination is the gather of its
+        # survivors from the pool before any move (compact_gather), through
+        # the reference and the interpreted Pallas kernel alike
+        flat0 = k[l].reshape(N * b, h, d)
+        for i in range(3):
+            slots = (np.maximum(src[i], 0)[src_cache[l, i] // b] * b
+                     + src_cache[l, i] % b).astype(np.int32)
+            rows = np.asarray(jref.compact_gather_ref(flat0, slots))
+            np.testing.assert_array_equal(
+                np.asarray(jops.compact_gather(flat0, slots,
+                                               backend="pallas-interpret")),
+                rows)
+            got = pools["k"][l].reshape(-1, h, d)[t(dest_flat[i])].numpy()
+            np.testing.assert_array_equal(got, rows)
+
+
+def test_compaction_cuda_refuses_cpu_tensors():
+    k, v, f, new_f, src, dest, src_cache = compaction_case()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cmp.compact_cuda(t(k), t(v), t(f), t(new_f), t(src), t(src_cache),
+                         t(dest))

@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.api import Zipage
 from repro_torch.configs import get_config
+from repro_torch.core.compression import CompressOptions
 from repro_torch.core.engine import EngineOptions, ZipageEngine
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
@@ -84,12 +85,34 @@ def test_cpu_when_asked(monkeypatch):
     dict(cache_compressed_prefixes=True),
     dict(decode_steps=4),
     dict(fuse_sampling=False),
-    dict(decode_kernel="dense"),
     dict(dtype="bfloat16"),
 ])
 def test_unported_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="not ported"):
         Zipage.from_config("tiny-lm", device="cpu", **knob)
+
+
+def test_unknown_decode_kernel_raises():
+    """``decode_kernel`` is ragged or dense, as in the JAX package; the
+    engine refuses anything else too."""
+    with pytest.raises(ValueError, match="decode_kernel"):
+        Zipage.from_config("tiny-lm", device="cpu", decode_kernel="bogus")
+    cfg = get_config("tiny-lm")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="decode_kernel"):
+        ZipageEngine(cfg, params, EngineOptions(decode_kernel="bogus"),
+                     device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    dict(decode_kernel="dense"),
+    dict(compress=CompressOptions(window=4, redundancy="flash")),
+])
+def test_dense_decode_and_flash_are_accepted(knob):
+    z = Zipage.from_config("tiny-lm", device="cpu", block_size=8,
+                           n_total_blocks=16, max_batch=2, max_model_len=64,
+                           prefill_rows=1, prefill_len=32, **knob)
+    assert z.engine.spec.decode_kernel == z.engine.opts.decode_kernel
 
 
 def test_unported_architectures_raise():
