@@ -26,9 +26,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
   5b. the paper's Alg. 3 / Alg. 4 serve at full width on the same weight
      tensors: ``decode_kernel="dense"`` and flash redundancy, four greedy
      and four seeded requests (Qwen3's thinking-mode sampling);
-  6. timing of each kernel at the serves' own inputs with CUDA events:
-     kernel, plain version, a library call that computes the same
-     function (or its product), and the bound from bytes and flops;
+  6. timing of each kernel at the serves' own inputs: kernel, plain
+     version, a library call that computes the same function (or its
+     product), and the bound from bytes and flops; for the kernel and the
+     library call, CUDA-event time, device time (torch.profiler, the
+     calls' CUDA kernels) and host time (event minus device). B5 and K2
+     also at a long input (table width 128, seq_lens 2048 and 1999), held
+     against their plain versions there first (B5 two launches bit for
+     bit);
   7. a profiled window of decode steps of the main serve: device-busy
      share of wall time and kernel time by group.
 
@@ -60,6 +65,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 N_REQUESTS = 8
 NEW_TOKENS = 128
+#: the long input of B5 and K2 in phase 6: table width and seq_lens
+LONG_TABLE, LONG_LENS = 128, [2048, 1999]
 
 #: Qwen3's published thinking-mode sampling (the model card's advice)
 THINKING = dict(temperature=0.6, top_p=0.95, top_k=20)
@@ -702,18 +709,86 @@ def time_ms(torch, fn, n=50):
     return start.elapsed_time(end) / n
 
 
+def device_ms(torch, fn, n=20, windows=3):
+    """Per call, the self device time of every CUDA kernel that ``n``
+    calls of ``fn`` ran, summed, under torch.profiler. Now and then the
+    profiler records no kernel at all in a window (seen on the H100 with
+    torch 2.11, right after the same calls had been timed by events); such
+    a window is profiled again, up to ``windows`` in all."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0.0)
+            if us and str(ev.device_type).endswith("CUDA"):
+                total += us
+        if total > 0:
+            return total / 1e3 / n
+        log("timing", "the profiler recorded no device time; profiling "
+            "again")
+    raise AssertionError(f"the profiler recorded no device time in "
+                         f"{windows} windows")
+
+
+def times(torch, kernel, library):
+    """Event, device and host (event minus device) ms per call of the
+    kernel's wrapper and of its library yardstick."""
+    ms, dev = time_ms(torch, kernel), device_ms(torch, kernel)
+    lib, lib_dev = time_ms(torch, library), device_ms(torch, library)
+    return {"ms": ms, "device_ms": dev, "host_ms": ms - dev,
+            "library_ms": lib, "library_device_ms": lib_dev,
+            "library_host_ms": lib - lib_dev}
+
+
 def bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _live_entries(bt, sl, b):
-    """Cache entries a call really reads: per row, seq_len capped by the
+def _live_lens(bt, sl, b):
+    """Cache entries a call really reads, per row: seq_len capped by the
     pages its table maps (a finished slot keeps a stale seq_len over an
     empty table)."""
     mapped = (bt >= 0).sum(1) * b
-    return int(sl.clamp(min=0).minimum(mapped.to(sl.dtype)).sum())
+    return sl.clamp(min=0).minimum(mapped.to(sl.dtype)).tolist()
+
+
+def _live_entries(bt, sl, b):
+    return sum(_live_lens(bt, sl, b))
+
+
+def score_work(lens, hkv, g, w, d, T, table_el):
+    """Bytes and flops of K2 over requests of ``lens`` live keys: queries,
+    live keys, table and seq_lens read once, the (n, hkv, g, w, T) logits
+    written once; 2 d flops per (query row, live key)."""
+    n, n_live = len(lens), sum(lens)
+    nbytes = 4 * (n * w * hkv * g * d + n_live * hkv * d + table_el + n
+                  + n * hkv * g * w * T)
+    return nbytes, 2 * n_live * hkv * g * w * d
+
+
+def redundancy_work(lens, span, h, d, T, table_el):
+    """Bytes and flops of K3 (``span`` = the page size: pairs within a
+    page) or B5 (``span`` >= T: all pairs) over requests of ``lens`` live
+    keys: live keys, table and seq_lens read once, the (n, T, h) row sums
+    written once. The cosine matrix is symmetric, so a block of m live keys
+    needs m (m - 1) / 2 distinct products of 2 d flops; each key's norm and
+    scaling adds 3 d."""
+    n, n_live = len(lens), sum(lens)
+    pairs2 = sum((L // span) * span * (span - 1) + (L % span) * (L % span - 1)
+                 for L in lens)                   # twice the distinct pairs
+    nbytes = 4 * (n_live * h * d + table_el + n + n * T * h)
+    return nbytes, pairs2 * h * d + 3 * n_live * h * d
 
 
 def _pick(calls, key):
@@ -796,11 +871,8 @@ def time_score(torch, rec, errs, per_serve, serve):
     n, w, hq, d = q_win.shape
     hkv = kp.shape[2]
     g = hq // hkv
-    n_live = _live_entries(bt, sl, kp.shape[1])
-    out_el = n * hkv * g * w * bt.shape[1] * kp.shape[1]
-    nbytes = 4 * (q_win.numel() + n_live * hkv * d + bt.numel() + sl.numel()
-                  + out_el)
-    flops = 2 * n_live * hq * w * d
+    nbytes, flops = score_work(_live_lens(bt, sl, kp.shape[1]), hkv, g, w, d,
+                               bt.shape[1] * kp.shape[1], bt.numel())
     qg = q_win.reshape(n, w, hkv, g, d).permute(0, 2, 3, 1, 4) \
         .reshape(n, hkv, g * w, d).contiguous()
     kt = gather_entries(kp, bt).permute(0, 2, 3, 1).contiguous()
@@ -833,19 +905,15 @@ def time_redundancy(torch, rec, op, errs, per_serve, serve):
     p = kw.get("p_thresh", 0.8)
     N, b, h, d = kp.shape
     n, mb = bt.shape
-    n_live = _live_entries(bt, sl, b)
-    nbytes = 4 * (n_live * h * d + bt.numel() + sl.numel() + n * mb * b * h)
+    nbytes, flops = redundancy_work(_live_lens(bt, sl, b), mb * b if flash
+                                    else b, h, d, mb * b, bt.numel())
     e = gather_entries(kp, bt).float()                      # (n, T, h, d)
     eh = (e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
           .clamp(min=1e-12)).permute(0, 2, 1, 3).contiguous()  # (n,h,T,d)
     if flash:
-        per_req = (sl.clamp(min=0).minimum((bt >= 0).sum(1).to(sl.dtype) * b)
-                   .to(torch.float64))
-        flops = int((per_req * per_req).sum()) * h * 2 * d + 3 * n_live * h * d
         lib = lambda: torch.matmul(eh, eh.transpose(-1, -2))  # noqa: E731
         source = "src/repro_torch/csrc/flash_redundancy.cu"
     else:
-        flops = n_live * h * (2 * b * d + 3 * d)
         ep = eh.reshape(n, h, mb, b, d)
         lib = lambda: torch.matmul(ep, ep.transpose(-1, -2))  # noqa: E731
         source = "src/repro_torch/csrc/redundancy.cu"
@@ -907,19 +975,123 @@ def time_compaction(torch, rec, errs, per_serve, serve):
 
 def _row(torch, name, source, per_serve, serve, errs, kernel, plain, library,
          nbytes, flops, shapes):
-    ms = time_ms(torch, kernel)
+    t = times(torch, kernel, library)
     plain_ms = time_ms(torch, plain, n=10)
-    lib_ms = time_ms(torch, library) if library is not None else None
     bound_ms, bound_by = bound(nbytes, flops)
-    lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
-    log("timing", f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.5f} ms by {bound_by}, library {lib_txt}) at {shapes}; "
-        f"launches per serve {per_serve[name]}")
+    log("timing", f"{name}: {t['ms']:.4f} ms = device {t['device_ms']:.4f} "
+        f"+ host {t['host_ms']:.4f} (plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms by {bound_by}, library {t['library_ms']:.4f} ms "
+        f"= device {t['library_device_ms']:.4f} + host "
+        f"{t['library_host_ms']:.4f}) at {shapes}; launches per serve "
+        f"{per_serve[name]}")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "launches": per_serve[name][serve],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "max_abs_err": errs[name], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, **t,
             "launches_per_serve": per_serve[name]}
+
+
+def long_input(torch, dev, cfg, opts, table=LONG_TABLE, lens=LONG_LENS):
+    """An input of B5 and K2 at Qwen3-8B heads: ``table`` pages of the
+    engine's block size, seq_lens ``lens``, random keys from the seed with
+    a NaN page 0 and NaN stale tails; each row's newest page is a
+    near-duplicate of its oldest, so the flash zero-out fires."""
+    import numpy as np
+    b, hkv, d = opts.block_size, cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(SEED + 3)
+    n_pages = 1 + sum(-(-s // b) for s in lens)
+    k = rng.normal(size=(n_pages, b, hkv, d)).astype(np.float32)
+    bt = np.full((len(lens), table), -1, np.int32)
+    free = list(rng.permutation(np.arange(1, n_pages)))
+    for i, s in enumerate(lens):
+        for j in range(-(-s // b)):
+            bt[i, j] = free.pop()
+        k[bt[i, (s - 1) // b]] = k[bt[i, 0]] + 0.05 * rng.normal(
+            size=(b, hkv, d))
+        if s % b:
+            k[bt[i, s // b], s % b:] = np.nan
+    k[0] = np.nan
+    q_win = rng.normal(size=(len(lens), opts.window, cfg.num_heads,
+                             d)).astype(np.float32)
+    return (torch.from_numpy(q_win).to(dev), torch.from_numpy(k).to(dev),
+            torch.from_numpy(bt).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def time_flash_and_score(torch, dev, cfg, opts, table, lens):
+    """B5 and K2 at ``long_input(table, lens)``: each held against its
+    plain version (B5 also two launches bit for bit, its zero-out firing),
+    then timed like the serve's rows. Returns {kernel name: record}."""
+    from repro_torch.core.paged import gather_entries
+    from repro_torch.kernels import paged_score as ps
+    from repro_torch.kernels import redundancy as red
+
+    q_win, k, bt, sl = long_input(torch, dev, cfg, opts, table, lens)
+    n, w, hq, d = q_win.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    T = table * k.shape[1]
+    p = opts.compress.p_thresh
+    shapes = {"n": n, "seq_lens": list(lens), "table_width": table}
+    out = {}
+
+    got = red.flash_redundancy_cuda(k, bt, sl, p_thresh=p)
+    want = red.flash_redundancy_plain(k, bt, sl, p_thresh=p)
+    err = max_err(torch, got, want, f"flash[{table}]")
+    if not bool(torch.equal(got, red.flash_redundancy_cuda(k, bt, sl,
+                                                           p_thresh=p))):
+        raise AssertionError(f"flash[{table}]: two runs differ")
+    hits = int((red.flash_redundancy_plain(k, bt, sl, p_thresh=2.0)
+                != want).sum())
+    if hits == 0:
+        raise AssertionError(f"flash[{table}]: the p_thresh zero-out never "
+                             "fired")
+    del got, want
+    e = gather_entries(k, bt)
+    valid = torch.arange(T, device=dev)[None] < sl[:, None]
+    e = torch.where(valid[..., None, None], e, torch.zeros((), device=dev))
+    eh = (e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
+          .clamp(min=1e-12)).permute(0, 2, 1, 3).contiguous()
+    t = times(torch, lambda: red.flash_redundancy_cuda(k, bt, sl, p_thresh=p),
+              lambda: torch.matmul(eh, eh.transpose(-1, -2)))
+    b_ms, b_by = bound(*redundancy_work(lens, T, hkv, d, T, bt.numel()))
+    out[red.FLASH_NAME] = {**t, "bound_ms": b_ms, "bound_by": b_by,
+                           "max_abs_err": err, "zero_outs": hits, **shapes}
+    log("timing", f"{red.FLASH_NAME}[{table}]: max_abs_err={err:.3e} "
+        f"(atol=rtol={TOL}), the same in two runs, zero-out changed {hits} "
+        f"row sums; {t['ms']:.4f} ms = device {t['device_ms']:.4f} + host "
+        f"{t['host_ms']:.4f} (bound {b_ms:.5f} ms by {b_by}, library "
+        f"{t['library_ms']:.4f} ms = device {t['library_device_ms']:.4f}) "
+        f"at {shapes}")
+    del eh
+
+    got = ps.paged_score_logits_cuda(q_win, k, bt, sl)
+    err = max_err(torch, got, ps.paged_score_logits_plain(q_win, k, bt, sl),
+                  f"paged_score[{table}]")
+    del got
+    qg = q_win.reshape(n, w, hkv, g, d).permute(0, 2, 3, 1, 4) \
+        .reshape(n, hkv, g * w, d).contiguous()
+    kt = e.permute(0, 2, 3, 1).contiguous()
+    t = times(torch, lambda: ps.paged_score_logits_cuda(q_win, k, bt, sl),
+              lambda: torch.matmul(qg, kt))
+    b_ms, b_by = bound(*score_work(lens, hkv, g, w, d, T, bt.numel()))
+    out[ps.NAME] = {**t, "bound_ms": b_ms, "bound_by": b_by,
+                    "max_abs_err": err, **shapes}
+    log("timing", f"{ps.NAME}[{table}]: max_abs_err={err:.3e} (atol=rtol="
+        f"{TOL}); {t['ms']:.4f} ms = device {t['device_ms']:.4f} + host "
+        f"{t['host_ms']:.4f} (bound {b_ms:.5f} ms by {b_by}, library "
+        f"{t['library_ms']:.4f} ms = device {t['library_device_ms']:.4f}) "
+        f"at {shapes}")
+    return out
+
+
+def phase_long(torch, dev, cfg, opts, rows):
+    """B5 and K2 at the long input; the records go into their rows as
+    ``long_input``."""
+    by_name = {r["name"]: r for r in rows}
+    for name, rec in time_flash_and_score(torch, dev, cfg, opts, LONG_TABLE,
+                                          LONG_LENS).items():
+        by_name[name]["long_input"] = rec
 
 
 # ----------------------------------------------------------------------
@@ -1044,6 +1216,8 @@ def main():
     lap("serve-alg34")
     rows = phase_timing(torch, rec, rec34, launches, launches34, errs)
     del z34, rec34, rec
+    torch.cuda.empty_cache()
+    phase_long(torch, dev, cfg, opts, rows)
     torch.cuda.empty_cache()
     lap("timing")
     prof = phase_profile(torch, z, card)

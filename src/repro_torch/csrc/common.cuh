@@ -23,6 +23,67 @@ extern "C" const char* zp_error_string(int code) {
 }
 
 // ---------------------------------------------------------------------------
+// Tiles of keys in cache order, staged by 16-byte cp.async (flash
+// redundancy and window logits). A tile is kKeyTile (or fewer) consecutive
+// cache positions of one request and one kv head, d floats each, kept in shared
+// memory with a row stride of d + kKeyPad floats: rows stay 16-byte
+// aligned, and 16-byte reads of consecutive rows at one column hit
+// distinct banks.
+constexpr int kKeyTile = 64;
+constexpr int kKeyPad = 4;
+
+__device__ __forceinline__ void zp_cp_async16(float* smem, const float* gmem, bool valid) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  const int src_bytes = valid ? 16 : 0;  // 0: the 16 bytes are zero-filled, nothing is read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void zp_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most n of the committed groups are still in flight.
+template <int n>
+__device__ __forceinline__ void zp_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// Issue the copies of one tile: cache positions pos0 .. pos0 + rows - 1
+// of a request (its table row bt, n_valid live positions), kv head hh of
+// h, into dst. Positions at or past n_valid, and positions on a -1 table
+// entry, are zero-filled without reading the table entry or the pool, so
+// stale or NaN pool data never reaches shared memory. Needs d % 4 == 0.
+// The address arithmetic sits on the path that issues the copies, so it
+// is kept short: when the block's threads divide into the row's 16-byte
+// columns each thread keeps one column and walks rows, and a block size
+// that is a power of two is divided by shifts.
+__device__ __forceinline__ void zp_load_key_tile(float* dst, const float* __restrict__ pool,
+                                                 const int* __restrict__ bt, int pos0,
+                                                 int n_valid, int h, int hh, int d, int b,
+                                                 int rows = kKeyTile) {
+  const int d4 = d >> 2;
+  const int ld = d + kKeyPad;
+  const int shift = (b & (b - 1)) == 0 ? __ffs(b) - 1 : -1;
+  auto copy = [&](int t, int c4) {
+    const int pos = pos0 + t;
+    const int blk = shift >= 0 ? pos >> shift : pos / b;
+    const int slot = pos - blk * b;
+    const int page = pos < n_valid ? bt[blk] : -1;
+    const float* src =
+        page >= 0 ? pool + (((size_t)page * b + slot) * h + hh) * d + 4 * c4 : pool;
+    zp_cp_async16(dst + t * ld + 4 * c4, src, page >= 0);
+  };
+  if (blockDim.x % d4 == 0) {
+    const int c4 = threadIdx.x % d4;
+    for (int t = threadIdx.x / d4; t < rows; t += blockDim.x / d4) copy(t, c4);
+  } else {
+    for (int idx = threadIdx.x; idx < rows * d4; idx += blockDim.x) copy(idx / d4, idx % d4);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Decode attention, one page at a time (the ragged and the dense decode
 // kernels share this, so that their live rows are bit-identical).
 //

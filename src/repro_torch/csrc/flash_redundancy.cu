@@ -3,159 +3,283 @@
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/redundancy.py::flash_redundancy.
 // For each request and kv head it L2-normalises the keys (eps 1e-12), forms
-// the T x T cosine matrix block by block, zeroes the diagonal and every row
-// or column at a position >= seq_len, zeroes per column the last (newest)
-// row whose similarity exceeds p_thresh, and writes the row sums divided by
+// the T x T cosine matrix, zeroes the diagonal and every row or column at a
+// position >= seq_len, zeroes per column the last (newest) row whose
+// similarity exceeds p_thresh, and writes the row sums divided by
 // max(seq_len, 1). Output (n, max_blocks * b, h), float32.
 //
+// What bounds it on the card: operations, on fp32 CUDA cores (TF32 is off
+// by the port's parity rule); the bytes are the live keys once. The cosine
+// matrix is symmetric, so L live keys need L (L - 1) / 2 distinct products
+// of 2 * d flops per (request, head): at seq_lens 2048 and 1999, d = 128
+// and 8 heads that is 8.4 GFLOP against 17 MB. This design forms both
+// halves of the matrix, twice that work.
+//
 // The TPU kernel runs a grid (n, h, m) whose column-block axis m is
-// sequential: it carries the per-column "already zeroed" tag across the
-// row blocks i = N-1..0 of one m, and it accumulates every (i, m) tile's
-// row sums into one output tile that the m axis revisits. On the card,
-// blocks per (request, head, m) adding into the same rows with atomics
-// would make the sums, and so the survivors of a top-k whose margins are
-// about 1e-5, depend on the run. So there are no atomics: one thread block
-// per (request, head) loops m in order and, inside, i = N-1..0 with the
-// (b,) tag in shared memory, and keeps the running row sums of all T rows
-// in shared memory. The sums are added in a fixed order: the result is the
-// same in every run.
+// sequential: it carries a per-column "already zeroed" tag down the row
+// blocks i = N-1..0 of one m and sums every (i, m) tile into one output
+// tile that m revisits. The tag looks only down its own column, so column
+// strips are independent. The design spreads them over the card:
 //
-// Pages at or past seq_len are not read: a dead column block is skipped
-// (its columns are all masked, so its tiles add zeros), and a dead row
-// block contributes an all-zero tile without loading its keys (the tag
-// logic still runs over it, as the TPU kernel's does). Key rows past
-// seq_len are loaded as zeros and masked, so stale or NaN pool data cannot
-// reach an output.
+//   * one thread block per (strip of 64 columns, head, request); the
+//     strip's keys are loaded once and stay in shared memory, with their
+//     norms;
+//   * the block walks row tiles of 64 keys newest to oldest, each staged by
+//     16-byte cp.async into a double buffer while the previous tile is
+//     computed (the tile that holds the strip's own keys is not loaded
+//     again); a row's norm is taken from the staged tile by the 16
+//     threads that share the row, and each product is multiplied by the
+//     inverse norms of its row and column;
+//   * each thread owns a 4 x 4 micro-tile and forms it with fp32 FMAs from
+//     registers, loaded as 16-byte vectors from shared memory;
+//   * the newest row above p_thresh per column of a tile is an integer
+//     atomicMax on a row index in shared memory (an integer max does not
+//     depend on order), and the per-column tag is carried to the next tile
+//     in shared memory. Two barriers per 64 x 64 x d tile;
+//   * each tile's row sums over the strip's columns are summed in a fixed
+//     order (micro-tile columns, then a shuffle tree over 16 lanes) and
+//     written as the strip's partial row sums; a second kernel adds the
+//     partials of the live strips in ascending strip order. When the table
+//     is one strip wide (T <= 64, the serve's compressions) the strip
+//     kernel writes the output itself and the second kernel is not run.
 //
-// What bounds it on the card: it is a first version and latency-bound. The
-// work is T^2 * d multiply-adds per (request, head) (2 * n_live^2 * d
-// flops), the bytes are the live keys once; at the serve's shapes (T = 64)
-// both bounds are well under a microsecond, while one block per
-// (request, head) re-reads each row block from L2 for every column block
-// and synchronises three times per tile.
+// No float atomics: every sum is taken in the same order in every run, so
+// two launches give the same bits (top-k margins are about 1e-5).
+//
+// What still holds it back: at long tables the products are bound by
+// shared memory rather than by the FMA units (each 4 x 4 micro-tile step
+// spends 8 16-byte shared loads, 4 of them over 16 distinct rows, on 64
+// FMAs), and each tile's epilogue (norms, tag, row sums, two barriers)
+// runs between products; every strip also reads all row tiles from L2; and
+// every product is formed twice, once for each half of the matrix (a tile
+// and its mirror could share one set of products: the next lever). At the
+// serve's T = 64 there are only n * h blocks (16), so the time is one
+// block's chain of table, copy and products. PERF.md has the numbers.
+//
+// Rows and columns at or past seq_len, and positions on a -1 table entry,
+// are zero-filled by the copy without reading the pool, so stale or NaN
+// pool data cannot reach an output; row tiles past seq_len are not visited
+// (their entries are zeros, which no p_thresh >= 0 exceeds; for a negative
+// p_thresh the newest such row would take every column's zero-out, so a
+// valid entry is never zeroed, and the tag starts set).
+//
+// Memory: `out` is the start of one buffer that flash_redundancy_cuda
+// allocates: n * T * h floats of output, then flash_redundancy_workspace()
+// floats for the strips' partial row sums (none when T <= 64), so the strip
+// width is decided here alone.
 #include "common.cuh"
 
 namespace {
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;  // 16 x 16 threads, each 4 x 4 entries of a 64 x 64 tile
 
-// Load rows of one page's keys for head hh, L2-normalised, into k_s (ld
-// floats a row); rows t >= n_valid are zeros. Uses n_s (b floats).
-__device__ __forceinline__ void load_normalised(const float* __restrict__ k_pool, int page,
-                                                int n_valid, int hh, int h, int d, int b,
-                                                float* k_s, float* n_s) {
-  const int ld = d + 1;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  for (int idx = threadIdx.x; idx < b * d; idx += blockDim.x) {
-    const int t = idx / d;
-    const int dd = idx - t * d;
-    float kv = 0.f;
-    if (t < n_valid) kv = k_pool[(((size_t)page * b + t) * h + hh) * d + dd];
-    k_s[t * ld + dd] = kv;
-  }
-  __syncthreads();
-  for (int t = warp; t < b; t += n_warps) {
-    float ss = 0.f;
-    for (int dd = lane; dd < d; dd += 32) ss += k_s[t * ld + dd] * k_s[t * ld + dd];
-    ss = zp_warp_sum(ss);
-    if (lane == 0) n_s[t] = fmaxf(sqrtf(ss), 1e-12f);
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < b * d; idx += blockDim.x) {
-    const int t = idx / d;
-    const int dd = idx - t * d;
-    k_s[t * ld + dd] = k_s[t * ld + dd] / n_s[t];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_redundancy_kernel(const float* __restrict__ k_pool,      // (N, b, h, d)
-                        const int* __restrict__ block_tables,  // (n, mb)
-                        const int* __restrict__ seq_lens,      // (n,)
-                        float* __restrict__ out,               // (n, mb*b, h)
-                        int h, int d, int b, int mb, float p_thresh) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;
+__global__ void __launch_bounds__(kThreads, 2)
+flash_redundancy_strip_kernel(const float* __restrict__ k_pool,      // (N, b, h, d)
+                              const int* __restrict__ block_tables,  // (n, mb)
+                              const int* __restrict__ seq_lens,      // (n,)
+                              float* __restrict__ out,               // (n, T, h)
+                              float* __restrict__ part,  // (n, h, n_strips, T), or null
+                              int h, int d, int b, int mb, float p_thresh) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = d + kKeyPad;
   const int T = mb * b;
-  float* km_s = smem;               // b * ld: column block m, normalised
-  float* ki_s = km_s + b * ld;      // b * ld: row block i, normalised
-  float* c_s = ki_s + b * ld;       // b * (b + 1): the (i, m) tile
-  float* n_s = c_s + b * (b + 1);   // b norms
-  float* r_s = n_s + b;             // T running row sums
-  int* tag_s = (int*)(r_s + T);     // b: column already zeroed in a newer row block
-
-  const int hh = blockIdx.x;
-  const int ib = blockIdx.y;
+  const int n_strips = gridDim.x;
+  const int J = blockIdx.x;
+  const int hh = blockIdx.y;
+  const int ib = blockIdx.z;
   const int tid = threadIdx.x;
-  const int seq_len = seq_lens[ib];
-  const int n_live = min(seq_len > 0 ? (seq_len + b - 1) / b : 0, mb);
+  const int L = min(max(seq_lens[ib], 0), T);
+  const int c0 = J * kKeyTile;
+  if (c0 >= L) {  // a dead strip adds nothing; a lone strip still writes zeros
+    if (part == nullptr)
+      for (int t = tid; t < T; t += blockDim.x) out[((size_t)ib * T + t) * h + hh] = 0.f;
+    return;
+  }
+  float* col_s = smem;                             // kKeyTile x ld: the strip's keys
+  float* row_s = col_s + kKeyTile * ld;            // 2 x kKeyTile x ld: row tiles
+  float* cinv_s = row_s + 2 * kKeyTile * ld;       // kKeyTile: 1 / the strip's key norms
+  int* win_s = (int*)(cinv_s + kKeyTile);          // 2 x kKeyTile: newest row above p
+  int* done_s = win_s + 2 * kKeyTile;              // 2 x kKeyTile: zeroed in a newer tile
   const int* bt = block_tables + (size_t)ib * mb;
+  const int ty = tid >> 4;  // rows ty + 16 r of a tile
+  const int tx = tid & 15;  // columns tx + 16 c of the strip
+  const int n_tiles = (L + kKeyTile - 1) / kKeyTile;
 
-  for (int t = tid; t < T; t += blockDim.x) r_s[t] = 0.f;
-  for (int m = 0; m < n_live; ++m) {  // dead column blocks add only zeros
-    const int page_m = bt[m];
-    const int nv_m = page_m >= 0 ? min(b, seq_len - m * b) : 0;
-    __syncthreads();  // the previous m's km_s / tag_s are no longer read
-    load_normalised(k_pool, page_m, nv_m, hh, h, d, b, km_s, n_s);
-    for (int c = tid; c < b; c += blockDim.x) tag_s[c] = 0;
-    for (int i = mb - 1; i >= 0; --i) {
-      const bool row_live = i < n_live;
-      const int page_i = row_live ? bt[i] : -1;
-      const int nv_i = page_i >= 0 ? min(b, seq_len - i * b) : 0;
-      __syncthreads();  // km_s / tag_s ready; the previous tile is consumed
-      if (nv_i > 0) {
-        load_normalised(k_pool, page_i, nv_i, hh, h, d, b, ki_s, n_s);
-        __syncthreads();
-      }
-      for (int idx = tid; idx < b * b; idx += blockDim.x) {
-        const int r = idx / b;
-        const int c = idx - r * b;
-        float s = 0.f;
-        if (r < nv_i && c < nv_m && i * b + r != m * b + c) {
-          const float* kr = ki_s + r * ld;
-          const float* kc = km_s + c * ld;
-          for (int dd = 0; dd < d; ++dd) s += kr[dd] * kc[dd];
+  const int tag0 = p_thresh < 0.f && L < T;
+  for (int c = tid; c < 2 * kKeyTile; c += blockDim.x) {
+    win_s[c] = -1;
+    done_s[c] = tag0;
+  }
+  zp_load_key_tile(col_s, k_pool, bt, c0, L, h, hh, d, b);
+  zp_cp_async_commit();
+  if (n_tiles - 1 != J)  // row tile J holds the strip's own keys: not loaded twice
+    zp_load_key_tile(row_s, k_pool, bt, (n_tiles - 1) * kKeyTile, L, h, hh, d, b);
+  zp_cp_async_commit();   // (maybe empty) group of the first row tile
+  zp_cp_async_wait<1>();  // the strip has landed (the first row tile may not have)
+  __syncthreads();
+  if (tid < kKeyTile) {  // the strip's inverse key norms: a thread per key
+    const float* x = col_s + tid * ld;
+    float ss = 0.f;
+    for (int k = 0; k < d; k += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(x + k);
+      ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+    }
+    cinv_s[tid] = 1.f / fmaxf(sqrtf(ss), 1e-12f);
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int I = n_tiles - 1 - it;  // newest row tile first
+    const int cur = it & 1;
+    const float* rt = I == J ? col_s : row_s + cur * kKeyTile * ld;
+    zp_cp_async_wait<0>();
+    __syncthreads();  // (A) tile I has landed, the norms are in, the other buffer is free
+    if (I > 0 && I - 1 != J) {
+      zp_load_key_tile(row_s + (cur ^ 1) * kKeyTile * ld, k_pool, bt, (I - 1) * kKeyTile, L, h,
+                       hh, d, b);
+      zp_cp_async_commit();
+    }
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    for (int k = 0; k < d; k += 4) {
+      float4 a[4], q[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        a[r] = *reinterpret_cast<const float4*>(rt + (ty + 16 * r) * ld + k);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        q[c] = *reinterpret_cast<const float4*>(col_s + (tx + 16 * c) * ld + k);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float s = acc[r][c];
+          s = fmaf(a[r].x, q[c].x, s);
+          s = fmaf(a[r].y, q[c].y, s);
+          s = fmaf(a[r].z, q[c].z, s);
+          s = fmaf(a[r].w, q[c].w, s);
+          acc[r][c] = s;
         }
-        c_s[r * (b + 1) + c] = s;
+    }
+    // the rows' norms: the 16 lanes that share a row each take d / 16 squares
+    float rinv[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float* x = rt + (ty + 16 * r) * ld;
+      float ss = 0.f;
+      for (int k = 4 * tx; k < d; k += 64) {
+        const float4 v = *reinterpret_cast<const float4*>(x + k);
+        ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
       }
-      __syncthreads();
-      for (int c = tid; c < b; c += blockDim.x) {  // newest row above p per column
-        if (tag_s[c]) continue;
-        int last = -1;
-        for (int r = 0; r < b; ++r)
-          if (c_s[r * (b + 1) + c] > p_thresh) last = r;
-        if (last >= 0) {
-          c_s[last * (b + 1) + c] = 0.f;
-          tag_s[c] = 1;
-        }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      rinv[r] = 1.f / fmaxf(sqrtf(ss), 1e-12f);
+    }
+    const int r0 = I * kKeyTile;
+    float cinv[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) cinv[c] = cinv_s[tx + 16 * c];
+    int* win = win_s + cur * kKeyTile;
+    const int* done = done_s + cur * kKeyTile;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int gi = r0 + ty + 16 * r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int gj = c0 + tx + 16 * c;
+        acc[r][c] = gi < L && gj < L && gi != gj ? acc[r][c] * rinv[r] * cinv[c] : 0.f;
       }
-      __syncthreads();
-      for (int r = tid; r < b; r += blockDim.x) {
-        float sum = 0.f;
-        for (int c = 0; c < b; ++c) sum += c_s[r * (b + 1) + c];
-        r_s[i * b + r] += sum;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {  // the newest row of this tile above p, per column
+      const int cl = tx + 16 * c;
+      if (done[cl]) continue;
+      int newest = -1;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (r0 + ty + 16 * r < T && acc[r][c] > p_thresh) newest = ty + 16 * r;
+      if (newest >= 0) atomicMax(&win[cl], newest);
+    }
+    __syncthreads();  // (B) win is complete
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int rl = ty + 16 * r;
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s += win[tx + 16 * c] == rl ? 0.f : acc[r][c];
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      const int gi = r0 + rl;
+      if (tx == 0 && gi < T) {
+        if (part == nullptr)
+          out[((size_t)ib * T + gi) * h + hh] = s / (float)max(L, 1);
+        else if (gi < L)
+          part[(((size_t)ib * h + hh) * n_strips + J) * T + gi] = s;
+      }
+    }
+    if (ty == 0) {  // carry the tags to the next tile; reset the other win
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int cl = tx + 16 * c;
+        done_s[(cur ^ 1) * kKeyTile + cl] = done[cl] | (win[cl] >= 0);
+        win_s[(cur ^ 1) * kKeyTile + cl] = -1;
       }
     }
   }
-  __syncthreads();
-  const float inv = 1.f / (float)max(seq_len, 1);
-  float* o = out + (size_t)ib * T * h + hh;
-  for (int t = tid; t < T; t += blockDim.x) o[(size_t)t * h] = r_s[t] * inv;
+}
+
+// out[ib, t, hh] = the sum of the live strips' partials of row t, in
+// ascending strip order, over max(seq_len, 1); rows at or past seq_len 0.
+__global__ void flash_redundancy_reduce_kernel(const float* __restrict__ part,
+                                               const int* __restrict__ seq_lens,
+                                               float* __restrict__ out, int h, int T,
+                                               int n_strips, int total) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int t = idx % T;
+  const int hh = (idx / T) % h;
+  const int ib = idx / (T * h);
+  const int L = min(max(seq_lens[ib], 0), T);
+  float s = 0.f;
+  if (t < L) {
+    const float* p = part + ((size_t)ib * h + hh) * n_strips * T + t;
+    const int live = (L + kKeyTile - 1) / kKeyTile;
+    for (int J = 0; J < live; ++J) s += p[(size_t)J * T];
+    s = s / (float)L;
+  }
+  out[((size_t)ib * T + t) * h + hh] = s;
 }
 }  // namespace
+
+// Floats of scratch that a launch needs after its n * T * h outputs: the
+// strips' partial row sums, n * h * ceil(T / 64) * T of them, or none
+// when the table is one strip wide.
+extern "C" long long flash_redundancy_workspace(int n, int h, int b, int mb) {
+  const long long T = (long long)mb * b;
+  const long long n_strips = (T + kKeyTile - 1) / kKeyTile;
+  return n_strips > 1 ? (long long)n * h * n_strips * T : 0;
+}
 
 extern "C" int flash_redundancy_launch(const void* k_pool, const void* block_tables,
                                        const void* seq_lens, void* out, int n, int h, int d,
                                        int b, int mb, float p_thresh, void* stream) {
-  const size_t smem = sizeof(float) * (2 * (size_t)b * (d + 1) + (size_t)b * (b + 1) + b +
-                                       (size_t)mb * b) +
-                      sizeof(int) * (size_t)b;
-  cudaError_t err = zp_allow_smem(flash_redundancy_kernel, smem);
+  const int T = mb * b;
+  const int n_strips = (T + kKeyTile - 1) / kKeyTile;
+  const size_t smem = sizeof(float) * (3 * kKeyTile * (size_t)(d + kKeyPad) + kKeyTile) +
+                      sizeof(int) * 4 * kKeyTile;
+  cudaError_t err = zp_allow_smem(flash_redundancy_strip_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(h, n);
-  flash_redundancy_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)k_pool, (const int*)block_tables, (const int*)seq_lens, (float*)out, h, d,
-      b, mb, p_thresh);
+  float* o = (float*)out;
+  float* part = flash_redundancy_workspace(n, h, b, mb) > 0 ? o + (size_t)n * T * h : nullptr;
+  cudaStream_t s = (cudaStream_t)stream;
+  flash_redundancy_strip_kernel<<<dim3(n_strips, h, n), kThreads, smem, s>>>(
+      (const float*)k_pool, (const int*)block_tables, (const int*)seq_lens, o, part, h, d, b, mb,
+      p_thresh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || part == nullptr) return (int)err;
+  const int total = n * h * T;
+  flash_redundancy_reduce_kernel<<<(total + 255) / 256, 256, 0, s>>>(
+      part, (const int*)seq_lens, o, h, T, n_strips, total);
   return (int)cudaGetLastError();
 }

@@ -2,27 +2,46 @@
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/paged_score.py::paged_score_logits.
-// It computes, per request, kv head and page, the logit tile
-// Q_win . K_page^T / sqrt(d) for the g*w window queries that share the kv
-// head, with the causal mask kpos <= seq_len - w + u and the validity mask
-// kpos < seq_len; masked entries are -1e30. Output layout is the TPU
+// It computes, per request and kv head, the logits Q_win . K^T / sqrt(d)
+// of the g*w window queries that share the kv head against every cache
+// position, with the causal mask kpos <= seq_len - w + u and the validity
+// mask kpos < seq_len; masked entries are -1e30. Output layout is the TPU
 // kernel's: (n, h_kv, g, w, max_blocks * b), float32.
 //
-// One thread block per (page, kv head, request). A page at or past
-// seq_len is written as all -1e30 without reading its table entry, so -1
-// padding is never dereferenced, and key rows past seq_len are loaded as
-// zeros, so stale or NaN pool data cannot reach an output.
-//
-// What bounds it on the card: memory. Each live page's keys are read once
+// What bounds it on the card: memory. Each live key element is read once
 // and each output written once; g*w = 16 query rows give 32 flops per key
-// element, far below the H100's ridge point. The output is larger than
-// the keys it reads (g*w/d of the key bytes times the table width), so the
-// write of the masked tail dominates for short rows.
+// element, under the H100's ridge point but not far enough under it for
+// the products to be free: at T = 2048 they are a third of the byte time.
+//
+// The design:
+//   * one thread block per (request, kv head, tile of key positions); the
+//     block loads the query tile and its key tile by 16-byte cp.async;
+//   * the tile width follows the grid: when tiles of 16 positions give at
+//     most four blocks per SM (the serve's compressions: 2 requests x 8
+//     heads x 4 tiles), a block takes a tile of 16, so the copies spread
+//     over as many SMs as possible; otherwise a tile of 64;
+//   * each thread owns a 2 x C micro-tile of a 16-row pass (rows ty + 8 r,
+//     positions tx + 16 c) and forms it with fp32 FMAs from registers,
+//     loaded as 16-byte vectors from shared memory with a padded stride;
+//   * tiles wholly at or past seq_len are written as -1e30 with 16-byte
+//     stores, without reading their table entries, so -1 padding is never
+//     dereferenced; positions past seq_len and on a -1 entry of a live tile
+//     are zero-filled by the copy and masked, so stale or NaN pool data
+//     cannot reach an output.
+//
+// What still holds it back: a block is one chain of table, copy, products
+// and stores, so copies and products overlap only across blocks, and the
+// products are bound by shared memory (6 16-byte loads, 4 of them over 16
+// distinct rows, feed 32 FMAs). PERF.md has the numbers.
 #include "common.cuh"
 
 namespace {
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // 8 x 16 threads
 
+// A thread owns a 2 x C micro-tile of a pass of 16 query rows by a tile of
+// 16 * C positions: rows ty + 8 r, positions tx + 16 c, with tx = tid % 16
+// and ty = tid / 16.
+template <int C>
 __global__ void __launch_bounds__(kThreads)
 paged_score_kernel(const float* __restrict__ q_win,         // (n, w, hq, d)
                    const float* __restrict__ k_pool,        // (N, b, hkv, d)
@@ -30,59 +49,125 @@ paged_score_kernel(const float* __restrict__ q_win,         // (n, w, hq, d)
                    const int* __restrict__ seq_lens,        // (n,)
                    float* __restrict__ out,                 // (n, hkv, g*w, mb*b)
                    int hkv, int g, int w, int d, int b, int mb, float scale) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;             // padded row: conflict-free column reads
-  const int rows = g * w;           // row r = gi * w + u
-  float* q_s = smem;                // rows * ld
-  float* k_s = q_s + rows * ld;     // b * ld
+  constexpr int kTile = 16 * C;
+  extern __shared__ __align__(16) float smem[];
+  const int ld = d + kKeyPad;
+  const int rows = g * w;                    // row r = gi * w + u
+  const int rows16 = (rows + 15) & ~15;
+  float* q_s = smem;                         // rows16 x ld
+  float* k_s = q_s + rows16 * ld;            // kTile x ld
 
-  const int i = blockIdx.x;         // page column of the table
   const int h = blockIdx.y;
   const int ib = blockIdx.z;
   const int tid = threadIdx.x;
+  const int ty = tid >> 4;  // rows ty + 8 r of a pass
+  const int tx = tid & 15;  // positions tx + 16 c of the tile
   const int hq = hkv * g;
   const int T = mb * b;
   const int seq_len = seq_lens[ib];
-  float* o = out + ((size_t)ib * hkv + h) * rows * (size_t)T + (size_t)i * b;
+  const int live1 = max(0, min(seq_len, T));  // last live position + 1
+  const int t0 = blockIdx.x * kTile;
+  const int* bt = block_tables + (size_t)ib * mb;
+  float* o = out + ((size_t)ib * hkv + h) * rows * (size_t)T;
 
-  if (i * b >= seq_len) {  // dead page: fully masked, table entry unread
-    for (int idx = tid; idx < rows * b; idx += blockDim.x) {
-      const int r = idx / b;
-      o[(size_t)r * T + (idx - r * b)] = ZP_NEG_INF;
+  if (t0 >= live1) {  // a tile wholly at or past seq_len: fully masked, nothing read
+    const int width = min(kTile, T - t0);
+    if ((T & 3) == 0) {  // rows and tiles start 16-byte aligned, width is a multiple of 4
+      const int w4 = width >> 2;
+      const float4 neg = make_float4(ZP_NEG_INF, ZP_NEG_INF, ZP_NEG_INF, ZP_NEG_INF);
+      for (int idx = tid; idx < rows * w4; idx += blockDim.x) {
+        const int r = idx / w4;
+        *reinterpret_cast<float4*>(o + (size_t)r * T + t0 + 4 * (idx - r * w4)) = neg;
+      }
+    } else {
+      for (int idx = tid; idx < rows * width; idx += blockDim.x) {
+        const int r = idx / width;
+        o[(size_t)r * T + t0 + (idx - r * width)] = ZP_NEG_INF;
+      }
     }
     return;
   }
-  const int page = block_tables[(size_t)ib * mb + i];
-  const int n_valid = min(b, seq_len - i * b);
-  for (int idx = tid; idx < b * d; idx += blockDim.x) {
-    const int t = idx / d;
-    const int dd = idx - t * d;
-    float kv = 0.f;
-    if (t < n_valid && page >= 0) kv = k_pool[(((size_t)page * b + t) * hkv + h) * d + dd];
-    k_s[t * ld + dd] = kv;
-  }
-  for (int idx = tid; idx < rows * d; idx += blockDim.x) {
-    const int r = idx / d;
-    const int dd = idx - r * d;
+
+  const int d4 = d >> 2;
+  for (int idx = tid; idx < rows16 * d4; idx += blockDim.x) {
+    const int r = idx / d4;
+    const int c4 = idx - r * d4;
     const int gi = r / w;
-    const int u = r - gi * w;
-    q_s[r * ld + dd] = q_win[(((size_t)ib * w + u) * hq + (size_t)h * g + gi) * d + dd];
+    const bool ok = r < rows;
+    const float* src =
+        ok ? q_win + (((size_t)ib * w + (r - gi * w)) * hq + (size_t)h * g + gi) * d + 4 * c4
+           : q_win;
+    zp_cp_async16(q_s + r * ld + 4 * c4, src, ok);
   }
-  __syncthreads();
-  for (int idx = tid; idx < rows * b; idx += blockDim.x) {
-    const int r = idx / b;
-    const int t = idx - r * b;
-    const int u = r % w;
-    const int kpos = i * b + t;
-    const bool keep = kpos <= seq_len - w + u && kpos < seq_len && page >= 0;
-    float s = 0.f;
-    if (keep) {
-      const float* qr = q_s + r * ld;
-      const float* kr = k_s + t * ld;
-      for (int dd = 0; dd < d; ++dd) s += qr[dd] * kr[dd];
+  zp_load_key_tile(k_s, k_pool, bt, t0, live1, hkv, h, d, b, kTile);
+  zp_cp_async_commit();
+  int page[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int kpos = t0 + tx + 16 * c;
+    page[c] = kpos < live1 ? bt[kpos / b] : -1;
+  }
+  zp_cp_async_wait<0>();
+  __syncthreads();  // the queries and the key tile have landed
+
+  for (int r0 = 0; r0 < rows16; r0 += 16) {
+    float acc[2][C];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
+    for (int k = 0; k < d; k += 4) {
+      float4 a[2], kv[C];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        a[r] = *reinterpret_cast<const float4*>(q_s + (r0 + ty + 8 * r) * ld + k);
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        kv[c] = *reinterpret_cast<const float4*>(k_s + (tx + 16 * c) * ld + k);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          float s = acc[r][c];
+          s = fmaf(a[r].x, kv[c].x, s);
+          s = fmaf(a[r].y, kv[c].y, s);
+          s = fmaf(a[r].z, kv[c].z, s);
+          s = fmaf(a[r].w, kv[c].w, s);
+          acc[r][c] = s;
+        }
     }
-    o[(size_t)r * T + t] = keep ? s * scale : ZP_NEG_INF;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + ty + 8 * r;
+      if (row >= rows) continue;
+      const int u = row % w;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int kpos = t0 + tx + 16 * c;
+        if (kpos >= T) continue;
+        const bool keep = kpos <= seq_len - w + u && page[c] >= 0;  // page >= 0: kpos < seq_len
+        o[(size_t)row * T + kpos] = keep ? acc[r][c] * scale : ZP_NEG_INF;
+      }
+    }
   }
+}
+
+int g_sm_count = 0;  // the card's SM count, read once
+
+template <int C>
+cudaError_t launch(const void* q_win, const void* k_pool, const void* block_tables,
+                   const void* seq_lens, void* out, int n, int hkv, int g, int w, int d, int b,
+                   int mb, float scale, cudaStream_t stream) {
+  constexpr int kTile = 16 * C;
+  const int n_tiles = (mb * b + kTile - 1) / kTile;
+  const int rows16 = (g * w + 15) & ~15;
+  const size_t smem = sizeof(float) * ((size_t)rows16 + kTile) * (d + kKeyPad);
+  cudaError_t err = zp_allow_smem(paged_score_kernel<C>, smem);
+  if (err != cudaSuccess) return err;
+  paged_score_kernel<C><<<dim3(n_tiles, hkv, n), kThreads, smem, stream>>>(
+      (const float*)q_win, (const float*)k_pool, (const int*)block_tables,
+      (const int*)seq_lens, (float*)out, hkv, g, w, d, b, mb, scale);
+  return cudaGetLastError();
 }
 }  // namespace
 
@@ -90,12 +175,20 @@ extern "C" int paged_score_launch(const void* q_win, const void* k_pool,
                                   const void* block_tables, const void* seq_lens, void* out,
                                   int n, int hkv, int g, int w, int d, int b, int mb,
                                   float scale, void* stream) {
-  const size_t smem = sizeof(float) * ((size_t)g * w + b) * (d + 1);
-  cudaError_t err = zp_allow_smem(paged_score_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(mb, hkv, n);
-  paged_score_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)q_win, (const float*)k_pool, (const int*)block_tables,
-      (const int*)seq_lens, (float*)out, hkv, g, w, d, b, mb, scale);
-  return (int)cudaGetLastError();
+  if (g_sm_count == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&g_sm_count, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // Small grids (the serve's compressions): a block per tile of 16
+  // positions, so the copies spread over as many SMs as there are tiles;
+  // otherwise a block per tile of 64 positions.
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((long long)n * hkv * ((mb * b + 15) / 16) <= 4LL * g_sm_count)
+    return (int)launch<1>(q_win, k_pool, block_tables, seq_lens, out, n, hkv, g, w, d, b, mb,
+                          scale, s);
+  return (int)launch<4>(q_win, k_pool, block_tables, seq_lens, out, n, hkv, g, w, d, b, mb,
+                        scale, s);
 }

@@ -45,6 +45,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _build_logs: Dict[str, str] = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: C functions and their argument types; each returns an int (a CUDA error
+#: code for a launch), unless listed in _RESTYPES
 _ARGTYPES = {
     "ragged_paged_attention_launch":
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -56,9 +58,11 @@ _ARGTYPES = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "flash_redundancy_launch":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "flash_redundancy_workspace": [_I, _I, _I, _I],
     "compaction_launch":
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
+_RESTYPES = {"flash_redundancy_workspace": ctypes.c_longlong}
 
 
 def count_launch(name: str) -> None:
@@ -132,7 +136,7 @@ def library(name: str) -> ctypes.CDLL:
         for fn, argtypes in _ARGTYPES.items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
         lib.zp_error_string.argtypes = [ctypes.c_int]
         lib.zp_error_string.restype = ctypes.c_char_p
         _libs[name] = lib

@@ -36,7 +36,8 @@ def paged_score_logits_plain(q_win, k_pages, block_tables, seq_lens):
 
 
 def paged_score_logits_cuda(q_win, k_pages, block_tables, seq_lens):
-    """Launch ``csrc/paged_score.cu`` on the current stream."""
+    """Launch ``csrc/paged_score.cu`` on the current stream. Needs
+    ``d % 4 == 0`` (16-byte copies)."""
     dev = q_win.device
     for arg, t in (("q_win", q_win), ("k_pages", k_pages)):
         cuda_tensor(NAME, arg, t, torch.float32, dev)
@@ -49,6 +50,7 @@ def paged_score_logits_cuda(q_win, k_pages, block_tables, seq_lens):
     require(block_tables.dim() == 2 and block_tables.shape[0] == n, NAME,
             f"block_tables {tuple(block_tables.shape)} vs n={n}")
     require(tuple(seq_lens.shape) == (n,), NAME, "seq_lens must be (n,)")
+    require(d % 4 == 0, NAME, f"head_dim {d} is not a multiple of 4")
     g = hq // hkv
     mb = block_tables.shape[1]
     out = torch.empty((n, hkv, g, w, mb * b), dtype=torch.float32,

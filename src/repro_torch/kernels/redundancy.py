@@ -23,6 +23,8 @@ from repro_torch.kernels._checks import cuda_tensor, require
 
 NAME = "lightning_redundancy"
 FLASH_NAME = "flash_redundancy"
+#: three 64-key tiles of d + 4 floats must fit a block's shared memory
+FLASH_MAX_D = 256
 
 
 def lightning_redundancy_plain(k_pages, block_tables, seq_lens, *,
@@ -51,7 +53,11 @@ def lightning_redundancy_plain(k_pages, block_tables, seq_lens, *,
     return r.permute(0, 1, 3, 2).reshape(n, T, h)
 
 
-def _launch(name, launch, k_pages, block_tables, seq_lens, p_thresh):
+def _launch(name, launch, k_pages, block_tables, seq_lens, p_thresh,
+            workspace=None):
+    """Check the arguments and launch on the current stream. The kernel
+    gets one buffer: the (n, mb*b, h) output, then as many floats of
+    scratch as the library's ``workspace`` function asks for, if named."""
     dev = k_pages.device
     cuda_tensor(name, "k_pages", k_pages, torch.float32, dev)
     for arg, t in (("block_tables", block_tables), ("seq_lens", seq_lens)):
@@ -60,15 +66,17 @@ def _launch(name, launch, k_pages, block_tables, seq_lens, p_thresh):
     require(block_tables.dim() == 2, name, "block_tables must be (n, mb)")
     n, mb = block_tables.shape
     require(tuple(seq_lens.shape) == (n,), name, "seq_lens must be (n,)")
-    out = torch.empty((n, mb * b, h), dtype=torch.float32, device=dev)
     lib = native.library(name)
+    size = n * mb * b * h
+    extra = getattr(lib, workspace)(n, h, b, mb) if workspace else 0
+    buf = torch.empty(size + extra, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = getattr(lib, launch)(
             k_pages.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
-            out.data_ptr(), n, h, d, b, mb, float(p_thresh), stream)
+            buf.data_ptr(), n, h, d, b, mb, float(p_thresh), stream)
     native.check(name, lib, code)
-    return out
+    return buf[:size].view(n, mb * b, h)
 
 
 def lightning_redundancy_cuda(k_pages, block_tables, seq_lens, *,
@@ -111,6 +119,11 @@ def flash_redundancy_plain(k_pages, block_tables, seq_lens, *,
 
 
 def flash_redundancy_cuda(k_pages, block_tables, seq_lens, *, p_thresh=0.8):
-    """Launch ``csrc/flash_redundancy.cu`` on the current stream."""
+    """Launch ``csrc/flash_redundancy.cu`` on the current stream. Needs
+    ``d % 4 == 0`` (16-byte copies) and ``d <= 256`` (shared memory)."""
+    d = k_pages.shape[-1]
+    require(d % 4 == 0 and d <= FLASH_MAX_D, FLASH_NAME,
+            f"head_dim {d}: needs a multiple of 4, at most {FLASH_MAX_D}")
     return _launch(FLASH_NAME, "flash_redundancy_launch", k_pages,
-                   block_tables, seq_lens, p_thresh)
+                   block_tables, seq_lens, p_thresh,
+                   workspace="flash_redundancy_workspace")

@@ -106,6 +106,58 @@ def test_flash_redundancy_matches_plain(cuda, lens):
     assert torch.equal(got, again)      # no atomics: the same every run
 
 
+def _wide_case(seed, lens, mb, b=16, hkv=8, hq=32, d=128, w=4):
+    """Pool with a NaN page 0 and NaN stale tails past each row's
+    seq_len; each row's newest page is a near-duplicate of its oldest, so
+    flash redundancy's zero-out crosses strips of 64 columns."""
+    rng = np.random.default_rng(seed)
+    n_pages = sum(-(-s // b) for s in lens) + 2
+    k = rng.normal(size=(n_pages, b, hkv, d)).astype(np.float32)
+    bt = np.full((len(lens), mb), -1, np.int32)
+    free = list(rng.permutation(np.arange(1, n_pages)))
+    for i, s in enumerate(lens):
+        for j in range(-(-s // b)):
+            bt[i, j] = free.pop()
+        if s > b:
+            last = bt[i, (s - 1) // b]
+            k[last] = k[bt[i, 0]] + 0.05 * rng.normal(size=(b, hkv, d))
+        if s % b:
+            k[bt[i, s // b], s % b:] = np.nan
+    k[0] = np.nan
+    qw = rng.normal(size=(len(lens), w, hq, d)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (qw, k, bt)] + [
+        torch.tensor(lens, dtype=torch.int32)]
+
+
+@pytest.mark.parametrize("mb,lens,shape", [
+    (4, [64, 64], {}),                   # the serve's compressions
+    (4, [64, 0, 17], {}),
+    (5, [80, 37, 0], {}),                # tables of no power-of-two width
+    (33, [528, 300, 0, 17], {}),
+    (128, [2048, 1999], {}),             # the long input of chip_smoke.py
+    (256, [4096, 4000, 1234, 0], {}),    # a table twice the long one
+    (5, [40, 13, 0], dict(b=8, hkv=2, hq=4, d=32)),   # tiny-lm's heads
+    (7, [112, 50], dict(d=96, w=3)),     # head_dim not a power of two
+])
+def test_flash_and_score_match_plain_on_wide_tables(cuda, mb, lens, shape):
+    qw, k, bt, sl = [x.to(cuda) for x in _wide_case(mb, lens, mb, **shape)]
+    before = dict(ops.launch_counts)
+    got = ops.flash_redundancy(k, bt, sl, p_thresh=0.8)
+    assert ops.launch_counts[red.FLASH_NAME] == before[red.FLASH_NAME] + 1
+    want = red.flash_redundancy_plain(k, bt, sl, p_thresh=0.8)
+    _close(got, want)
+    assert (got[sl == 0] == 0).all()
+    if max(lens) > 16:                  # the near-duplicate pages fire it
+        assert (red.flash_redundancy_plain(k, bt, sl, p_thresh=2.0)
+                != want).any()
+    assert torch.equal(got, ops.flash_redundancy(k, bt, sl, p_thresh=0.8))
+    del want
+    before = dict(ops.launch_counts)
+    logits = ops.score_logits(qw, k, bt, sl)
+    assert ops.launch_counts[ps.NAME] == before[ps.NAME] + 1
+    _close(logits, ps.paged_score_logits_plain(qw, k, bt, sl))
+
+
 def test_compaction_matches_sequential_plain(cuda):
     """In place with overlapping ranks, a prefix-shared pair compacting
     copy-on-write, and a padding row, at Qwen3-8B head widths."""

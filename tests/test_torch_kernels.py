@@ -235,6 +235,74 @@ def test_flash_threshold_is_exercised():
     assert not torch.allclose(on, light)
 
 
+def flash_by_strips(kp, bt, sl, strip, p_thresh=0.8):
+    """Flash redundancy decomposed as csrc/flash_redundancy.cu computes
+    it: per column strip of ``strip`` keys, row tiles of ``strip`` keys
+    walked newest to oldest with a per-column "already zeroed" tag; each
+    tile's row sums over the strip are that strip's partial, and the
+    partials are summed in ascending strip order (p_thresh >= 0)."""
+    n, mb = bt.shape
+    _, b, h, d = kp.shape
+    T = mb * b
+    out = np.zeros((n, T, h), np.float32)
+    for i in range(n):
+        L = min(max(int(sl[i]), 0), T)
+        e = kp[np.maximum(bt[i], 0)].reshape(T, h, d)[:L].astype(np.float64)
+        e = e / np.maximum(np.linalg.norm(e, axis=-1, keepdims=True), 1e-12)
+        tiles = [np.arange(s, min(s + strip, L)) for s in range(0, L, strip)]
+        for hh in range(h):
+            part = np.zeros((len(tiles), L))
+            for j, cols in enumerate(tiles):
+                done = np.zeros(len(cols), bool)
+                for rows in reversed(tiles):
+                    c = e[rows, hh] @ e[cols, hh].T
+                    c[rows[:, None] == cols[None, :]] = 0.0
+                    above = c > p_thresh
+                    newest = len(rows) - 1 - np.argmax(above[::-1], axis=0)
+                    hit = np.flatnonzero(above.any(0) & ~done)
+                    c[newest[hit], hit] = 0.0
+                    done |= above.any(0)
+                    part[j, rows] = c.sum(1)
+            total = np.zeros(L)
+            for j in range(len(tiles)):
+                total += part[j]
+            out[i, :L, hh] = total / max(L, 1)
+    return out
+
+
+STRIP_CASES = [(4, 16, [64, 37]), (33, 4, [132, 77, 0]),
+               (32, 16, [512, 300])]
+
+
+@pytest.mark.parametrize("strip", [16, 64])
+@pytest.mark.parametrize("case", range(len(STRIP_CASES)))
+def test_flash_redundancy_by_column_strips(strip, case):
+    """The strip decomposition of the CUDA kernel equals the JAX
+    reference and the port's plain version, with near-duplicate pages
+    whose zero-outs cross strip boundaries."""
+    mb, b, lens = STRIP_CASES[case]
+    _, kc, _, bt, sl = make_case(4, 2, lens, seed=60 + case, b=b, mb=mb,
+                                 n_pages=160, similar=True)
+    rng = np.random.default_rng(case)
+    for i, s in enumerate(sl):          # newest page ~ oldest page
+        if s > b:
+            kc[bt[i, (s - 1) // b]] = kc[bt[i, 0]] + 0.05 * rng.normal(
+                size=kc.shape[1:])
+    kp = kc.copy()
+    kp[0] = np.nan
+    for i, s in enumerate(sl):
+        if s % b:
+            kp[bt[i, s // b], s % b:] = np.nan
+    got = flash_by_strips(kp, bt, sl, strip)
+    want_ref = np.asarray(jref.flash_redundancy_ref(kc, bt, sl,
+                                                    p_thresh=0.8))
+    np.testing.assert_allclose(got, want_ref, rtol=RTOL, atol=ATOL)
+    port = ops.flash_redundancy(t(kp), t(bt), t(sl), p_thresh=0.8)
+    np.testing.assert_allclose(got, port.numpy(), rtol=RTOL, atol=ATOL)
+    no_zero_out = flash_by_strips(kp, bt, sl, strip, p_thresh=2.0)
+    assert (np.abs(no_zero_out - got) > 1e-3).any()
+
+
 def compaction_case(seed=0, L=2, N=24, b=4, h=2, d=8, mb=4, budget=3):
     """Four requests, as the block manager plans them: 0 and 1 share their
     first source block (a prefix), so each copies it to a fresh block and
