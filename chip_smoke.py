@@ -13,8 +13,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      (Qwen3-8B widths, engine defaults), over length mixes with
      seq_len == 0 rows, sub-block rows, full-table rows and a NaN-poisoned
      page 0 that no live row maps; the dense decode kernel against the
-     ragged one on live rows (bit for bit is the aim), the flash
-     redundancy's p_thresh zero-out firing, and an in-place compaction
+     ragged one on live rows, bit for bit (any difference fails the run,
+     as the JAX package asserts ragged == dense), two launches of the
+     dense decode, lightning and flash redundancy kernels giving the same
+     bits, the redundancy zero-outs firing, and an in-place compaction
      whose ranks overlap their sources beside a prefix-shared pair;
   4. card vs CPU at Qwen3-8B widths and 2 layers: one paged prefill and a
      few decode steps (logits), the threefry sampling noise (bit for bit),
@@ -30,10 +32,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
      version, a library call that computes the same function (or its
      product), and the bound from bytes and flops; for the kernel and the
      library call, CUDA-event time, device time (torch.profiler, the
-     calls' CUDA kernels) and host time (event minus device). B5 and K2
-     also at a long input (table width 128, seq_lens 2048 and 1999), held
-     against their plain versions there first (B5 two launches bit for
-     bit);
+     calls' CUDA kernels) and host time (event minus device). K2, K3 and
+     B5 also at a long input (table width 128, seq_lens 2048 and 1999),
+     K1 and B4 at a long decode input (16 slots at table width 128, 8 of
+     them live at 64-2048 entries), each held against its plain version
+     there first (K3, B4, B5 two launches bit for bit, B4 against K1 bit
+     for bit on live rows);
   7. a profiled window of decode steps of the main serve: device-busy
      share of wall time and kernel time by group.
 
@@ -65,8 +69,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 N_REQUESTS = 8
 NEW_TOKENS = 128
-#: the long input of B5 and K2 in phase 6: table width and seq_lens
+#: the long inputs of phase 6: table width and seq_lens of K2, K3 and B5,
+#: and seq_lens of K1 and B4 (8 live slots, 8 empty ones)
 LONG_TABLE, LONG_LENS = 128, [2048, 1999]
+LONG_DECODE_LENS = [2048, 1999, 1536, 1024, 777, 512, 300, 64] + [0] * 8
 
 #: Qwen3's published thinking-mode sampling (the model card's advice)
 THINKING = dict(temperature=0.6, top_p=0.95, top_k=20)
@@ -119,10 +125,26 @@ def phase_build(native):
     log("build", f"{len(reports)} kernel libraries ready in "
         f"{time.monotonic() - t:.1f} s (sm_90a)")
     for name, text in sorted(reports.items()):
+        fn = ""
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log("build", f"{name}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = _ptxas_function(line)
+            elif "Used" in line or "spill" in line:
+                log("build", f"{name}: {fn}: {line.strip()}")
     return reports
+
+
+def _ptxas_function(line):
+    """The kernel's name and template arguments in a ptxas report line:
+    '..._cu_<hash><len><name>ILi4ELi1EE...' -> 'name<4,1>'."""
+    import re
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)(\w+)", line)
+    if m is None:
+        return line.split()[-1]
+    n, rest = int(m.group(1)), m.group(2)
+    t = re.match(r"ILi(\d+)E(?:Li(\d+)E)?", rest[n:])
+    args = f"<{','.join(x for x in t.groups() if x)}>" if t else ""
+    return rest[:n] + args
 
 
 # ----------------------------------------------------------------------
@@ -229,10 +251,13 @@ def phase_kernels(torch, dev, cfg, opts):
                                               p_thresh=opts.compress.p_thresh)
         e = max_err(torch, got, want, f"redundancy[{label}]")
         errs[red.NAME] = max(errs[red.NAME], e)
+        if not bool(torch.equal(got, red.lightning_redundancy_cuda(
+                k, bt, sl, p_thresh=opts.compress.p_thresh))):
+            raise AssertionError("redundancy: two runs differ")
         no_thresh = red.lightning_redundancy_plain(k, bt, sl, p_thresh=2.0)
         n_thresh_hits += int((no_thresh != want).sum())
         log("kernels", f"{red.NAME}[{label}]: max_abs_err={e:.3e} "
-            f"(atol=rtol={TOL}) ok")
+            f"(atol=rtol={TOL}), the same in two runs, ok")
     if n_thresh_hits == 0:
         raise AssertionError("redundancy: the p_thresh zero-out never fired")
     log("kernels", f"{red.NAME}: the p_thresh zero-out changed "
@@ -256,8 +281,6 @@ def phase_kernels_alg34(torch, dev, cfg, opts, rng, decode_mixes,
     n_pages, B = opts.n_total_blocks, opts.max_batch
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     errs = {pa.NAME: 0.0, red.FLASH_NAME: 0.0, cmp.NAME: 0.0}
-    dense_vs_ragged = 0.0
-    bitwise = True
     for label, lens in decode_mixes.items():
         k, v = make_pool(torch, rng, n_pages, b, hkv, d, dev)
         bt, sl = make_tables(torch, rng, lens, b, mb, n_pages, dev, k, v)
@@ -271,18 +294,18 @@ def phase_kernels_alg34(torch, dev, cfg, opts, rng, decode_mixes,
         errs[pa.NAME] = max(errs[pa.NAME], e)
         if not bool((got[sl == 0] == 0).all()):
             raise AssertionError("dense: seq_len == 0 rows are not zeros")
+        if not bool(torch.equal(got, pa.paged_attention_cuda(q, k, v, bt,
+                                                             sl))):
+            raise AssertionError("dense: two runs differ")
         live = sl > 0
-        if bool(live.any()):
-            diff = float((got[live] - ragged[live]).abs().max())
-            dense_vs_ragged = max(dense_vs_ragged, diff)
-            bitwise = bitwise and bool(torch.equal(got[live], ragged[live]))
+        # the JAX package asserts ragged == dense bit for bit on live rows
+        if not bool(torch.equal(got[live], ragged[live])):
+            raise AssertionError(
+                f"dense vs ragged[{label}]: live rows differ by up to "
+                f"{float((got[live] - ragged[live]).abs().max()):.3e}")
         log("kernels", f"{pa.NAME}[{label}]: max_abs_err={e:.3e} "
-            f"(atol=rtol={TOL}) ok")
-    if dense_vs_ragged > TOL:
-        raise AssertionError(f"dense vs ragged on live rows: "
-                             f"{dense_vs_ragged:.3e}")
-    log("kernels", f"dense vs ragged on live rows: max_abs_diff="
-        f"{dense_vs_ragged:.3e}, bit-identical={bitwise}")
+            f"(atol=rtol={TOL}), the same in two runs, ok")
+    log("kernels", "dense vs ragged on live rows: bit-identical ok")
 
     n_hits = 0
     for label, lens in comp_mixes.items():
@@ -710,11 +733,11 @@ def time_ms(torch, fn, n=50):
 
 
 def device_ms(torch, fn, n=20, windows=3):
-    """Per call, the self device time of every CUDA kernel that ``n``
-    calls of ``fn`` ran, summed, under torch.profiler. Now and then the
-    profiler records no kernel at all in a window (seen on the H100 with
-    torch 2.11, right after the same calls had been timed by events); such
-    a window is profiled again, up to ``windows`` in all."""
+    """Per call, the self device time of each CUDA kernel that ``n`` calls
+    of ``fn`` ran, under torch.profiler: {kernel name: ms}. Now and then
+    the profiler records no kernel at all in a window (seen on the H100
+    with torch 2.11, right after the same calls had been timed by events);
+    such a window is profiled again, up to ``windows`` in all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -724,29 +747,42 @@ def device_ms(torch, fn, n=20, windows=3):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        total = 0.0
+        by_kernel = {}
         for ev in prof.key_averages():
             us = getattr(ev, "self_device_time_total", None)
             if us is None:
                 us = getattr(ev, "self_cuda_time_total", 0.0)
             if us and str(ev.device_type).endswith("CUDA"):
-                total += us
-        if total > 0:
-            return total / 1e3 / n
+                name = _kernel_name(ev.key)
+                by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3 / n
+        if by_kernel:
+            return by_kernel
         log("timing", "the profiler recorded no device time; profiling "
             "again")
     raise AssertionError(f"the profiler recorded no device time in "
                          f"{windows} windows")
 
 
+def _kernel_name(key):
+    """A profiler key without return type, namespace, template arguments
+    and parameters: 'paged_attention_chunk_kernel'."""
+    import re
+    key = re.sub(r"\(anonymous namespace\)::", "", key)
+    key = re.sub(r"^void ", "", key)
+    return re.split(r"[<(]", key, maxsplit=1)[0].strip()
+
+
 def times(torch, kernel, library):
     """Event, device and host (event minus device) ms per call of the
-    kernel's wrapper and of its library yardstick."""
-    ms, dev = time_ms(torch, kernel), device_ms(torch, kernel)
-    lib, lib_dev = time_ms(torch, library), device_ms(torch, library)
+    kernel's wrapper and of its library yardstick; ``device_kernels``
+    splits the kernel's device time by CUDA kernel."""
+    ms, by_kernel = time_ms(torch, kernel), device_ms(torch, kernel)
+    dev = sum(by_kernel.values())
+    lib = time_ms(torch, library)
+    lib_dev = sum(device_ms(torch, library).values())
     return {"ms": ms, "device_ms": dev, "host_ms": ms - dev,
             "library_ms": lib, "library_device_ms": lib_dev,
-            "library_host_ms": lib - lib_dev}
+            "library_host_ms": lib - lib_dev, "device_kernels": by_kernel}
 
 
 def bound(nbytes, flops):
@@ -807,39 +843,62 @@ def phase_timing(torch, rec, rec34, launches, launches34, errs):
     the row's ``launches``; ``launches_per_serve`` has both."""
     per_serve = {n: {"main": launches[n], "alg34": launches34[n]}
                  for n in launches}
-    return [time_decode(torch, rec, "ragged_decode_attention", errs,
-                        per_serve, "main"),
-            time_score(torch, rec, errs, per_serve, "main"),
-            time_redundancy(torch, rec, "lightning_redundancy", errs,
-                            per_serve, "main"),
-            time_decode(torch, rec34, "paged_decode_attention", errs,
-                        per_serve, "alg34"),
-            time_redundancy(torch, rec34, "flash_redundancy", errs,
-                            per_serve, "alg34"),
-            time_compaction(torch, rec34, errs, per_serve, "alg34")]
+
+    def pick(r, op, key):
+        return _pick(r.calls[op], key)
+
+    def decode_live(a):
+        return _live_entries(a[3], a[4], a[1].shape[1])
+
+    def comp_live(a):
+        return _live_entries(a[1], a[2], a[0].shape[1])
+
+    def score_live(a):
+        return _live_entries(a[2], a[3], a[1].shape[1])
+
+    def live_rows(a):  # a padding row writes only the sink page
+        dest, sink = a[6], a[0].shape[1] - 1
+        return int(((dest // a[0].shape[2]) != sink).any(1).sum())
+
+    specs = [
+        ("main", decode_spec(torch, "ragged_paged_attention",
+                             pick(rec, "ragged_decode_attention",
+                                  decode_live)[0])),
+        ("main", score_spec(torch, pick(rec, "score_logits", score_live)[0])),
+        ("main", redundancy_spec(torch, "lightning_redundancy",
+                                 *pick(rec, "lightning_redundancy",
+                                       comp_live))),
+        ("alg34", decode_spec(torch, "paged_attention",
+                              pick(rec34, "paged_decode_attention",
+                                   decode_live)[0])),
+        ("alg34", redundancy_spec(torch, "flash_redundancy",
+                                  *pick(rec34, "flash_redundancy",
+                                        comp_live))),
+        ("alg34", compaction_spec(torch, pick(rec34, "compact",
+                                              live_rows)[0], live_rows)),
+    ]
+    return [_row(torch, spec, per_serve, serve, errs) for serve, spec in specs]
 
 
-def time_decode(torch, rec, op, errs, per_serve, serve):
-    """K1 (ragged) or B4 (dense): the decode call with the most live cache
-    entries. The bound counts the live entries either way: the function's
-    output depends on them alone, whatever the kernel reads."""
+def decode_spec(torch, name, args):
+    """K1 (ragged) or B4 (dense) on ``args``. The bound counts the live
+    entries either way: the function's output depends on them alone,
+    whatever the kernel reads. The library yardstick is SDPA over the
+    gathered table."""
     from repro_torch.core.paged import gather_entries
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ragged_paged_attention as rpa
 
     F = torch.nn.functional
-    mod = rpa if op == "ragged_decode_attention" else pa
+    mod = rpa if name == rpa.NAME else pa
     cuda_fn = getattr(mod, mod.NAME + "_cuda")
     plain_fn = getattr(mod, mod.NAME + "_plain")
-    args, _ = _pick(rec.calls[op],
-                    lambda a: _live_entries(a[3], a[4], a[1].shape[1]))
     q, kp, vp, bt, sl = args
     B, hq, d = q.shape
     hkv = kp.shape[2]
     n_live = _live_entries(bt, sl, kp.shape[1])
     nbytes = 4 * (2 * q.numel() + 2 * n_live * hkv * d + bt.numel()
                   + sl.numel())
-    flops = 4 * n_live * hq * d
     kg = gather_entries(kp, bt).repeat_interleave(hq // hkv, dim=2)
     vg = gather_entries(vp, bt).repeat_interleave(hq // hkv, dim=2)
     kg, vg = kg.transpose(1, 2).contiguous(), vg.transpose(1, 2).contiguous()
@@ -847,26 +906,22 @@ def time_decode(torch, rec, op, errs, per_serve, serve):
     mask = (torch.arange(T, device=q.device)[None] < sl[:, None])[:, None,
                                                                   None]
     q4 = q[:, :, None]
-    return _row(torch, mod.NAME, f"src/repro_torch/csrc/{mod.NAME}.cu",
-                per_serve, serve, errs,
-                lambda: cuda_fn(q, kp, vp, bt, sl),
-                lambda: plain_fn(q, kp, vp, bt, sl),
-                lambda: F.scaled_dot_product_attention(q4, kg, vg,
-                                                       attn_mask=mask),
-                nbytes, flops,
-                {"batch": B, "seq_lens": sl.tolist(),
-                 "table_width": bt.shape[1]})
+    return dict(name=mod.NAME, source=f"src/repro_torch/csrc/{mod.NAME}.cu",
+                kernel=lambda: cuda_fn(q, kp, vp, bt, sl),
+                plain=lambda: plain_fn(q, kp, vp, bt, sl),
+                library=lambda: F.scaled_dot_product_attention(
+                    q4, kg, vg, attn_mask=mask),
+                nbytes=nbytes, flops=4 * n_live * hq * d,
+                shapes={"batch": B, "seq_lens": sl.tolist(),
+                        "table_width": bt.shape[1]})
 
 
-def time_score(torch, rec, errs, per_serve, serve):
-    """K2: the compression call with the most live entries; the library
-    yardstick is the matmul of the pre-gathered queries and keys, without
-    the mask."""
+def score_spec(torch, args):
+    """K2 on ``args``; the library yardstick is the matmul of the
+    pre-gathered queries and keys, without the mask."""
     from repro_torch.core.paged import gather_entries
     from repro_torch.kernels import paged_score as ps
 
-    args, _ = _pick(rec.calls["score_logits"],
-                    lambda a: _live_entries(a[2], a[3], a[1].shape[1]))
     q_win, kp, bt, sl = args
     n, w, hq, d = q_win.shape
     hkv = kp.shape[2]
@@ -875,67 +930,62 @@ def time_score(torch, rec, errs, per_serve, serve):
                                bt.shape[1] * kp.shape[1], bt.numel())
     qg = q_win.reshape(n, w, hkv, g, d).permute(0, 2, 3, 1, 4) \
         .reshape(n, hkv, g * w, d).contiguous()
-    kt = gather_entries(kp, bt).permute(0, 2, 3, 1).contiguous()
-    return _row(torch, ps.NAME, "src/repro_torch/csrc/paged_score.cu",
-                per_serve, serve, errs,
-                lambda: ps.paged_score_logits_cuda(q_win, kp, bt, sl),
-                lambda: ps.paged_score_logits_plain(q_win, kp, bt, sl),
-                lambda: torch.matmul(qg, kt), nbytes, flops,
-                {"n": n, "seq_lens": sl.tolist(),
-                 "table_width": bt.shape[1]})
+    kt = _masked_keys(torch, kp, bt, sl).permute(0, 2, 3, 1).contiguous()
+    return dict(name=ps.NAME, source="src/repro_torch/csrc/paged_score.cu",
+                kernel=lambda: ps.paged_score_logits_cuda(q_win, kp, bt, sl),
+                plain=lambda: ps.paged_score_logits_plain(q_win, kp, bt, sl),
+                library=lambda: torch.matmul(qg, kt), nbytes=nbytes,
+                flops=flops, shapes={"n": n, "seq_lens": sl.tolist(),
+                                     "table_width": bt.shape[1]})
 
 
-def time_redundancy(torch, rec, op, errs, per_serve, serve):
-    """K3 (lightning) or B5 (flash): the compression call with the most
-    live entries. The library yardstick is the matmul of the pre-gathered,
-    normalised keys: all pairs (flash) or the pairs of each page
-    (lightning), without the mask and zero-out."""
+def _masked_keys(torch, kp, bt, sl):
+    """The gathered keys (n, T, h, d), zero at positions >= seq_len."""
     from repro_torch.core.paged import gather_entries
+    e = gather_entries(kp, bt).float()
+    T = e.shape[1]
+    valid = torch.arange(T, device=e.device)[None] < sl[:, None]
+    return torch.where(valid[..., None, None], e,
+                       torch.zeros((), device=e.device))
+
+
+def redundancy_spec(torch, name, args, kw):
+    """K3 (lightning) or B5 (flash) on ``args``. The library yardstick is
+    the matmul of the pre-gathered, normalised keys: all pairs (flash) or
+    the pairs of each page (lightning), without the mask and zero-out."""
     from repro_torch.kernels import redundancy as red
 
-    flash = op == "flash_redundancy"
-    name = red.FLASH_NAME if flash else red.NAME
+    flash = name == red.FLASH_NAME
     cuda_fn = red.flash_redundancy_cuda if flash else \
         red.lightning_redundancy_cuda
     plain_fn = red.flash_redundancy_plain if flash else \
         red.lightning_redundancy_plain
-    args, kw = _pick(rec.calls[op],
-                     lambda a: _live_entries(a[1], a[2], a[0].shape[1]))
     kp, bt, sl = args
     p = kw.get("p_thresh", 0.8)
     N, b, h, d = kp.shape
     n, mb = bt.shape
     nbytes, flops = redundancy_work(_live_lens(bt, sl, b), mb * b if flash
                                     else b, h, d, mb * b, bt.numel())
-    e = gather_entries(kp, bt).float()                      # (n, T, h, d)
+    e = _masked_keys(torch, kp, bt, sl)                     # (n, T, h, d)
     eh = (e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
           .clamp(min=1e-12)).permute(0, 2, 1, 3).contiguous()  # (n,h,T,d)
-    if flash:
-        lib = lambda: torch.matmul(eh, eh.transpose(-1, -2))  # noqa: E731
-        source = "src/repro_torch/csrc/flash_redundancy.cu"
-    else:
-        ep = eh.reshape(n, h, mb, b, d)
-        lib = lambda: torch.matmul(ep, ep.transpose(-1, -2))  # noqa: E731
-        source = "src/repro_torch/csrc/redundancy.cu"
-    return _row(torch, name, source, per_serve, serve, errs,
-                lambda: cuda_fn(kp, bt, sl, p_thresh=p),
-                lambda: plain_fn(kp, bt, sl, p_thresh=p),
-                lib, nbytes, flops,
-                {"n": n, "seq_lens": sl.tolist(), "table_width": mb})
+    if not flash:
+        eh = eh.reshape(n, h, mb, b, d)
+    source = "flash_redundancy.cu" if flash else "redundancy.cu"
+    return dict(name=name, source="src/repro_torch/csrc/" + source,
+                kernel=lambda: cuda_fn(kp, bt, sl, p_thresh=p),
+                plain=lambda: plain_fn(kp, bt, sl, p_thresh=p),
+                library=lambda: torch.matmul(eh, eh.transpose(-1, -2)),
+                nbytes=nbytes, flops=flops,
+                shapes={"n": n, "seq_lens": sl.tolist(), "table_width": mb})
 
 
-def time_compaction(torch, rec, errs, per_serve, serve):
-    """B6: the compression call with the most live rows (a padding row
-    writes only the sink page and needs no move). The library yardstick is
-    one advanced-indexing gather and one ``index_copy_`` per pool. The
-    timed calls move the serve's pools again, after the serve is over."""
+def compaction_spec(torch, args, live_rows):
+    """B6 on ``args``. The library yardstick is one advanced-indexing
+    gather and one ``index_copy_`` per pool. The timed calls move the
+    serve's pools again, after the serve is over."""
     from repro_torch.kernels import compaction as cmp
 
-    def live_rows(a):
-        dest, sink = a[6], a[0].shape[1] - 1
-        return int(((dest // a[0].shape[2]) != sink).any(1).sum())
-
-    args, _ = _pick(rec.calls["compact"], live_rows)
     kp, vp, fp, new_f, src_bt, src_cache, dest_flat = args
     L, N1, b, h, d = kp.shape
     n, kk = dest_flat.shape
@@ -965,34 +1015,37 @@ def time_compaction(torch, rec, errs, per_serve, serve):
         vf.index_copy_(0, dst_idx, vf[src_idx])
         ff.index_copy_(0, dst_idx, nff[nf_idx])
 
-    return _row(torch, cmp.NAME, "src/repro_torch/csrc/compaction.cu",
-                per_serve, serve, errs,
-                lambda: cmp.compact_cuda(*args),
-                lambda: cmp.compact_plain(*args),
-                library, nbytes, 0,
-                {"layers": L, "n": n, "live_rows": n_rows, "k": kk})
+    return dict(name=cmp.NAME, source="src/repro_torch/csrc/compaction.cu",
+                kernel=lambda: cmp.compact_cuda(*args),
+                plain=lambda: cmp.compact_plain(*args), library=library,
+                nbytes=nbytes, flops=0,
+                shapes={"layers": L, "n": n, "live_rows": n_rows, "k": kk})
 
 
-def _row(torch, name, source, per_serve, serve, errs, kernel, plain, library,
-         nbytes, flops, shapes):
-    t = times(torch, kernel, library)
-    plain_ms = time_ms(torch, plain, n=10)
-    bound_ms, bound_by = bound(nbytes, flops)
+def _row(torch, spec, per_serve, serve, errs):
+    name = spec["name"]
+    t = times(torch, spec["kernel"], spec["library"])
+    plain_ms = time_ms(torch, spec["plain"], n=10)
+    bound_ms, bound_by = bound(spec["nbytes"], spec["flops"])
     log("timing", f"{name}: {t['ms']:.4f} ms = device {t['device_ms']:.4f} "
         f"+ host {t['host_ms']:.4f} (plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.5f} ms by {bound_by}, library {t['library_ms']:.4f} ms "
         f"= device {t['library_device_ms']:.4f} + host "
-        f"{t['library_host_ms']:.4f}) at {shapes}; launches per serve "
-        f"{per_serve[name]}")
-    return {"name": name, "route": "cuda", "source": source,
+        f"{t['library_host_ms']:.4f}) at {spec['shapes']}; launches per "
+        f"serve {per_serve[name]}; device by kernel {_split(t)}")
+    return {"name": name, "route": "cuda", "source": spec["source"],
             "replaces": REPLACES[name], "launches": per_serve[name][serve],
             "max_abs_err": errs[name], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, **t,
             "launches_per_serve": per_serve[name]}
 
 
+def _split(t):
+    return ", ".join(f"{k} {v:.4f}" for k, v in t["device_kernels"].items())
+
+
 def long_input(torch, dev, cfg, opts, table=LONG_TABLE, lens=LONG_LENS):
-    """An input of B5 and K2 at Qwen3-8B heads: ``table`` pages of the
+    """An input of K2, K3 and B5 at Qwen3-8B heads: ``table`` pages of the
     engine's block size, seq_lens ``lens``, random keys from the seed with
     a NaN page 0 and NaN stale tails; each row's newest page is a
     near-duplicate of its oldest, so the flash zero-out fires."""
@@ -1018,79 +1071,114 @@ def long_input(torch, dev, cfg, opts, table=LONG_TABLE, lens=LONG_LENS):
             torch.tensor(lens, dtype=torch.int32, device=dev))
 
 
-def time_flash_and_score(torch, dev, cfg, opts, table, lens):
-    """B5 and K2 at ``long_input(table, lens)``: each held against its
-    plain version (B5 also two launches bit for bit, its zero-out firing),
-    then timed like the serve's rows. Returns {kernel name: record}."""
-    from repro_torch.core.paged import gather_entries
-    from repro_torch.kernels import paged_score as ps
+def decode_input(torch, dev, cfg, opts, table=LONG_TABLE,
+                 lens=LONG_DECODE_LENS):
+    """A decode input of K1 and B4 at Qwen3-8B heads: one query token per
+    slot of ``lens``, ``table`` pages of the engine's block size, random
+    q, K and V from the seed with a NaN page 0 and NaN stale tails."""
+    import numpy as np
+    b, hkv, d = opts.block_size, cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(SEED + 4)
+    n_pages = 1 + sum(-(-s // b) for s in lens)
+    k = rng.normal(size=(n_pages, b, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(n_pages, b, hkv, d)).astype(np.float32)
+    bt = np.full((len(lens), table), -1, np.int32)
+    free = list(rng.permutation(np.arange(1, n_pages)))
+    for i, s in enumerate(lens):
+        for j in range(-(-s // b)):
+            bt[i, j] = free.pop()
+        if s % b:
+            k[bt[i, s // b], s % b:] = v[bt[i, s // b], s % b:] = np.nan
+    k[0] = v[0] = np.nan
+    q = rng.normal(size=(len(lens), cfg.num_heads, d)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (q, k, v, bt)) + (
+        torch.tensor(lens, dtype=torch.int32, device=dev),)
+
+
+#: kernels with an input for ``time_at``: K2, K3, B5 at ``long_input``,
+#: K1 and B4 at ``decode_input``
+TIMED_AT = ("paged_score", "lightning_redundancy", "flash_redundancy",
+            "ragged_paged_attention", "paged_attention")
+
+
+def time_at(torch, dev, cfg, opts, names, comp=(LONG_TABLE, LONG_LENS),
+            dec=(LONG_TABLE, LONG_DECODE_LENS)):
+    """The kernels ``names`` (of TIMED_AT) at ``long_input(*comp)`` and
+    ``decode_input(*dec)``: each held against its plain version at TOL
+    (K3, B4 and B5 also two launches bit for bit, K3's and B5's zero-outs
+    firing, B4 against K1 bit for bit on live rows), then timed like the
+    serve's rows. Returns {kernel name: record}."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ragged_paged_attention as rpa
     from repro_torch.kernels import redundancy as red
 
-    q_win, k, bt, sl = long_input(torch, dev, cfg, opts, table, lens)
-    n, w, hq, d = q_win.shape
-    hkv = k.shape[2]
-    g = hq // hkv
-    T = table * k.shape[1]
-    p = opts.compress.p_thresh
-    shapes = {"n": n, "seq_lens": list(lens), "table_width": table}
+    specs, errs, extra = {}, {}, {}
+    if {"paged_score", red.NAME, red.FLASH_NAME} & set(names):
+        q_win, k, bt, sl = long_input(torch, dev, cfg, opts, *comp)
+        p = opts.compress.p_thresh
+        if "paged_score" in names:
+            specs["paged_score"] = score_spec(torch, (q_win, k, bt, sl))
+        for name in (red.NAME, red.FLASH_NAME):
+            if name in names:
+                specs[name] = redundancy_spec(torch, name, (k, bt, sl),
+                                              {"p_thresh": p})
+                off = (red.lightning_redundancy_plain if name == red.NAME
+                       else red.flash_redundancy_plain)(k, bt, sl,
+                                                        p_thresh=2.0)
+                extra[name] = {"zero_outs": int(
+                    (off != specs[name]["plain"]()).sum())}
+                del off
+        # the long input's near-duplicate pages fire the flash zero-out;
+        # its pages hold random keys, so the lightning one may not fire
+        if red.FLASH_NAME in names and \
+                extra[red.FLASH_NAME]["zero_outs"] == 0:
+            raise AssertionError(f"flash{comp}: the p_thresh zero-out "
+                                 "never fired")
+    if {rpa.NAME, pa.NAME} & set(names):
+        args = decode_input(torch, dev, cfg, opts, *dec)
+        sl = args[4]
+        live = sl > 0
+        dense = pa.paged_attention_cuda(*args)
+        ragged = rpa.ragged_paged_attention_cuda(*args)
+        if not bool(torch.equal(dense[live], ragged[live])):
+            raise AssertionError(f"dense vs ragged{dec}: live rows differ by "
+                                 f"{float((dense - ragged)[live].abs().max())}"
+                                 " (bit for bit is required)")
+        for name in (rpa.NAME, pa.NAME):
+            if name in names:
+                specs[name] = decode_spec(torch, name, args)
+        del dense, ragged
     out = {}
-
-    got = red.flash_redundancy_cuda(k, bt, sl, p_thresh=p)
-    want = red.flash_redundancy_plain(k, bt, sl, p_thresh=p)
-    err = max_err(torch, got, want, f"flash[{table}]")
-    if not bool(torch.equal(got, red.flash_redundancy_cuda(k, bt, sl,
-                                                           p_thresh=p))):
-        raise AssertionError(f"flash[{table}]: two runs differ")
-    hits = int((red.flash_redundancy_plain(k, bt, sl, p_thresh=2.0)
-                != want).sum())
-    if hits == 0:
-        raise AssertionError(f"flash[{table}]: the p_thresh zero-out never "
-                             "fired")
-    del got, want
-    e = gather_entries(k, bt)
-    valid = torch.arange(T, device=dev)[None] < sl[:, None]
-    e = torch.where(valid[..., None, None], e, torch.zeros((), device=dev))
-    eh = (e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
-          .clamp(min=1e-12)).permute(0, 2, 1, 3).contiguous()
-    t = times(torch, lambda: red.flash_redundancy_cuda(k, bt, sl, p_thresh=p),
-              lambda: torch.matmul(eh, eh.transpose(-1, -2)))
-    b_ms, b_by = bound(*redundancy_work(lens, T, hkv, d, T, bt.numel()))
-    out[red.FLASH_NAME] = {**t, "bound_ms": b_ms, "bound_by": b_by,
-                           "max_abs_err": err, "zero_outs": hits, **shapes}
-    log("timing", f"{red.FLASH_NAME}[{table}]: max_abs_err={err:.3e} "
-        f"(atol=rtol={TOL}), the same in two runs, zero-out changed {hits} "
-        f"row sums; {t['ms']:.4f} ms = device {t['device_ms']:.4f} + host "
-        f"{t['host_ms']:.4f} (bound {b_ms:.5f} ms by {b_by}, library "
-        f"{t['library_ms']:.4f} ms = device {t['library_device_ms']:.4f}) "
-        f"at {shapes}")
-    del eh
-
-    got = ps.paged_score_logits_cuda(q_win, k, bt, sl)
-    err = max_err(torch, got, ps.paged_score_logits_plain(q_win, k, bt, sl),
-                  f"paged_score[{table}]")
-    del got
-    qg = q_win.reshape(n, w, hkv, g, d).permute(0, 2, 3, 1, 4) \
-        .reshape(n, hkv, g * w, d).contiguous()
-    kt = e.permute(0, 2, 3, 1).contiguous()
-    t = times(torch, lambda: ps.paged_score_logits_cuda(q_win, k, bt, sl),
-              lambda: torch.matmul(qg, kt))
-    b_ms, b_by = bound(*score_work(lens, hkv, g, w, d, T, bt.numel()))
-    out[ps.NAME] = {**t, "bound_ms": b_ms, "bound_by": b_by,
-                    "max_abs_err": err, **shapes}
-    log("timing", f"{ps.NAME}[{table}]: max_abs_err={err:.3e} (atol=rtol="
-        f"{TOL}); {t['ms']:.4f} ms = device {t['device_ms']:.4f} + host "
-        f"{t['host_ms']:.4f} (bound {b_ms:.5f} ms by {b_by}, library "
-        f"{t['library_ms']:.4f} ms = device {t['library_device_ms']:.4f}) "
-        f"at {shapes}")
+    for name in names:
+        spec = specs[name]
+        got = spec["kernel"]()
+        errs[name] = max_err(torch, got, spec["plain"](),
+                             f"{name}[{spec['shapes']['table_width']}]")
+        if name in (red.NAME, red.FLASH_NAME, pa.NAME) and not bool(
+                torch.equal(got, spec["kernel"]())):
+            raise AssertionError(f"{name}: two launches differ")
+        del got
+        t = times(torch, spec["kernel"], spec["library"])
+        b_ms, b_by = bound(spec["nbytes"], spec["flops"])
+        out[name] = {**t, "bound_ms": b_ms, "bound_by": b_by,
+                     "max_abs_err": errs[name], **extra.get(name, {}),
+                     **spec["shapes"]}
+        log("timing", f"{name}[{spec['shapes']['table_width']}]: "
+            f"max_abs_err={errs[name]:.3e} (atol=rtol={TOL}); {t['ms']:.4f} "
+            f"ms = device {t['device_ms']:.4f} + host {t['host_ms']:.4f} "
+            f"(bound {b_ms:.5f} ms by {b_by}, library {t['library_ms']:.4f} "
+            f"ms = device {t['library_device_ms']:.4f}) at {spec['shapes']}; "
+            f"device by kernel {_split(t)}")
+        del specs[name]
+        torch.cuda.empty_cache()
     return out
 
 
 def phase_long(torch, dev, cfg, opts, rows):
-    """B5 and K2 at the long input; the records go into their rows as
-    ``long_input``."""
+    """K1, K2, K3, B4 and B5 at the long inputs; the records go into their
+    rows as ``long_input``."""
     by_name = {r["name"]: r for r in rows}
-    for name, rec in time_flash_and_score(torch, dev, cfg, opts, LONG_TABLE,
-                                          LONG_LENS).items():
+    for name, rec in time_at(torch, dev, cfg, opts, TIMED_AT).items():
         by_name[name]["long_input"] = rec
 
 
@@ -1144,8 +1232,8 @@ def phase_profile(torch, z, card):
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log("profile", f"  {g:<24s} {ms:8.2f} ms ({ms / busy:.3f} of busy)")
     for g, (ms, n) in sorted(calls.items()):
-        log("profile", f"  {g}: {n} launches, {ms / n:.4f} ms of device "
-            "time each")
+        log("profile", f"  {g}: {n} CUDA kernels, {ms / n:.4f} ms of device "
+            "time each")  # a K1 or B4 call runs two: chunks, then merge
     return {"steps": n_steps, "wall_ms": wall_ms, "busy_ms": busy,
             "groups_ms": groups, "kernel_calls": calls}
 

@@ -55,14 +55,20 @@ __device__ __forceinline__ void zp_cp_async_wait() {
 // h, into dst. Positions at or past n_valid, and positions on a -1 table
 // entry, are zero-filled without reading the table entry or the pool, so
 // stale or NaN pool data never reaches shared memory. Needs d % 4 == 0.
-// The address arithmetic sits on the path that issues the copies, so it
-// is kept short: when the block's threads divide into the row's 16-byte
-// columns each thread keeps one column and walks rows, and a block size
-// that is a power of two is divided by shifts.
+// The copies are spread over threads tid of nthr (the whole block unless
+// given: a warp can stage its own tile). The address arithmetic sits on
+// the path that issues the copies, so it is kept short: when the threads
+// divide into the row's 16-byte columns each thread keeps one column and
+// walks rows, and a page size that is a power of two is divided by shifts.
 __device__ __forceinline__ void zp_load_key_tile(float* dst, const float* __restrict__ pool,
                                                  const int* __restrict__ bt, int pos0,
                                                  int n_valid, int h, int hh, int d, int b,
-                                                 int rows = kKeyTile) {
+                                                 int rows = kKeyTile, int tid = -1,
+                                                 int nthr = 0) {
+  if (nthr == 0) {
+    tid = threadIdx.x;
+    nthr = blockDim.x;
+  }
   const int d4 = d >> 2;
   const int ld = d + kKeyPad;
   const int shift = (b & (b - 1)) == 0 ? __ffs(b) - 1 : -1;
@@ -75,133 +81,567 @@ __device__ __forceinline__ void zp_load_key_tile(float* dst, const float* __rest
         page >= 0 ? pool + (((size_t)page * b + slot) * h + hh) * d + 4 * c4 : pool;
     zp_cp_async16(dst + t * ld + 4 * c4, src, page >= 0);
   };
-  if (blockDim.x % d4 == 0) {
-    const int c4 = threadIdx.x % d4;
-    for (int t = threadIdx.x / d4; t < rows; t += blockDim.x / d4) copy(t, c4);
+  if (nthr % d4 == 0) {
+    const int c4 = tid % d4;
+    for (int t = tid / d4; t < rows; t += nthr / d4) copy(t, c4);
   } else {
-    for (int idx = threadIdx.x; idx < rows * d4; idx += blockDim.x) copy(idx / d4, idx % d4);
+    for (int idx = tid; idx < rows * d4; idx += nthr) copy(idx / d4, idx % d4);
   }
+}
+
+__device__ __forceinline__ float zp_dot4(float4 a, float4 b, float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
 }
 
 // ---------------------------------------------------------------------------
-// Decode attention, one page at a time (the ragged and the dense decode
-// kernels share this, so that their live rows are bit-identical).
+// Decode attention in chunks (flash-decoding), shared by the dense kernel
+// (paged_attention.cu) and the ragged one (ragged_paged_attention.cu), so
+// that the live rows of the two are bit-identical.
 //
-// A thread block of kDecodeThreads owns one (slot, kv head) and its g query
-// heads. Shared memory holds q (g*d), this page's k and v (b*d each), the
-// scores / probabilities p (g*b) and the running max m, denominator l and
-// rescale c (g each); each thread keeps acc[gi][j] for head dim
-// tid + j*kDecodeThreads in registers.
-constexpr int kDecodeThreads = 128;
-constexpr int kDecodeMaxG = 8;     // query heads per kv head
-constexpr int kDecodeMaxDpt = 2;   // head_dim <= kDecodeThreads * kDecodeMaxDpt = 256
+// Each slot's block table is cut into chunks of zp_decode_chunk_pages()
+// entries. A thread block of kDecodeThreads owns one (chunk, kv head, slot)
+// and the g query heads of that kv head. It walks the chunk's cache
+// positions in tiles of kDecodeRows, staged by cp.async into a ring of
+// kDecodeStages buffers: two tiles are in flight while one is computed, and
+// one barrier a tile frees the buffer that the next copy overwrites. Each
+// of the four warps takes kDecodeWarpRows rows of every tile and keeps its
+// own online-softmax state for all g heads, so K and V are read from
+// shared memory once a tile: eight lanes share a row's scores (three
+// shuffles sum them, in a fixed order), a tile's max and sum per head are
+// two shuffles each, and for p.V a lane owns 4 (or 8) head dims. At the
+// end of the chunk the block merges its four warps' states, in warp order, into the
+// chunk's part of the workspace, and a second kernel (defined in each .cu,
+// so that a profiler tells the two apart) merges the parts of a (slot, kv
+// head) in ascending chunk order and writes acc / max(l, 1e-30). Both
+// merges are zp_decode_merge_parts: they skip every state whose m is
+// -1e30, and they load the parts in parallel before the ordered sums.
+// Every rounding step is spelled out (fmaf, __fmul_rn, __fadd_rn,
+// __fsub_rn, expf): nothing is left to the compiler's contraction.
+//
+// Why the live rows of the two kernels are bit-identical:
+//  * the chunk size is a function of the call's shape (B, h_kv, b, mb)
+//    alone, so both kernels cut a table the same way and give each warp
+//    the same rows;
+//  * the ragged kernel walks a chunk's tiles only up to seq_len, the dense
+//    one walks them all. A tile past seq_len is wholly masked: its scores
+//    are -1e30, its probabilities exactly 0, its V lanes read as 0. It
+//    leaves m as it was (a max with -1e30), its rescale factor is
+//    expf(0) == 1, and it adds exact zeros to l and acc: the state is
+//    unchanged (up to the sign of a zero, and -0 == +0);
+//  * a chunk with no live entry leaves each of its warps, and so its
+//    part, at m = -1e30, l = 0, acc = 0. The ragged kernel neither walks
+//    nor merges such a chunk; the dense kernel walks it and its merge
+//    skips its part, as both kernels skip any state with m == -1e30 (a
+//    warp none of whose rows was valid). Both merge the same states, in
+//    the same order, with the same code;
+//  * a slot with seq_len == 0 has no part to merge: acc = 0, l = 0, and
+//    the output is exact zeros in both kernels.
+// The ragged kernel keeps its own rule: it never reads a table entry past
+// ceil(seq_len / b) and zero-fills positions past seq_len instead of
+// reading them. The dense kernel reads every entry's page (a -1 entry as
+// page 0) and masks in the math, as the TPU baseline does.
+constexpr int kDecodeWarps = 4;
+constexpr int kDecodeThreads = 32 * kDecodeWarps;
+constexpr int kDecodeRows = 16;                              // positions a tile
+constexpr int kDecodeWarpRows = kDecodeRows / kDecodeWarps;  // rows of a tile a warp takes
+constexpr int kDecodeStages = 3;
+constexpr int kDecodeMaxG = 8;    // query heads per kv head
+constexpr int kDecodeMaxD = 256;  // head_dim: two float4 columns a lane
+constexpr int kDecodeTargetBlocks = 1024;
+constexpr int kDecodeMaxChunks = 32;
 
-struct ZpDecodeSmem {
-  float *q, *k, *v, *p, *m, *l, *c;
+struct ZpDecodeArgs {
+  const float* q;             // (B, hq, d)
+  const float* k_pool;        // (N, b, hkv, d)
+  const float* v_pool;        // (N, b, hkv, d)
+  const int* block_tables;    // (B, mb)
+  const int* seq_lens;        // (B,)
+  float* out;                 // (B, hq, d)
+  float* part;                // (B, hkv, n_chunks) parts of g (d + 2) floats
+  int hkv, g, d, b, mb;
+  int chunk_pages, n_chunks;  // zp_decode_chunk_pages, zp_decode_n_chunks
+  int ld;                     // shared-memory row stride: d rounded up to 4
+  int vec;                    // 16-byte copies (d % 4 == 0, aligned pointers), else 4-byte
+  float scale;
 };
 
-__host__ __device__ __forceinline__ size_t zp_decode_smem_bytes(int g, int d, int b) {
-  return sizeof(float) * ((size_t)g * d + 2 * (size_t)b * d + (size_t)g * b + 3 * (size_t)g);
+// Table entries a chunk: as many chunks as give about kDecodeTargetBlocks
+// (chunk, kv head, slot) blocks, at most kDecodeMaxChunks a slot, and at
+// least a tile of positions a chunk. A function of (B, h_kv, b, mb) alone.
+__host__ __device__ inline int zp_decode_chunk_pages(int batch, int hkv, int b, int mb) {
+  const long long pairs = (long long)batch * hkv > 0 ? (long long)batch * hkv : 1;
+  long long chunks = (kDecodeTargetBlocks + pairs - 1) / pairs;
+  if (chunks > kDecodeMaxChunks) chunks = kDecodeMaxChunks;
+  if (chunks > mb) chunks = mb;
+  if (chunks < 1) chunks = 1;
+  const int pages = (int)((mb + chunks - 1) / chunks);
+  const int min_pages = (kDecodeRows + b - 1) / b;
+  return pages > min_pages ? pages : min_pages;
 }
 
-__device__ __forceinline__ ZpDecodeSmem zp_decode_layout(float* smem, int g, int d, int b) {
-  ZpDecodeSmem s;
-  s.q = smem;
-  s.k = s.q + g * d;
-  s.v = s.k + b * d;
-  s.p = s.v + b * d;
-  s.m = s.p + g * b;
-  s.l = s.m + g;
-  s.c = s.l + g;
-  return s;
+__host__ __device__ inline int zp_decode_n_chunks(int mb, int chunk_pages) {
+  const int n = (mb + chunk_pages - 1) / chunk_pages;
+  return n > 0 ? n : 1;
 }
 
-// Load the g queries (g*d floats at qp) and reset the softmax state.
-__device__ __forceinline__ void zp_decode_begin(const ZpDecodeSmem& s, const float* __restrict__ qp,
-                                                float (&acc)[kDecodeMaxG][kDecodeMaxDpt],
-                                                int g, int d) {
-  for (int i = threadIdx.x; i < g * d; i += blockDim.x) s.q[i] = qp[i];
-  if (threadIdx.x < g) {
-    s.m[threadIdx.x] = ZP_NEG_INF;
-    s.l[threadIdx.x] = 0.f;
-  }
-#pragma unroll
-  for (int gi = 0; gi < kDecodeMaxG; ++gi)
-#pragma unroll
-    for (int j = 0; j < kDecodeMaxDpt; ++j) acc[gi][j] = 0.f;
+// Floats of workspace a launch needs after its B * hq * d outputs.
+inline long long zp_decode_workspace(int batch, int hkv, int g, int d, int b, int mb) {
+  const int n_chunks = zp_decode_n_chunks(mb, zp_decode_chunk_pages(batch, hkv, b, mb));
+  return (long long)batch * hkv * n_chunks * g * (d + 2);
 }
 
-// Online-softmax update with one page in s.k / s.v (the caller fills them
-// and synchronises first). Entries t >= n_valid are masked: their score is
-// ZP_NEG_INF, their probability exactly 0, and their V lane is read as 0,
-// so stale or NaN data on the page cannot reach the output. A page with
-// n_valid == 0 therefore adds exact zeros and its rescale factor is
-// expf(0) == 1 (the running max stays as it was): it leaves m, l and acc
-// bit for bit unchanged.
-__device__ __forceinline__ void zp_decode_page(const ZpDecodeSmem& s,
-                                               float (&acc)[kDecodeMaxG][kDecodeMaxDpt],
-                                               int n_valid, int g, int d, int b,
-                                               float scale) {
+__device__ __forceinline__ void zp_cp_async4(float* smem, const float* gmem, bool valid) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Copy rows 0 .. rows - 1 of two row sets (K and V, or q alone with dst1
+// null) into shared memory with row stride a.ld, by 16-byte copies when
+// a.vec, else 4-byte ones (the columns d .. ld - 1 zero-filled). src(t)
+// gives the element offset of row t in both sources, or -1 for a row of
+// zeros, which reads nothing.
+template <typename Src>
+__device__ __forceinline__ void zp_decode_copy_rows(const ZpDecodeArgs& a, float* dst0,
+                                                    const float* src0, float* dst1,
+                                                    const float* src1, int rows, Src src) {
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-  for (int pair = warp; pair < g * b; pair += n_warps) {
-    const int gi = pair / b;
-    const int t = pair - gi * b;
-    float dot = 0.f;
-    for (int dd = lane; dd < d; dd += 32) dot += s.q[gi * d + dd] * s.k[t * d + dd];
-    dot = zp_warp_sum(dot);
-    if (lane == 0) s.p[pair] = t < n_valid ? dot * scale : ZP_NEG_INF;
-  }
-  __syncthreads();
-  if (tid < g) {
-    const float m_prev = s.m[tid];
-    float m_new = m_prev;
-    for (int t = 0; t < b; ++t) m_new = fmaxf(m_new, s.p[tid * b + t]);
-    float sum = 0.f;
-    for (int t = 0; t < b; ++t) {
-      const float p = t < n_valid ? expf(s.p[tid * b + t] - m_new) : 0.f;
-      s.p[tid * b + t] = p;
-      sum += p;
+  if (a.vec) {
+    const int d4 = a.d >> 2;
+    auto copy = [&](int t, int c4) {
+      const long long off = src(t);
+      const bool ok = off >= 0;
+      zp_cp_async16(dst0 + t * a.ld + 4 * c4, ok ? src0 + off + 4 * c4 : src0, ok);
+      if (dst1 != nullptr)
+        zp_cp_async16(dst1 + t * a.ld + 4 * c4, ok ? src1 + off + 4 * c4 : src1, ok);
+    };
+    if (kDecodeThreads % d4 == 0) {
+      const int c4 = tid % d4;
+      for (int t = tid / d4; t < rows; t += kDecodeThreads / d4) copy(t, c4);
+    } else {
+      for (int idx = tid; idx < rows * d4; idx += kDecodeThreads) copy(idx / d4, idx % d4);
     }
-    const float corr = expf(m_prev - m_new);
-    s.l[tid] = s.l[tid] * corr + sum;
-    s.m[tid] = m_new;
-    s.c[tid] = corr;
+  } else {
+    for (int idx = tid; idx < rows * a.ld; idx += kDecodeThreads) {
+      const int t = idx / a.ld;
+      const int c = idx - t * a.ld;
+      const long long off = src(t);
+      const bool ok = off >= 0 && c < a.d;
+      zp_cp_async4(dst0 + idx, ok ? src0 + off + c : src0, ok);
+      if (dst1 != nullptr) zp_cp_async4(dst1 + idx, ok ? src1 + off + c : src1, ok);
+    }
   }
-  __syncthreads();
+}
+
+// A thread's share of every tile's copies, fixed for the block, so that
+// issuing a tile costs a table read and one multiply-add a row: when the
+// block's threads divide into a row's float4 columns (and the copies are
+// 16-byte ones), the thread copies float4 column c4 of rows t0, t0 + tstep,
+// ...; otherwise (tstep == 0) the tile goes through zp_decode_copy_rows.
+struct ZpDecodeCopier {
+  int c4, t0, tstep;
+  int shift;              // log2(b), or -1 when b is not a power of two
+  long long page_stride;  // b * hkv * d
+  int row_stride;         // hkv * d
+  int col;                // h * d + 4 * c4: the head and column within a row
+};
+
+__device__ __forceinline__ ZpDecodeCopier zp_decode_copier(const ZpDecodeArgs& a, int h) {
+  ZpDecodeCopier c;
+  const int d4 = a.d >> 2;
+  const bool fixed = a.vec && kDecodeThreads % d4 == 0;
+  c.c4 = fixed ? threadIdx.x % d4 : 0;
+  c.t0 = fixed ? threadIdx.x / d4 : 0;
+  c.tstep = fixed ? kDecodeThreads / d4 : 0;
+  c.shift = (a.b & (a.b - 1)) == 0 ? __ffs(a.b) - 1 : -1;
+  c.page_stride = (long long)a.b * a.hkv * a.d;
+  c.row_stride = a.hkv * a.d;
+  c.col = h * a.d + 4 * c.c4;
+  return c;
+}
+
+// Issue the copies of the tile whose first row is chunk position rel0
+// (rel0 + t for row t; n_pos positions of the chunk are walked), and write
+// each row's validity (position < seq_len on a table entry >= 0). tbl holds
+// the chunk's table entries (-1 past what the kernel may read). The dense
+// kernel reads every row of the chunk (a -1 entry as page 0); the ragged
+// one reads only valid rows and zero-fills the rest.
+template <bool kDense>
+__device__ __forceinline__ void zp_decode_issue_tile(const ZpDecodeArgs& a,
+                                                     const ZpDecodeCopier& cp, float* k_dst,
+                                                     float* v_dst, int* valid_dst,
+                                                     const int* tbl, int rel0, int n_pos,
+                                                     int pos0, int seq_len, int h) {
+  const int b = a.b;
+  auto entry_of = [&](int rel) { return tbl[cp.shift >= 0 ? rel >> cp.shift : rel / b]; };
+  if (threadIdx.x < kDecodeRows) {
+    const int rel = rel0 + threadIdx.x;
+    valid_dst[threadIdx.x] = rel < n_pos && pos0 + rel < seq_len && entry_of(rel) >= 0;
+  }
+  if (cp.tstep > 0) {
+    for (int t = cp.t0; t < kDecodeRows; t += cp.tstep) {
+      const int rel = rel0 + t;
+      bool ok = rel < n_pos;
+      long long off = 0;
+      if (ok) {
+        const int j = cp.shift >= 0 ? rel >> cp.shift : rel / b;
+        const int e = tbl[j];
+        if (!kDense) ok = e >= 0 && pos0 + rel < seq_len;
+        const int page = e >= 0 ? e : 0;  // dense: a -1 entry reads page 0, masked in the math
+        off = page * cp.page_stride + (rel - j * b) * cp.row_stride + cp.col;
+      }
+      zp_cp_async16(k_dst + t * a.ld + 4 * cp.c4, a.k_pool + off, ok);
+      zp_cp_async16(v_dst + t * a.ld + 4 * cp.c4, a.v_pool + off, ok);
+    }
+    return;
+  }
+  zp_decode_copy_rows(a, k_dst, a.k_pool, v_dst, a.v_pool, kDecodeRows, [&](int t) {
+    const int rel = rel0 + t;
+    if (rel >= n_pos) return -1LL;
+    const int e = entry_of(rel);
+    if (!kDense && (e < 0 || pos0 + rel >= seq_len)) return -1LL;
+    const int page = e >= 0 ? e : 0;
+    const int slot = rel - (cp.shift >= 0 ? (rel >> cp.shift) << cp.shift : (rel / b) * b);
+    return (((long long)page * b + slot) * a.hkv + h) * a.d;
+  });
+}
+
+// One tile of the online softmax for a warp's kDecodeWarpRows rows (r0 ..)
+// of the tile in k_s / v_s (valid_s: the rows' validity), all G heads, q
+// in q_s (G rows of ld). For the scores, eight lanes share a row, each
+// over float4 columns j, j + 8, ... of d, and three shuffles sum a row's
+// dot products; every lane then holds all G scores of its row, and the
+// max and sum over the warp's rows are two shuffles each. For p.V a lane
+// owns float4 columns lane + 32 j (j < DPL) of acc and V, and reads the
+// probabilities from p_w (the warp's 32 floats of scratch). m[gi] and
+// l[gi] are the same in every lane.
+template <int G, int DPL>
+__device__ __forceinline__ void zp_decode_tile(const ZpDecodeArgs& a, const float* k_s,
+                                               const float* v_s, const int* valid_s,
+                                               const float* q_s, float* p_w, float (&m)[G],
+                                               float (&l)[G], float4 (&acc)[G][DPL], int lane,
+                                               int r0) {
+  const int d4 = a.ld >> 2;
+  const int rr = lane >> 3;  // the lane's row of the warp's four
+  const int part = lane & 7;
+  const float* krow = k_s + (r0 + rr) * a.ld;
+  float s[G];
 #pragma unroll
-  for (int j = 0; j < kDecodeMaxDpt; ++j) {
-    const int dd = tid + j * kDecodeThreads;
-    if (dd < d) {
+  for (int gi = 0; gi < G; ++gi) s[gi] = 0.f;
+  for (int c4 = part; c4 < d4; c4 += 8) {
+    const float4 kv = *reinterpret_cast<const float4*>(krow + 4 * c4);
 #pragma unroll
-      for (int gi = 0; gi < kDecodeMaxG; ++gi) {
-        if (gi < g) {
-          float a = acc[gi][j] * s.c[gi];
-          for (int t = 0; t < b; ++t) {
-            const float v = t < n_valid ? s.v[t * d + dd] : 0.f;
-            a += s.p[gi * b + t] * v;
-          }
-          acc[gi][j] = a;
+    for (int gi = 0; gi < G; ++gi)
+      s[gi] = zp_dot4(*reinterpret_cast<const float4*>(q_s + gi * a.ld + 4 * c4), kv, s[gi]);
+  }
+  const bool valid = valid_s[r0 + rr] != 0;
+  float p[G], corr[G];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    float x = s[gi];
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, off));
+    const float sc = valid ? __fmul_rn(x, a.scale) : ZP_NEG_INF;
+    float mx = fmaxf(sc, __shfl_xor_sync(0xffffffffu, sc, 8));  // over the warp's rows
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+    const float m_new = fmaxf(m[gi], mx);
+    corr[gi] = expf(__fsub_rn(m[gi], m_new));
+    m[gi] = m_new;
+    p[gi] = valid ? expf(__fsub_rn(sc, m_new)) : 0.f;
+    float ps = __fadd_rn(p[gi], __shfl_xor_sync(0xffffffffu, p[gi], 8));
+    ps = __fadd_rn(ps, __shfl_xor_sync(0xffffffffu, ps, 16));
+    l[gi] = fmaf(l[gi], corr[gi], ps);
+  }
+  if (part == 0) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) p_w[rr * G + gi] = p[gi];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) {
+      acc[gi][j].x = __fmul_rn(acc[gi][j].x, corr[gi]);
+      acc[gi][j].y = __fmul_rn(acc[gi][j].y, corr[gi]);
+      acc[gi][j].z = __fmul_rn(acc[gi][j].z, corr[gi]);
+      acc[gi][j].w = __fmul_rn(acc[gi][j].w, corr[gi]);
+    }
+#pragma unroll
+  for (int r = 0; r < kDecodeWarpRows; ++r) {
+    const bool ok = valid_s[r0 + r] != 0;
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) {
+      const int c4 = lane + 32 * j;
+      if (c4 < d4) {
+        float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);  // masked V lanes: 0, never NaN
+        if (ok) vv = *reinterpret_cast<const float4*>(v_s + (r0 + r) * a.ld + 4 * c4);
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+          const float pr = p_w[r * G + gi];
+          acc[gi][j].x = fmaf(pr, vv.x, acc[gi][j].x);
+          acc[gi][j].y = fmaf(pr, vv.y, acc[gi][j].y);
+          acc[gi][j].z = fmaf(pr, vv.z, acc[gi][j].z);
+          acc[gi][j].w = fmaf(pr, vv.w, acc[gi][j].w);
         }
       }
     }
   }
+  __syncwarp();  // p_w is rewritten by the next tile
 }
 
-// Write acc / l for the block's g heads to o (g*d floats), after the last
-// page (whose final barrier made s.l visible).
-__device__ __forceinline__ void zp_decode_end(const ZpDecodeSmem& s,
-                                              const float (&acc)[kDecodeMaxG][kDecodeMaxDpt],
-                                              float* __restrict__ o, int g, int d) {
+// Merge n_parts online-softmax states of g heads, part p at parts + p *
+// stride (m[g], l[g], then acc[g][d]; shared or global memory), in
+// ascending order, skipping every part with m == -1e30: M = max m,
+// w_p = expf(m_p - M), L = sum of l_p w_p and acc = sum of acc_p w_p, each
+// sum in part order by fmaf. All threads of the block call it. scratch
+// holds 2 * n_parts * g floats of shared memory; ml_s gets M (g) then L
+// (g). emit(idx, gi, acc) receives element idx = gi * d + col.
+template <typename Emit>
+__device__ __forceinline__ void zp_decode_merge_parts(const float* parts, int stride,
+                                                      int n_parts, int g, int d, float* scratch,
+                                                      float* ml_s, Emit emit) {
+  float* w_s = scratch;            // m, then the weights (-1: a skipped part)
+  float* l_s = w_s + n_parts * g;
+  for (int i = threadIdx.x; i < n_parts * g; i += blockDim.x) {
+    const int p = i / g;
+    const int gi = i - p * g;
+    w_s[i] = parts[(size_t)p * stride + gi];
+    l_s[i] = parts[(size_t)p * stride + g + gi];
+  }
+  __syncthreads();
+  if (threadIdx.x < g) {
+    const int gi = threadIdx.x;
+    float M = ZP_NEG_INF;
+    for (int p = 0; p < n_parts; ++p) M = fmaxf(M, w_s[p * g + gi]);
+    float L = 0.f;
+    for (int p = 0; p < n_parts; ++p) {
+      const float mp = w_s[p * g + gi];
+      float w = -1.f;
+      if (mp != ZP_NEG_INF) {
+        w = expf(__fsub_rn(mp, M));
+        L = fmaf(l_s[p * g + gi], w, L);
+      }
+      w_s[p * g + gi] = w;
+    }
+    ml_s[gi] = M;
+    ml_s[g + gi] = L;
+  }
+  __syncthreads();
+  // four elements a thread at a time, so that the loads of a part are
+  // independent of one another and of the sums
+  const int n = g * d;
+  for (int base = threadIdx.x; base < n; base += 4 * blockDim.x) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    int gi[4];
 #pragma unroll
-  for (int j = 0; j < kDecodeMaxDpt; ++j) {
-    const int dd = threadIdx.x + j * kDecodeThreads;
-    if (dd < d) {
+    for (int k = 0; k < 4; ++k) gi[k] = min(base + k * (int)blockDim.x, n - 1) / d;
+#pragma unroll 4
+    for (int p = 0; p < n_parts; ++p) {
+      float x[4];
 #pragma unroll
-      for (int gi = 0; gi < kDecodeMaxG; ++gi)
-        if (gi < g) o[gi * d + dd] = acc[gi][j] / fmaxf(s.l[gi], 1e-30f);
+      for (int k = 0; k < 4; ++k) {
+        const int idx = base + k * blockDim.x;
+        x[k] = idx < n ? parts[(size_t)p * stride + 2 * g + idx] : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float w = w_s[p * g + gi[k]];
+        if (w >= 0.f) acc[k] = fmaf(x[k], w, acc[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (base + k * (int)blockDim.x < n) emit(base + k * blockDim.x, gi[k], acc[k]);
+  }
+}
+
+// Shared memory of a chunk block: the chunk's table entries, the stages'
+// row validity, the warps' probabilities, q (G rows) and the ring of K and
+// V tiles; every section a multiple of 4 floats, so rows stay 16-byte
+// aligned.
+__host__ __device__ inline size_t zp_decode_smem_bytes(int G, int ld, int chunk_pages) {
+  const size_t tbl = (chunk_pages + 3) & ~3;
+  return sizeof(float) * (tbl + kDecodeStages * kDecodeRows + 32 * kDecodeWarps +
+                          (size_t)G * ld + 2 * (size_t)kDecodeStages * kDecodeRows * ld);
+}
+
+// The chunk kernel's body: block (chunk, kv head, slot) = blockIdx (x, y, z).
+template <int G, int DPL, bool kDense>
+__device__ __forceinline__ void zp_decode_chunk(const ZpDecodeArgs& a, float* smem) {
+  const int chunk = blockIdx.x;
+  const int h = blockIdx.y;
+  const int slot = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int seq_len = max(a.seq_lens[slot], 0);
+  const int e0 = chunk * a.chunk_pages;             // the chunk's first table entry
+  const int e1 = min(e0 + a.chunk_pages, a.mb);
+  const int pos0 = e0 * a.b;
+  int n_pos = max(e1 - e0, 0) * a.b;                // positions walked
+  if (!kDense) {
+    if (pos0 >= seq_len) return;  // a dead chunk: neither walked nor merged
+    n_pos = min(n_pos, seq_len - pos0);
+  }
+  const int n_tiles = (n_pos + kDecodeRows - 1) / kDecodeRows;
+
+  int* tbl_s = reinterpret_cast<int*>(smem);
+  int* valid_s = tbl_s + ((a.chunk_pages + 3) & ~3);
+  float* p_s = reinterpret_cast<float*>(valid_s + kDecodeStages * kDecodeRows);
+  float* q_s = p_s + 32 * kDecodeWarps;
+  float* kv_s = q_s + G * a.ld;
+  const int tile_floats = kDecodeRows * a.ld;
+
+  // the chunk's table entries; the ragged kernel reads none at or past
+  // ceil(seq_len / b)
+  const int* bt = a.block_tables + (size_t)slot * a.mb;
+  const int n_read = kDense ? e1 - e0 : min(e1, (seq_len + a.b - 1) / a.b) - e0;
+  for (int i = tid; i < e1 - e0; i += kDecodeThreads) tbl_s[i] = i < n_read ? bt[e0 + i] : -1;
+  __syncthreads();
+
+  const int hq = a.hkv * a.g;
+  const float* qp = a.q + ((size_t)slot * hq + (size_t)h * a.g) * a.d;
+  zp_decode_copy_rows(a, q_s, qp, nullptr, nullptr, G,
+                      [&](int gi) { return gi < a.g ? (long long)gi * a.d : -1LL; });
+  const ZpDecodeCopier cp = zp_decode_copier(a, h);
+  constexpr int kAhead = kDecodeStages - 1;  // tiles in flight while one is computed
+  for (int j = 0; j < kAhead; ++j) {           // q goes with tile 0
+    if (j < n_tiles)
+      zp_decode_issue_tile<kDense>(a, cp, kv_s + 2 * j * tile_floats,
+                                   kv_s + (2 * j + 1) * tile_floats, valid_s + j * kDecodeRows,
+                                   tbl_s, j * kDecodeRows, n_pos, pos0, seq_len, h);
+    zp_cp_async_commit();
+  }
+
+  float4 acc[G][DPL];
+  float m[G], l[G];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    m[gi] = ZP_NEG_INF;
+    l[gi] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) acc[gi][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    zp_cp_async_wait<kAhead - 1>();  // tile t (and q) have landed for this thread
+    __syncthreads();  // ... for every thread; the buffer of tile t - 1 is free
+    const int nxt = t + kAhead;
+    if (nxt < n_tiles) {
+      const int st = nxt % kDecodeStages;
+      zp_decode_issue_tile<kDense>(a, cp, kv_s + 2 * st * tile_floats,
+                                   kv_s + (2 * st + 1) * tile_floats,
+                                   valid_s + st * kDecodeRows, tbl_s, nxt * kDecodeRows, n_pos,
+                                   pos0, seq_len, h);
+    }
+    zp_cp_async_commit();
+    const int st = t % kDecodeStages;
+    zp_decode_tile<G, DPL>(a, kv_s + 2 * st * tile_floats, kv_s + (2 * st + 1) * tile_floats,
+                           valid_s + st * kDecodeRows, q_s, p_s + 32 * warp, m, l, acc, lane,
+                           warp * kDecodeWarpRows);
+  }
+  zp_cp_async_wait<0>();  // no copy outlives the block
+  __syncthreads();        // the ring is free: it takes the warps' states
+
+  // warp w's state at kv_s + w * stride: m[g], l[g], acc[g][d]
+  const int stride = a.g * (a.d + 2);
+  float* st = kv_s + warp * stride;
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    if (gi >= a.g) break;
+    if (lane == 0) {
+      st[gi] = m[gi];
+      st[a.g + gi] = l[gi];
+    }
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) {
+      const int c = 4 * (lane + 32 * j);
+      float* o = st + 2 * a.g + gi * a.d + c;
+      if (c < a.d) o[0] = acc[gi][j].x;
+      if (c + 1 < a.d) o[1] = acc[gi][j].y;
+      if (c + 2 < a.d) o[2] = acc[gi][j].z;
+      if (c + 3 < a.d) o[3] = acc[gi][j].w;
     }
   }
+  __syncthreads();
+  // the chunk's part: the four warps' states merged in order
+  float* dst = a.part + (((size_t)slot * a.hkv + h) * a.n_chunks + chunk) * stride;
+  float* ml_s = p_s + 2 * kDecodeWarps * kDecodeMaxG;
+  zp_decode_merge_parts(kv_s, stride, kDecodeWarps, a.g, a.d, p_s, ml_s,
+                        [&](int idx, int, float acc_v) { dst[2 * a.g + idx] = acc_v; });
+  if (tid < 2 * a.g) dst[tid] = ml_s[tid];  // m, then l
+}
+
+// The merge kernel's body: block (kv head, slot) = blockIdx (x, y) merges
+// the parts of chunks 0 .. n_read - 1 and writes acc / max(l, 1e-30).
+__device__ __forceinline__ void zp_decode_merge(const ZpDecodeArgs& a, int n_read) {
+  __shared__ float scratch[2 * kDecodeMaxChunks * kDecodeMaxG + 2 * kDecodeMaxG];
+  const int h = blockIdx.x;
+  const int slot = blockIdx.y;
+  const int stride = a.g * (a.d + 2);
+  const float* parts = a.part + ((size_t)slot * a.hkv + h) * a.n_chunks * stride;
+  float* ml_s = scratch + 2 * kDecodeMaxChunks * kDecodeMaxG;
+  float* o = a.out + ((size_t)slot * a.hkv + h) * a.g * a.d;
+  zp_decode_merge_parts(parts, stride, n_read, a.g, a.d, scratch, ml_s,
+                        [&](int idx, int gi, float acc_v) {
+                          o[idx] = acc_v / fmaxf(ml_s[a.g + gi], 1e-30f);
+                        });
+}
+
+using ZpDecodeChunkKernel = void (*)(ZpDecodeArgs);
+using ZpDecodeMergeKernel = void (*)(ZpDecodeArgs);
+
+// The chunk kernel's instantiations, indexed [log2 G][DPL - 1].
+#define ZP_DECODE_TABLE(kernel)                                                      \
+  {                                                                                  \
+    {kernel<1, 1>, kernel<1, 2>}, {kernel<2, 1>, kernel<2, 2>},                      \
+        {kernel<4, 1>, kernel<4, 2>}, {kernel<8, 1>, kernel<8, 2>}                   \
+  }
+
+// Launch a decode: the chunk kernel, then the merge kernel, on one stream.
+// `out` holds B * hq * d floats of output, then zp_decode_workspace() floats
+// of parts.
+static int zp_decode_launch(const ZpDecodeChunkKernel (&table)[4][2], ZpDecodeMergeKernel merge,
+                            const void* q, const void* k_pool, const void* v_pool,
+                            const void* block_tables, const void* seq_lens, void* out,
+                            int batch, int hkv, int g, int d, int b, int mb, float scale,
+                            void* stream) {
+  if (g < 1 || g > kDecodeMaxG || d < 1 || d > kDecodeMaxD || b < 1 || hkv < 1 || mb < 0)
+    return (int)cudaErrorInvalidValue;
+  if (batch <= 0) return (int)cudaSuccess;
+  ZpDecodeArgs a;
+  a.q = (const float*)q;
+  a.k_pool = (const float*)k_pool;
+  a.v_pool = (const float*)v_pool;
+  a.block_tables = (const int*)block_tables;
+  a.seq_lens = (const int*)seq_lens;
+  a.out = (float*)out;
+  a.part = a.out + (size_t)batch * hkv * g * d;
+  a.hkv = hkv;
+  a.g = g;
+  a.d = d;
+  a.b = b;
+  a.mb = mb;
+  a.chunk_pages = zp_decode_chunk_pages(batch, hkv, b, mb);
+  a.n_chunks = zp_decode_n_chunks(mb, a.chunk_pages);
+  a.ld = (d + 3) & ~3;
+  const unsigned long long ptrs = (unsigned long long)q | (unsigned long long)k_pool |
+                                  (unsigned long long)v_pool;
+  a.vec = d % 4 == 0 && (ptrs & 15) == 0;
+  a.scale = scale;
+  const int lg = g <= 1 ? 0 : g <= 2 ? 1 : g <= 4 ? 2 : 3;
+  const int dpl = a.ld <= 128 ? 1 : 2;
+  const ZpDecodeChunkKernel kernel = table[lg][dpl - 1];
+  const size_t smem = zp_decode_smem_bytes(1 << lg, a.ld, a.chunk_pages);
+  cudaError_t err = zp_allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  kernel<<<dim3(a.n_chunks, hkv, batch), kDecodeThreads, smem, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  merge<<<dim3(hkv, batch), kDecodeThreads, 0, s>>>(a);
+  return (int)cudaGetLastError();
 }

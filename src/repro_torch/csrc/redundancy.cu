@@ -3,23 +3,53 @@
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/redundancy.py::lightning_redundancy.
 // For each request, kv head and page it L2-normalises the page's keys
-// (eps 1e-12), forms the b x b cosine matrix, zeroes the diagonal and every
-// row or column at a position >= seq_len, then zeroes per column the last
-// (newest) row whose similarity exceeds p_thresh, and writes the row sums
-// divided by b. Output (n, max_blocks * b, h), float32.
+// (k / max(||k||, 1e-12)), forms the b x b cosine matrix, zeroes the
+// diagonal and every row or column at a position >= seq_len, then zeroes
+// per column the last (newest) row whose similarity exceeds p_thresh, and
+// writes the row sums divided by b. Output (n, max_blocks * b, h), float32.
 //
-// One thread block per (page, kv head, request). Pages at or past seq_len
-// are written as zeros without reading their table entry, so -1 padding
-// is never dereferenced; key rows past seq_len are loaded as zeros and
-// masked, so stale or NaN pool data cannot reach an output.
+// Pages at or past seq_len are written as zeros without reading their
+// table entry, so -1 padding is never dereferenced; key rows past seq_len
+// and on a -1 entry are zero-filled by the copy, not read, so stale or NaN
+// pool data cannot reach an output. No atomics: two launches give the same
+// bits.
 //
 // What bounds it on the card: memory. Each live key element is read once;
-// the b x b products are 2*b flops per key element (32 at b = 16), well
-// under the H100's ridge point, and the output is b/d of the key bytes.
+// the distinct products are b - 1 per key at 2 d flops (32 flops a key
+// element at b = 16), under the H100's ridge point, and the output is b/d
+// of the key bytes. A block takes one page (grid: page, kv head, request)
+// and cuts its chain of dependent steps short:
+//   * the page's table entry is read once and its keys are staged by
+//     16-byte cp.async;
+//   * eight lanes share a key: its norm is their sum of squares and three
+//     shuffles, and each divides its own columns by it, in place, before
+//     any product (folding the norms into the products would round the
+//     cosines differently from the plain version's and could flip a
+//     > p_thresh test);
+//   * the matrix is symmetric and dot(a, b) == dot(b, a) when both run in
+//     the same order, so only 2 x 2 tiles of entries on and above the
+//     diagonal are formed (36 at b = 16), each by a pair of lanes over
+//     alternate float4 columns of d and one shuffle, and an entry above
+//     the diagonal is written to both halves: four 16-byte shared loads
+//     feed 16 FMAs, and key rows padded to 8 banks apart keep the loads
+//     free of bank conflicts;
+//   * the newest row above p_thresh of a column is a warp ballot, lane r
+//     voting for row r (a word of 32 rows at a time), 31 - clz of the
+//     highest non-empty word; the row sums are shuffle trees over the
+//     lanes of a row, in a fixed order.
+// What holds it back: a page is a chain of five short phases (table and
+// copy, norms, products, vote, row sums) joined by block barriers, so at
+// the serve's 64 pages the time is one chain, and at the long input's
+// 2048 pages the SMs run about one and a half waves of such chains; the
+// products load each key from shared memory once per tile of the matrix.
+// PERF.md has the times and the designs measured on the way.
 #include "common.cuh"
 
 namespace {
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kNormLanes = 8;  // lanes that share a key's norm
+constexpr int kPad = 8;        // floats of padding a key row: rows 8 banks apart
 
 __global__ void __launch_bounds__(kThreads)
 lightning_redundancy_kernel(const float* __restrict__ k_pool,      // (N, b, h, d)
@@ -27,72 +57,139 @@ lightning_redundancy_kernel(const float* __restrict__ k_pool,      // (N, b, h, 
                             const int* __restrict__ seq_lens,      // (n,)
                             float* __restrict__ out,               // (n, mb*b, h)
                             int h, int d, int b, int mb, float p_thresh) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* k_s = smem;                // b * ld, normalised keys
-  float* c_s = k_s + b * ld;        // b * (b + 1) similarities
-  float* n_s = c_s + b * (b + 1);   // b norms
-
+  extern __shared__ __align__(16) float smem[];
+  const int ld = d + kPad;
+  float* k_s = smem;                  // b x ld keys, normalised in place
+  float* c_s = k_s + (size_t)b * ld;  // b x (b + 1) cosines
   const int i = blockIdx.x;
   const int hh = blockIdx.y;
   const int ib = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
   const int seq_len = seq_lens[ib];
   float* o = out + ((size_t)ib * mb * b + (size_t)i * b) * h + hh;
 
   if (i * b >= seq_len) {  // dead page: every entry invalid, table entry unread
-    for (int r = tid; r < b; r += blockDim.x) o[(size_t)r * h] = 0.f;
+    for (int r = tid; r < b; r += kThreads) o[(size_t)r * h] = 0.f;
     return;
   }
   const int page = block_tables[(size_t)ib * mb + i];
   const int n_valid = page >= 0 ? min(b, seq_len - i * b) : 0;
-  for (int idx = tid; idx < b * d; idx += blockDim.x) {
-    const int t = idx / d;
-    const int dd = idx - t * d;
-    float kv = 0.f;
-    if (t < n_valid) kv = k_pool[(((size_t)page * b + t) * h + hh) * d + dd];
-    k_s[t * ld + dd] = kv;
+  const int d4 = d >> 2;
+  const float* src0 = k_pool + ((size_t)max(page, 0) * b * h + hh) * d;
+  auto copy = [&](int t, int c4) {
+    const bool ok = t < n_valid;
+    zp_cp_async16(k_s + t * ld + 4 * c4, ok ? src0 + (size_t)t * h * d + 4 * c4 : k_pool, ok);
+  };
+  if (kThreads % d4 == 0) {
+    const int c4 = tid % d4;
+    for (int t = tid / d4; t < b; t += kThreads / d4) copy(t, c4);
+  } else {
+    for (int idx = tid; idx < b * d4; idx += kThreads) copy(idx / d4, idx % d4);
   }
+  zp_cp_async_commit();
+  zp_cp_async_wait<0>();
   __syncthreads();
-  for (int t = warp; t < b; t += n_warps) {
+
+  // norms: kNormLanes lanes a key, kThreads / kNormLanes keys at a time
+  for (int t0 = 0; t0 < b; t0 += kThreads / kNormLanes) {
+    const int t = t0 + tid / kNormLanes;
+    float* x = k_s + min(t, b - 1) * ld;
     float ss = 0.f;
-    for (int dd = lane; dd < d; dd += 32) ss += k_s[t * ld + dd] * k_s[t * ld + dd];
-    ss = zp_warp_sum(ss);
-    if (lane == 0) n_s[t] = fmaxf(sqrtf(ss), 1e-12f);
-  }
-  __syncthreads();
-  for (int idx = tid; idx < b * d; idx += blockDim.x) {
-    const int t = idx / d;
-    const int dd = idx - t * d;
-    k_s[t * ld + dd] = k_s[t * ld + dd] / n_s[t];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < b * b; idx += blockDim.x) {
-    const int r = idx / b;
-    const int c = idx - r * b;
-    float s = 0.f;
-    if (r < n_valid && c < n_valid && r != c) {
-      const float* kr = k_s + r * ld;
-      const float* kc = k_s + c * ld;
-      for (int dd = 0; dd < d; ++dd) s += kr[dd] * kc[dd];
+    for (int c4 = tid % kNormLanes; c4 < d4; c4 += kNormLanes) {
+      const float4 v = *reinterpret_cast<const float4*>(x + 4 * c4);
+      ss = zp_dot4(v, v, ss);
     }
-    c_s[r * (b + 1) + c] = s;
+#pragma unroll
+    for (int off = kNormLanes / 2; off > 0; off >>= 1)
+      ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, off));
+    const float nrm = fmaxf(sqrtf(ss), 1e-12f);
+    if (t < b) {
+      for (int c4 = tid % kNormLanes; c4 < d4; c4 += kNormLanes) {
+        float4 v = *reinterpret_cast<const float4*>(x + 4 * c4);
+        v.x = v.x / nrm;
+        v.y = v.y / nrm;
+        v.z = v.z / nrm;
+        v.w = v.w / nrm;
+        *reinterpret_cast<float4*>(x + 4 * c4) = v;
+      }
+    }
   }
   __syncthreads();
-  for (int c = tid; c < b; c += blockDim.x) {  // newest row above p per column
-    int last = -1;
-    for (int r = 0; r < b; ++r)
-      if (c_s[r * (b + 1) + c] > p_thresh) last = r;
-    if (last >= 0) c_s[last * (b + 1) + c] = 0.f;
+
+  // products: 2 x 2 blocks of entries (rows 2R, 2R + 1 by columns 2C,
+  // 2C + 1, R <= C), block q = C (C + 1) / 2 + R, a pair of lanes a block,
+  // each over alternate float4 columns of d, then one shuffle; entries
+  // above the diagonal are written to both halves, the diagonal is zero
+  for (int t = tid; t < b; t += kThreads) c_s[t * (b + 1) + t] = 0.f;
+  const int nb2 = (b + 1) / 2;
+  const int n_blocks = nb2 * (nb2 + 1) / 2;
+  for (int base = 0; base < 2 * n_blocks; base += kThreads) {  // uniform: shuffles below
+    const int q = (base + tid) >> 1;
+    const int half = tid & 1;
+    int C = (int)((sqrtf(8.f * (float)q + 1.f) - 1.f) * 0.5f);
+    while (C * (C + 1) / 2 > q) --C;
+    while ((C + 1) * (C + 2) / 2 <= q) ++C;
+    const int R = q - C * (C + 1) / 2;
+    const float* a0 = k_s + min(2 * R, b - 1) * ld;
+    const float* a1 = k_s + min(2 * R + 1, b - 1) * ld;
+    const float* b0 = k_s + min(2 * C, b - 1) * ld;
+    const float* b1 = k_s + min(2 * C + 1, b - 1) * ld;
+    float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    if (q < n_blocks) {
+      for (int c4 = half; c4 < d4; c4 += 2) {
+        const float4 x0 = *reinterpret_cast<const float4*>(a0 + 4 * c4);
+        const float4 x1 = *reinterpret_cast<const float4*>(a1 + 4 * c4);
+        const float4 y0 = *reinterpret_cast<const float4*>(b0 + 4 * c4);
+        const float4 y1 = *reinterpret_cast<const float4*>(b1 + 4 * c4);
+        acc[0][0] = zp_dot4(x0, y0, acc[0][0]);
+        acc[0][1] = zp_dot4(x0, y1, acc[0][1]);
+        acc[1][0] = zp_dot4(x1, y0, acc[1][0]);
+        acc[1][1] = zp_dot4(x1, y1, acc[1][1]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const float dot = __fadd_rn(acc[u][v], __shfl_xor_sync(0xffffffffu, acc[u][v], 1));
+        const int r = 2 * R + u;
+        const int c = 2 * C + v;
+        if (q < n_blocks && half == 0 && r < c && c < b) {
+          const float x = r < n_valid && c < n_valid ? dot : 0.f;
+          c_s[r * (b + 1) + c] = x;
+          c_s[c * (b + 1) + r] = x;
+        }
+      }
   }
   __syncthreads();
-  for (int r = tid; r < b; r += blockDim.x) {
+
+#pragma unroll 4
+  for (int c = warp; c < b; c += kWarps) {  // newest row above p_thresh, per column
+    int newest = -1;
+    for (int r0 = 0; r0 < b; r0 += 32) {
+      const int r = r0 + lane;
+      const unsigned vote = __ballot_sync(0xffffffffu, r < b && c_s[r * (b + 1) + c] > p_thresh);
+      if (vote != 0u) newest = r0 + 31 - __clz(vote);
+    }
+    if (lane == 0 && newest >= 0) c_s[newest * (b + 1) + c] = 0.f;
+  }
+  __syncthreads();
+
+  // row sums: lpr lanes a row (b rounded up to a power of two, at most
+  // 32), each over columns lane % lpr + lpr k in order, then a shuffle tree
+  int lpr = 1;
+  while (lpr < b && lpr < 32) lpr <<= 1;
+#pragma unroll 2
+  for (int r0 = warp * (32 / lpr); r0 < b; r0 += kThreads / lpr) {
+    const int r = r0 + lane / lpr;
     float sum = 0.f;
-    for (int c = 0; c < b; ++c) sum += c_s[r * (b + 1) + c];
-    o[(size_t)r * h] = sum / (float)b;
+    if (r < b)
+      for (int c = lane % lpr; c < b; c += lpr) sum = __fadd_rn(sum, c_s[r * (b + 1) + c]);
+    for (int off = lpr / 2; off > 0; off >>= 1)
+      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+    if (lane % lpr == 0 && r < b) o[(size_t)r * h] = sum / (float)b;
   }
 }
 }  // namespace
@@ -101,12 +198,13 @@ extern "C" int lightning_redundancy_launch(const void* k_pool, const void* block
                                            const void* seq_lens, void* out, int n, int h,
                                            int d, int b, int mb, float p_thresh,
                                            void* stream) {
-  const size_t smem = sizeof(float) * ((size_t)b * (d + 1) + (size_t)b * (b + 1) + b);
+  if (d % 4 != 0 || b < 1) return (int)cudaErrorInvalidValue;
+  if ((long long)n * h * mb == 0) return (int)cudaSuccess;
+  const size_t smem = sizeof(float) * ((size_t)b * (d + kPad) + (size_t)b * (b + 1));
   cudaError_t err = zp_allow_smem(lightning_redundancy_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(mb, h, n);
-  lightning_redundancy_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)k_pool, (const int*)block_tables, (const int*)seq_lens, (float*)out, h,
-      d, b, mb, p_thresh);
+  lightning_redundancy_kernel<<<dim3(mb, h, n), kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)k_pool, (const int*)block_tables, (const int*)seq_lens, (float*)out, h, d, b,
+      mb, p_thresh);
   return (int)cudaGetLastError();
 }

@@ -59,10 +59,14 @@ _ARGTYPES = {
     "flash_redundancy_launch":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "flash_redundancy_workspace": [_I, _I, _I, _I],
+    "ragged_paged_attention_workspace": [_I, _I, _I, _I, _I, _I],
+    "paged_attention_workspace": [_I, _I, _I, _I, _I, _I],
     "compaction_launch":
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
-_RESTYPES = {"flash_redundancy_workspace": ctypes.c_longlong}
+_RESTYPES = {name: ctypes.c_longlong for name in (
+    "flash_redundancy_workspace", "ragged_paged_attention_workspace",
+    "paged_attention_workspace")}
 
 
 def count_launch(name: str) -> None:

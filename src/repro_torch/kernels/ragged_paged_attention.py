@@ -35,13 +35,16 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, block_tables,
     """Launch ``csrc/ragged_paged_attention.cu`` on the current stream."""
     B, hkv, g, d, b, mb = decode_args(NAME, q, k_pages, v_pages,
                                       block_tables, seq_lens)
-    out = torch.empty_like(q)
     lib = native.library(NAME)
+    # one buffer: the output, then the chunks' parts that the merge reads
+    size = q.numel()
+    extra = lib.ragged_paged_attention_workspace(B, hkv, g, d, b, mb)
+    buf = torch.empty(size + extra, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.ragged_paged_attention_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            block_tables.data_ptr(), seq_lens.data_ptr(), buf.data_ptr(),
             B, hkv, g, d, b, mb, 1.0 / math.sqrt(d), stream)
     native.check(NAME, lib, code)
-    return out
+    return buf[:size].view(q.shape)

@@ -81,7 +81,10 @@ def _launch(name, launch, k_pages, block_tables, seq_lens, p_thresh,
 
 def lightning_redundancy_cuda(k_pages, block_tables, seq_lens, *,
                               p_thresh=0.8):
-    """Launch ``csrc/redundancy.cu`` on the current stream."""
+    """Launch ``csrc/redundancy.cu`` on the current stream. Needs
+    ``d % 4 == 0`` (16-byte copies)."""
+    d = k_pages.shape[-1]
+    require(d % 4 == 0, NAME, f"head_dim {d}: needs a multiple of 4")
     return _launch(NAME, "lightning_redundancy_launch", k_pages,
                    block_tables, seq_lens, p_thresh)
 

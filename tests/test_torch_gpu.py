@@ -242,3 +242,85 @@ def _to(t, dev):
     if isinstance(t, list):
         return [_to(v, dev) for v in t]
     return t.to(dev)
+
+
+def _decode_case(seed, lens, mb, hq=32, hkv=8, d=128, b=16):
+    """A decode input at Qwen3-8B heads: -1 padded tables, a NaN page 0
+    and NaN stale tails past each slot's seq_len."""
+    rng = np.random.default_rng(seed)
+    n_pages = sum(-(-s // b) for s in lens) + 2
+    k = rng.normal(size=(n_pages, b, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(n_pages, b, hkv, d)).astype(np.float32)
+    bt = np.full((len(lens), mb), -1, np.int32)
+    free = list(rng.permutation(np.arange(1, n_pages)))
+    for i, s in enumerate(lens):
+        for j in range(-(-s // b)):
+            bt[i, j] = free.pop()
+        if s % b:
+            k[bt[i, s // b], s % b:] = v[bt[i, s // b], s % b:] = np.nan
+    k[0] = v[0] = np.nan
+    q = rng.normal(size=(len(lens), hq, d)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (q, k, v, bt)] + [
+        torch.tensor(lens, dtype=torch.int32)]
+
+
+LONG_DECODE_LENS = [2048, 1999, 1536, 1024, 777, 512, 300, 64] + [0] * 8
+
+
+@pytest.mark.parametrize("mb,lens", [
+    (8, [128, 1, 77, 0, 16, 100, 0, 5] * 16),  # 128 slots: one chunk a table
+    (128, LONG_DECODE_LENS),                  # chip_smoke.py's long input
+])
+def test_chunked_decode_matches_plain_and_ragged(cuda, mb, lens):
+    q, k, v, bt, sl = [x.to(cuda) for x in _decode_case(mb, lens, mb)]
+    before = dict(ops.launch_counts)
+    dense = ops.paged_decode_attention(q, k, v, bt, sl)
+    ragged = ops.ragged_decode_attention(q, k, v, bt, sl)
+    torch.cuda.synchronize()
+    for name in (pa.NAME, rpa.NAME):
+        assert ops.launch_counts[name] == before[name] + 1
+    live = sl > 0
+    _close(dense[live], pa.paged_attention_plain(q, k, v, bt, sl)[live])
+    _close(ragged, rpa.ragged_paged_attention_plain(q, k, v, bt, sl))
+    assert torch.equal(dense[live], ragged[live])   # bit for bit
+    assert (dense[~live] == 0).all() and (ragged[~live] == 0).all()
+    assert torch.equal(dense, ops.paged_decode_attention(q, k, v, bt, sl))
+
+
+def _light_case(seed, lens, mb, b, hkv=8, d=128):
+    """Keys whose pages hold near-duplicates (the zero-out fires), a NaN
+    page 0 and NaN stale tails."""
+    rng = np.random.default_rng(seed)
+    n_pages = sum(-(-s // b) for s in lens) + 2
+    k = (0.35 * rng.normal(size=(n_pages, b, hkv, d))
+         + rng.normal(size=(n_pages, 1, hkv, d))).astype(np.float32)
+    bt = np.full((len(lens), mb), -1, np.int32)
+    free = list(rng.permutation(np.arange(1, n_pages)))
+    for i, s in enumerate(lens):
+        for j in range(-(-s // b)):
+            bt[i, j] = free.pop()
+        if s % b:
+            k[bt[i, s // b], s % b:] = np.nan
+    k[0] = np.nan
+    return [torch.from_numpy(a) for a in (k, bt)] + [
+        torch.tensor(lens, dtype=torch.int32)]
+
+
+@pytest.mark.parametrize("b,mb,lens", [
+    (8, 8, [64, 13, 0]),
+    (16, 4, [64, 64]),                   # the serve's compressions
+    (32, 3, [96, 40, 0, 7]),
+    (64, 2, [128, 70]),
+    (16, 128, [2048, 1999]),             # the long input of chip_smoke.py
+])
+def test_lightning_redundancy_matches_plain(cuda, b, mb, lens):
+    k, bt, sl = [x.to(cuda) for x in _light_case(b, lens, mb, b)]
+    before = ops.launch_counts[red.NAME]
+    got = ops.lightning_redundancy(k, bt, sl, p_thresh=0.8)
+    assert ops.launch_counts[red.NAME] == before + 1
+    want = red.lightning_redundancy_plain(k, bt, sl, p_thresh=0.8)
+    _close(got, want)
+    assert (red.lightning_redundancy_plain(k, bt, sl, p_thresh=2.0)
+            != want).any()                 # the zero-out fired
+    assert torch.equal(got, ops.lightning_redundancy(k, bt, sl,
+                                                     p_thresh=0.8))

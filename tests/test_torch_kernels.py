@@ -385,3 +385,121 @@ def test_compaction_cuda_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         cmp.compact_cuda(t(k), t(v), t(f), t(new_f), t(src), t(src_cache),
                          t(dest))
+
+
+# ----------------------------------------------------------------------
+# chunked decode (csrc/common.cuh): the decomposition the dense (B4) and
+# ragged (K1) kernels share
+
+NEG = np.float32(-1e30)
+
+
+def merge_states(states):
+    """Merge online-softmax states (m, l, acc) in order, skipping those
+    with m == -1e30 (no valid position): the merge of csrc/common.cuh."""
+    f32 = np.float32
+    M = np.full_like(states[0][0], NEG)
+    for m, _, _ in states:
+        M = np.maximum(M, m)
+    L = np.zeros_like(states[0][1])
+    A = np.zeros_like(states[0][2])
+    for m, l, acc in states:
+        keep = m != NEG
+        w = np.where(keep, np.exp(m - M), f32(0))
+        L = np.where(keep, L + l * w, L)
+        A = np.where(keep[:, None], A + acc * w[:, None], A)
+    return M, L, A
+
+
+def decode_by_chunks(q, kp, vp, bt, sl, chunk_pages, dense, rows=16,
+                     warps=4):
+    """Decode attention decomposed as csrc/common.cuh computes it, in
+    float32: each slot's table cut into chunks of ``chunk_pages`` entries,
+    a chunk walked in tiles of ``rows`` positions, each of ``warps`` warps
+    taking rows // warps rows of a tile with its own online-softmax state;
+    a chunk's warp states merged in warp order into the chunk's part, and
+    the parts merged in chunk order. ``dense`` walks every tile of every
+    chunk and reads a -1 entry as page 0 (masked); the ragged walk stops
+    at seq_len, reads no table entry past ceil(seq_len / b) and merges the
+    live chunks only."""
+    f32 = np.float32
+    B, hq, d = q.shape
+    _, b, hkv, _ = kp.shape
+    g = hq // hkv
+    mb = bt.shape[1]
+    wr = rows // warps
+    n_chunks = max(1, -(-mb // chunk_pages))
+    scale = f32(1.0 / np.sqrt(d))
+    out = np.zeros((B, hq, d), f32)
+    for i in range(B):
+        L = max(int(sl[i]), 0)
+        for h in range(hkv):
+            qh = q[i, h * g:(h + 1) * g].astype(f32)
+            parts = []
+            for c in range(n_chunks):
+                e0, e1 = c * chunk_pages, min((c + 1) * chunk_pages, mb)
+                pos0, n_pos = e0 * b, max(e1 - e0, 0) * b
+                if not dense:
+                    if pos0 >= L:
+                        break                 # a dead chunk: not walked
+                    n_pos = min(n_pos, L - pos0)
+                n_read = e1 - e0 if dense else min(e1, -(-L // b)) - e0
+                st = [[np.full(g, NEG, f32), np.zeros(g, f32),
+                       np.zeros((g, d), f32)] for _ in range(warps)]
+                for t0 in range(0, n_pos, rows):
+                    for w in range(warps):
+                        K = np.zeros((wr, d), f32)
+                        V = np.zeros((wr, d), f32)
+                        valid = np.zeros(wr, bool)
+                        for r in range(wr):
+                            rel = t0 + w * wr + r
+                            if rel >= n_pos:
+                                continue
+                            j = rel // b
+                            e = int(bt[i, e0 + j]) if j < n_read else -1
+                            valid[r] = pos0 + rel < L and e >= 0
+                            if dense or valid[r]:
+                                K[r] = kp[max(e, 0), rel % b, h]
+                                V[r] = vp[max(e, 0), rel % b, h]
+                        m, l, acc = st[w]
+                        with np.errstate(invalid="ignore"):
+                            s = (qh @ K.T) * scale                  # (g, wr)
+                        s = np.where(valid[None], s, NEG)
+                        m_new = np.maximum(m, s.max(1))
+                        corr = np.exp(m - m_new)
+                        p = np.where(valid[None], np.exp(s - m_new[:, None]),
+                                     f32(0))
+                        vz = np.where(valid[:, None], V, f32(0))
+                        st[w] = [m_new, l * corr + p.sum(1),
+                                 acc * corr[:, None] + p @ vz]
+                parts.append(merge_states(st))
+            if parts:                         # else seq_len == 0: zeros
+                _, tot_l, tot = merge_states(parts)
+                out[i, h * g:(h + 1) * g] = \
+                    tot / np.maximum(tot_l, f32(1e-30))[:, None]
+    return out
+
+
+@pytest.mark.parametrize("chunk_pages", [1, 2, 4, 6])
+@pytest.mark.parametrize("mix", range(len(LENGTH_MIXES)))
+def test_decode_by_chunks_matches_pallas_and_walks_agree(chunk_pages, mix):
+    """The chunked decode of the CUDA kernels equals the JAX package's
+    dense decode, and its dense and ragged walks give the same bits on
+    live rows (NaN page 0, NaN stale tails, seq_len == 0 rows), for chunks
+    of 1, 2 and 4 table entries and one chunk over the whole table."""
+    lens = LENGTH_MIXES[mix]
+    q, kp, vp, bt, sl = make_case(8, 2, lens, seed=70 + mix, poison=True)
+    _, kc, vc, _, _ = make_case(8, 2, lens, seed=70 + mix)
+    want = np.asarray(jops.paged_decode_attention(
+        q, kc, vc, bt, sl, backend="pallas-interpret"))
+    dense = decode_by_chunks(q, kp, vp, bt, sl, chunk_pages, dense=True)
+    ragged = decode_by_chunks(q, kp, vp, bt, sl, chunk_pages, dense=False)
+    assert np.isfinite(dense).all() and np.isfinite(ragged).all()
+    live = sl > 0
+    np.testing.assert_allclose(dense[live], want[live], rtol=RTOL, atol=ATOL)
+    assert np.array_equal(dense[live], ragged[live])
+    assert np.all(dense[~live] == 0) and np.all(ragged[~live] == 0)
+    np.testing.assert_allclose(
+        ragged, ops.ragged_decode_attention(t(q), t(kp), t(vp), t(bt),
+                                            t(sl)).numpy(),
+        rtol=RTOL, atol=ATOL)

@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Time two versions of the port's flash-redundancy (B5) and window-logits
-(K2) kernels on one NVIDIA card, in turns.
+"""Time two versions of some of the port's kernels on one NVIDIA card, in
+turns.
 
     git archive HEAD src/repro_torch | tar -x -C <dir>   # the older version
-    python3 tools/torch_kernel_ab.py --before <dir>/src
+    python3 tools/torch_kernel_ab.py --before <dir>/src \
+        --kernels lightning_redundancy paged_attention ragged_paged_attention
 
 Runs four worker processes one after another -- before, after, after,
 before -- each importing ``repro_torch`` from its own copy of a source
 tree (``--before``, and this checkout's ``src`` for "after") in a
 temporary directory, so each builds its own kernels there. Each worker
-runs ``chip_smoke.time_flash_and_score`` at the serve's shape (2 requests
-of 64 entries, table width 4) and at the long input (table width 128,
-seq_lens 2048 and 1999): the checks against the plain versions, then
-event, device and host ms of each kernel and its library yardstick, with
-the bound. Prints one line per kernel and turn and writes
-``chiprun_out/kernel_ab.json``. Needs a card; imports no JAX.
+runs ``chip_smoke.time_at`` on the named kernels (any of
+``chip_smoke.TIMED_AT``) at a serve's shape (K2, K3, B5: 2 requests of 64
+entries, table width 4; K1, B4: 16 slots, 8 live at 55-64 entries,
+table width 32) and at the long inputs (table width 128; seq_lens 2048
+and 1999, or ``chip_smoke.LONG_DECODE_LENS``): the checks against the
+plain versions, then event, device and host ms of each kernel and its
+library yardstick, with the bound. Prints one line per kernel and turn
+and writes ``chiprun_out/kernel_ab.json``. Needs a card; imports no JAX.
 """
 from __future__ import annotations
 
@@ -31,11 +34,14 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
-INPUTS = {"serve": (4, [64, 64]),
-          "long": (chip_smoke.LONG_TABLE, chip_smoke.LONG_LENS)}
+#: label -> (table width, seq_lens) of K2, K3, B5 and of K1, B4
+INPUTS = {"serve": ((4, [64, 64]),
+                    (32, [64, 63, 62, 60, 59, 58, 56, 55] + [0] * 8)),
+          "long": ((chip_smoke.LONG_TABLE, chip_smoke.LONG_LENS),
+                   (chip_smoke.LONG_TABLE, chip_smoke.LONG_DECODE_LENS))}
 
 
-def worker(src):
+def worker(src, names):
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: no CUDA device")
@@ -50,10 +56,10 @@ def worker(src):
         from repro_torch.kernels import native
         native.build_all()
         dev = torch.device("cuda")
-        return {label: chip_smoke.time_flash_and_score(
+        return {label: chip_smoke.time_at(
                     torch, dev, get_config("qwen3-8b"), EngineOptions(),
-                    table, lens)
-                for label, (table, lens) in INPUTS.items()}
+                    names, comp, dec)
+                for label, (comp, dec) in INPUTS.items()}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -62,10 +68,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--before", required=True,
                     help="a src/ directory holding the older repro_torch")
+    ap.add_argument("--kernels", nargs="+", required=True,
+                    choices=chip_smoke.TIMED_AT, help="kernels to time")
     ap.add_argument("--worker", metavar="SRC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(worker(args.worker)))
+        print(json.dumps(worker(args.worker, args.kernels)))
         return 0
     card = chip_smoke.card_line()
     turns = [("before", args.before), ("after", str(ROOT / "src")),
@@ -73,7 +81,8 @@ def main(argv=None):
     results = []
     for version, src in turns:
         out = subprocess.run([sys.executable, __file__, "--before",
-                              args.before, "--worker", src],
+                              args.before, "--kernels", *args.kernels,
+                              "--worker", src],
                              capture_output=True, text=True, check=True,
                              timeout=900, env={**os.environ,
                                                "PYTHONPATH": ""})
@@ -81,7 +90,7 @@ def main(argv=None):
         results.append({"version": version, "inputs": recs})
         for label, by_name in recs.items():
             for name, r in by_name.items():
-                print(f"{version:6s} {name:16s} {label:5s} event "
+                print(f"{version:6s} {name:22s} {label:5s} event "
                       f"{r['ms']:.4f} device {r['device_ms']:.4f} host "
                       f"{r['host_ms']:.4f} ms | bound {r['bound_ms']:.5f} "
                       f"({r['bound_by']}) | library event "
