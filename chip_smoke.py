@@ -17,10 +17,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
      as the JAX package asserts ragged == dense), two launches of the
      dense decode, lightning and flash redundancy kernels giving the same
      bits, the redundancy zero-outs firing, and an in-place compaction
-     whose ranks overlap their sources beside a prefix-shared pair;
+     whose ranks overlap their sources beside a prefix-shared pair, bit for
+     bit at the engine's budget (k = 48) and at k = 1024;
   4. card vs CPU at Qwen3-8B widths and 2 layers: one paged prefill and a
      few decode steps (logits), the threefry sampling noise (bit for bit),
-     and greedy and seeded streams through the dense-decode / flash path;
+     greedy and seeded streams through the dense-decode / flash path, and
+     greedy streams at n_max = 33 (k = 512) with compression firing;
   5. the main serve at full width: ``Zipage.from_config("qwen3-8b")`` at
      the engine defaults (36 layers, fp32, random weights from a seed)
      serves greedy requests; compression must fire, every compression goes
@@ -34,10 +36,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      library call, CUDA-event time, device time (torch.profiler, the
      calls' CUDA kernels) and host time (event minus device). K2, K3 and
      B5 also at a long input (table width 128, seq_lens 2048 and 1999),
+     B6 at the same table compacted to 64 blocks (k = 1024, 36 layers),
      K1 and B4 at a long decode input (16 slots at table width 128, 8 of
      them live at 64-2048 entries), each held against its plain version
-     there first (K3, B4, B5 two launches bit for bit, B4 against K1 bit
-     for bit on live rows);
+     there first (K3, B4, B5, B6 two launches bit for bit, B6 against
+     plain bit for bit, B4 against K1 bit for bit on live rows);
   7. a profiled window of decode steps of the main serve: device-busy
      share of wall time and kernel time by group.
 
@@ -72,6 +75,12 @@ NEW_TOKENS = 128
 #: the long inputs of phase 6: table width and seq_lens of K2, K3 and B5,
 #: and seq_lens of K1 and B4 (8 live slots, 8 empty ones)
 LONG_TABLE, LONG_LENS = 128, [2048, 1999]
+#: B6's long input: the same table and lengths compacted to 64 blocks
+#: (k = 1024 at block 16, n_max = 65)
+LONG_BUDGET = 64
+#: phase 4's block cap: a budget of 32 blocks (k = 512 at block 16), above
+#: the 28 that a kernel staging a whole stripe in shared memory could take
+BIG_N_MAX = 33
 LONG_DECODE_LENS = [2048, 1999, 1536, 1024, 777, 512, 300, 64] + [0] * 8
 
 #: Qwen3's published thinking-mode sampling (the model card's advice)
@@ -334,74 +343,93 @@ def phase_kernels_alg34(torch, dev, cfg, opts, rng, decode_mixes,
     return errs
 
 
-def compaction_case(torch, dev, cfg, opts, rng, L=4, width=8):
-    """A compression batch as the block manager plans it, at the serve's
-    widths: six requests compacting in place (destination = their first
-    budget blocks, so ranks overlap their sources), a pair sharing a
-    two-block prefix that compact copy-on-write (fresh blocks for the
-    shared part), and two padding rows writing the sink page."""
+def compaction_case(torch, dev, cfg, opts, rng, lens, kinds, width, budget,
+                    L):
+    """A compression batch as the scheduler plans it, at Qwen3-8B heads and
+    ``L`` layers: request i holds ``lens[i]`` entries on a ``width``-wide
+    table and is compacted to ``budget`` blocks as ``kinds[i]`` says:
+    "in_place" (destination = its first ``budget`` blocks, so ranks overlap
+    their sources), "cow" (copy-on-write over a two-block prefix that every
+    "cow" request shares: two fresh blocks, then its own blocks 2 ..
+    budget - 1) or "pad" (a padding row writing the sink page). Random
+    pools, survivors and scores from ``rng``; the sink page last. Returns
+    the arguments of ``compact_cuda``."""
     import numpy as np
-    b, N = opts.block_size, opts.n_total_blocks
-    h, d = cfg.num_kv_heads, cfg.head_dim
-    budget = opts.n_max - 1
-    kk, T = budget * b, width * b
-    pools = {"k": torch.randn(L, N + 1, b, h, d, device=dev),
-             "v": torch.randn(L, N + 1, b, h, d, device=dev),
-             "f": torch.rand(L, N + 1, b, h, device=dev)}
+    b, h, d = opts.block_size, cfg.num_kv_heads, cfg.head_dim
+    n, kk = len(lens), budget * b
+    nbs = [-(-s // b) for s in lens]
+    N = 1 + sum(nbs) + 2 * kinds.count("cow")
     free = [int(x) for x in rng.permutation(np.arange(1, N))]
-    n_req = 10
-    src = np.full((n_req, width), -1, np.int32)
-    dest = np.full((n_req, budget), N, np.int64)        # sink by default
-    seq = np.zeros(n_req, np.int64)
-    for i in range(6):
-        nb = int(rng.integers(budget + 1, width + 1))
-        src[i, :nb] = [free.pop() for _ in range(nb)]
-        dest[i] = src[i, :budget]
-        seq[i] = nb * b
-    shared = [free.pop(), free.pop()]
-    for i in (6, 7):
-        nb = int(rng.integers(budget + 1, width + 1))
-        src[i, :nb] = shared + [free.pop() for _ in range(nb - 2)]
-        dest[i] = [free.pop(), free.pop()] + list(src[i, 2:budget])
-        seq[i] = nb * b
+    prefix = [free.pop(), free.pop()] if "cow" in kinds else []
+    src = np.full((n, width), -1, np.int32)
+    dest = np.full((n, budget), N, np.int64)        # the sink by default
+    for i, kind in enumerate(kinds):
+        if kind == "pad":
+            continue
+        own = prefix if kind == "cow" else []
+        src[i, :nbs[i]] = own + [free.pop() for _ in range(nbs[i] - len(own))]
+        dest[i] = src[i, :budget] if kind == "in_place" else \
+            [free.pop(), free.pop()] + list(src[i, 2:budget])
     dest_flat = np.repeat(dest, b, axis=1) * b + np.tile(np.arange(b), budget)
-    src_cache = np.zeros((L, n_req, h, kk), np.int64)
-    for l in range(L):
-        for i in range(n_req):
-            for hh in range(h):
-                n_live = max(int(seq[i]), kk)
-                src_cache[l, i, hh] = np.sort(rng.choice(n_live, kk,
-                                                         replace=False))
-    new_f = torch.rand(L, n_req, T, h, device=dev)
-    return (pools, new_f, torch.from_numpy(src).to(dev),
+    # survivors per (layer, request, head): kk ascending positions below
+    # the request's length
+    T = max(max(lens), kk)
+    keys = rng.random((L, n, h, T)) + (np.arange(T) >= np.maximum(
+        lens, kk)[None, :, None, None])
+    src_cache = np.sort(np.argsort(keys, axis=-1)[..., :kk], axis=-1)
+    gen = torch.Generator(dev).manual_seed(int(rng.integers(2**31)))
+    pools = [torch.randn(L, N + 1, b, h, d, device=dev, generator=gen)
+             for _ in range(2)]
+    pools.append(torch.rand(L, N + 1, b, h, device=dev, generator=gen))
+    new_f = torch.rand(L, n, width * b, h, device=dev, generator=gen)
+    return (*pools, new_f, torch.from_numpy(src).to(dev),
             torch.from_numpy(src_cache).to(dev),
             torch.from_numpy(dest_flat).to(dev))
 
 
 def check_compaction(torch, dev, cfg, opts, rng):
-    from repro_torch.kernels import compaction as cmp
-    pools, new_f, src, src_cache, dest_flat = compaction_case(
-        torch, dev, cfg, opts, rng)
-    N = opts.n_total_blocks
-    want = {n: x.clone() for n, x in pools.items()}
-    cmp.compact_plain(want["k"], want["v"], want["f"], new_f, src, src_cache,
-                      dest_flat)
-    cmp.compact_cuda(pools["k"], pools["v"], pools["f"], new_f, src,
-                     src_cache, dest_flat)
-    torch.cuda.synchronize()
-    for n in pools:                 # page N is the sink: garbage on both
-        got, ref = pools[n][:, :N], want[n][:, :N]
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"compaction: {n} pool not finite")
-        if not bool(torch.equal(got, ref)):
-            raise AssertionError(f"compaction: {n} pool differs from the "
-                                 "sequential plain version by "
-                                 f"{float((got - ref).abs().max()):.3e}")
-    log("kernels", f"{cmp.NAME}: {src.shape[0]} rows x {pools['k'].shape[0]} "
-        "layers (in place with overlapping ranks, a prefix-shared pair "
-        "copy-on-write, padding rows) equal to the sequential plain version "
-        "bit for bit, max_abs_err=0.000e+00 ok")
+    """B6 in place at the engine's budget (k = 48) and at LONG_BUDGET
+    blocks (k = 1024): six requests in place, a prefix-shared pair
+    copy-on-write and two padding rows, 4 layers."""
+    kinds = ["in_place"] * 6 + ["cow"] * 2 + ["pad"] * 2
+    for width, budget in ((8, opts.n_max - 1), (LONG_TABLE, LONG_BUDGET)):
+        lens = [int(x) * opts.block_size
+                for x in rng.integers(budget + 1, width + 1, 8)] + [0, 0]
+        args = compaction_case(torch, dev, cfg, opts, rng, lens, kinds,
+                               width, budget, L=4)
+        kk = budget * opts.block_size
+        check_compaction_at(torch, args, f"compaction[k={kk}]")
+        log("kernels", f"compaction: {len(lens)} rows x 4 layers at k={kk} "
+            "(in place with overlapping ranks, a prefix-shared pair "
+            "copy-on-write, padding rows) equal to the sequential plain "
+            "version bit for bit, and the same in two launches, "
+            "max_abs_err=0.000e+00 ok")
+        del args
+        torch.cuda.empty_cache()
     return 0.0
+
+
+def check_compaction_at(torch, args, label):
+    """B6 on ``args`` against its sequential plain version, and a second
+    launch against the first, bit for bit on every page but the sink."""
+    from repro_torch.kernels import compaction as cmp
+    want = [x.clone() for x in args[:3]]
+    cmp.compact_plain(*want, *args[3:])
+    runs = []
+    for _ in range(2):
+        got = [x.clone() for x in args[:3]]
+        cmp.compact_cuda(*got, *args[3:])
+        runs.append(got)
+    torch.cuda.synchronize()
+    for got, ref, what in ((runs[0], want, "the sequential plain version"),
+                           (runs[1], runs[0], "the first launch")):
+        for n, a, r in zip("kvf", got, ref):
+            a, r = a[:, :-1], r[:, :-1]     # the sink page: garbage on both
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{label}: {n} pool not finite")
+            if not bool(torch.equal(a, r)):
+                raise AssertionError(f"{label}: {n} pool differs from {what} "
+                                     f"by {float((a - r).abs().max()):.3e}")
 
 
 # ----------------------------------------------------------------------
@@ -466,6 +494,7 @@ def phase_card_vs_cpu(torch, dev, cfg):
         f"per output {', '.join(f'{e:.1e}' for e in errs)}")
     check_noise(torch, dev, small.vocab_size)
     check_streams(torch, dev, small, p_cpu, p_dev)
+    check_budget_streams(torch, dev, small, p_cpu, p_dev)
     del p_dev
     torch.cuda.empty_cache()
     return worst
@@ -524,6 +553,39 @@ def check_streams(torch, dev, small, p_cpu, p_dev):
                                  f"cpu {a.token_ids} card {b.token_ids}")
     log("card-vs-cpu", "dense decode + flash redundancy, 2 greedy and 2 "
         "seeded streams of 24 tokens: card == CPU ok")
+
+
+def check_budget_streams(torch, dev, small, p_cpu, p_dev):
+    """Greedy streams at ``n_max = BIG_N_MAX`` (a budget of 32 blocks,
+    k = 512), card against CPU: the prompts pass the cap, so compression
+    fires and each compaction moves 512 rows a (layer, request, head)."""
+    import numpy as np
+    from repro_torch.api import SamplingParams, Zipage
+
+    rng = np.random.default_rng(SEED + 6)
+    prompts = [[int(x) for x in rng.integers(0, small.vocab_size, n)]
+               for n in (560, 601)]
+    sp = SamplingParams(max_new_tokens=24)
+    knobs = dict(n_max=BIG_N_MAX, max_model_len=1024, max_batch=2)
+    outs, n_comp = {}, {}
+    for name, device, params in (("cpu", "cpu", p_cpu), ("card", dev, p_dev)):
+        z = Zipage(small, params, device=device, **knobs)
+        outs[name] = z.generate(prompts, sp)
+        n_comp[name] = [o.metrics.compression.n_compressions
+                        for o in outs[name]]
+        if min(n_comp[name]) == 0:
+            raise AssertionError(f"n_max={BIG_N_MAX} on {name}: a request "
+                                 f"never compressed ({n_comp[name]})")
+    for i, (a, b) in enumerate(zip(outs["cpu"], outs["card"])):
+        if a.token_ids != b.token_ids:
+            raise AssertionError(f"n_max={BIG_N_MAX} greedy stream {i} "
+                                 f"differs: cpu {a.token_ids} card "
+                                 f"{b.token_ids}")
+    k = (BIG_N_MAX - 1) * z.engine.opts.block_size
+    log("card-vs-cpu", f"n_max={BIG_N_MAX} (k={k}), "
+        f"prompts of {[len(p) for p in prompts]} tokens, 2 greedy streams "
+        f"of 24 tokens: card == CPU ok; compressions per request "
+        f"{n_comp['card']} (CPU {n_comp['cpu']})")
 
 
 def _tree_to(t, dev):
@@ -856,10 +918,6 @@ def phase_timing(torch, rec, rec34, launches, launches34, errs):
     def score_live(a):
         return _live_entries(a[2], a[3], a[1].shape[1])
 
-    def live_rows(a):  # a padding row writes only the sink page
-        dest, sink = a[6], a[0].shape[1] - 1
-        return int(((dest // a[0].shape[2]) != sink).any(1).sum())
-
     specs = [
         ("main", decode_spec(torch, "ragged_paged_attention",
                              pick(rec, "ragged_decode_attention",
@@ -875,7 +933,7 @@ def phase_timing(torch, rec, rec34, launches, launches34, errs):
                                   *pick(rec34, "flash_redundancy",
                                         comp_live))),
         ("alg34", compaction_spec(torch, pick(rec34, "compact",
-                                              live_rows)[0], live_rows)),
+                                              _live_rows)[0])),
     ]
     return [_row(torch, spec, per_serve, serve, errs) for serve, spec in specs]
 
@@ -980,16 +1038,24 @@ def redundancy_spec(torch, name, args, kw):
                 shapes={"n": n, "seq_lens": sl.tolist(), "table_width": mb})
 
 
-def compaction_spec(torch, args, live_rows):
+def _live_rows(a):
+    """Rows of a compaction call that write outside the sink page (a
+    padding row writes only there)."""
+    dest, sink = a[6], a[0].shape[1] - 1
+    return int(((dest // a[0].shape[2]) != sink).any(1).sum())
+
+
+def compaction_spec(torch, args):
     """B6 on ``args``. The library yardstick is one advanced-indexing
     gather and one ``index_copy_`` per pool. The timed calls move the
-    serve's pools again, after the serve is over."""
+    pools again in place (after the serve is over, for the serve's
+    input)."""
     from repro_torch.kernels import compaction as cmp
 
     kp, vp, fp, new_f, src_bt, src_cache, dest_flat = args
     L, N1, b, h, d = kp.shape
     n, kk = dest_flat.shape
-    n_rows = live_rows(args)
+    n_rows = _live_rows(args)
     moved = L * n_rows * h * kk
     nbytes = 4 * (2 * 2 * moved * d + 2 * moved) \
         + 4 * n_rows * (src_bt.shape[1] + kk) + 4 * L * n_rows * h * kk
@@ -1019,7 +1085,8 @@ def compaction_spec(torch, args, live_rows):
                 kernel=lambda: cmp.compact_cuda(*args),
                 plain=lambda: cmp.compact_plain(*args), library=library,
                 nbytes=nbytes, flops=0,
-                shapes={"layers": L, "n": n, "live_rows": n_rows, "k": kk})
+                shapes={"layers": L, "n": n, "live_rows": n_rows, "k": kk,
+                        "table_width": src_bt.shape[1]})
 
 
 def _row(torch, spec, per_serve, serve, errs):
@@ -1096,18 +1163,21 @@ def decode_input(torch, dev, cfg, opts, table=LONG_TABLE,
 
 
 #: kernels with an input for ``time_at``: K2, K3, B5 at ``long_input``,
-#: K1 and B4 at ``decode_input``
+#: K1 and B4 at ``decode_input``, B6 at ``compaction_case``
 TIMED_AT = ("paged_score", "lightning_redundancy", "flash_redundancy",
-            "ragged_paged_attention", "paged_attention")
+            "ragged_paged_attention", "paged_attention", "compaction")
 
 
 def time_at(torch, dev, cfg, opts, names, comp=(LONG_TABLE, LONG_LENS),
-            dec=(LONG_TABLE, LONG_DECODE_LENS)):
-    """The kernels ``names`` (of TIMED_AT) at ``long_input(*comp)`` and
-    ``decode_input(*dec)``: each held against its plain version at TOL
-    (K3, B4 and B5 also two launches bit for bit, K3's and B5's zero-outs
-    firing, B4 against K1 bit for bit on live rows), then timed like the
-    serve's rows. Returns {kernel name: record}."""
+            dec=(LONG_TABLE, LONG_DECODE_LENS), budget=LONG_BUDGET):
+    """The kernels ``names`` (of TIMED_AT) at ``long_input(*comp)``,
+    ``decode_input(*dec)`` and, for B6, ``comp`` compacted to ``budget``
+    blocks (one request in place, the others copy-on-write): each held
+    against its plain version (at TOL; B6 bit for bit; K3, B4, B5 and B6
+    also two launches bit for bit, K3's and B5's zero-outs firing, B4
+    against K1 bit for bit on live rows), then timed like the serve's rows.
+    Returns {kernel name: record}."""
+    import numpy as np
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ragged_paged_attention as rpa
     from repro_torch.kernels import redundancy as red
@@ -1148,16 +1218,28 @@ def time_at(torch, dev, cfg, opts, names, comp=(LONG_TABLE, LONG_LENS),
             if name in names:
                 specs[name] = decode_spec(torch, name, args)
         del dense, ragged
+    if "compaction" in names:
+        table, lens = comp
+        kinds = ["in_place"] + ["cow"] * (len(lens) - 1)
+        args = compaction_case(torch, dev, cfg, opts,
+                               np.random.default_rng(SEED + 5), lens, kinds,
+                               table, budget, L=cfg.num_layers)
+        check_compaction_at(torch, args,
+                            f"compaction[k={budget * opts.block_size}]")
+        errs["compaction"] = 0.0
+        specs["compaction"] = compaction_spec(torch, args)
+        torch.cuda.empty_cache()
     out = {}
     for name in names:
         spec = specs[name]
-        got = spec["kernel"]()
-        errs[name] = max_err(torch, got, spec["plain"](),
-                             f"{name}[{spec['shapes']['table_width']}]")
-        if name in (red.NAME, red.FLASH_NAME, pa.NAME) and not bool(
-                torch.equal(got, spec["kernel"]())):
-            raise AssertionError(f"{name}: two launches differ")
-        del got
+        if name != "compaction":    # B6 was held bit for bit above
+            got = spec["kernel"]()
+            errs[name] = max_err(torch, got, spec["plain"](),
+                                 f"{name}[{spec['shapes']['table_width']}]")
+            if name in (red.NAME, red.FLASH_NAME, pa.NAME) and not bool(
+                    torch.equal(got, spec["kernel"]())):
+                raise AssertionError(f"{name}: two launches differ")
+            del got
         t = times(torch, spec["kernel"], spec["library"])
         b_ms, b_by = bound(spec["nbytes"], spec["flops"])
         out[name] = {**t, "bound_ms": b_ms, "bound_by": b_by,
@@ -1175,8 +1257,8 @@ def time_at(torch, dev, cfg, opts, names, comp=(LONG_TABLE, LONG_LENS),
 
 
 def phase_long(torch, dev, cfg, opts, rows):
-    """K1, K2, K3, B4 and B5 at the long inputs; the records go into their
-    rows as ``long_input``."""
+    """Every kernel at its long input; the records go into their rows as
+    ``long_input``."""
     by_name = {r["name"]: r for r in rows}
     for name, rec in time_at(torch, dev, cfg, opts, TIMED_AT).items():
         by_name[name]["long_input"] = rec

@@ -200,6 +200,11 @@ __device__ __forceinline__ void zp_cp_async4(float* smem, const float* gmem, boo
                : "memory");
 }
 
+__device__ __forceinline__ void zp_cp_async8(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
 // Copy rows 0 .. rows - 1 of two row sets (K and V, or q alone with dst1
 // null) into shared memory with row stride a.ld, by 16-byte copies when
 // a.vec, else 4-byte ones (the columns d .. ld - 1 zero-filled). src(t)

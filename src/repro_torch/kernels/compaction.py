@@ -12,9 +12,17 @@ sink page last; new_f (L, n, T, h) the post-global scores in cache order;
 src_bt (n, mb) int32 source tables (-1 padded); src_cache (L, n, h, k)
 survivor cache positions per head, in destination order; dest_flat (n, k)
 destination flat slots (sink-page slots where nothing is to be written).
-Precondition: no request writes a block another request of the call reads
-(the block manager's copy-on-write compacts a shared source into fresh
-blocks).
+
+Precondition, which the engine's compression planning guarantees
+(``core/scheduler.py``, ``plan_compression``: ``dest = r.blocks[:nb]``, or
+``fresh + r.blocks[n_prefix:][:nb - len(fresh)]``, which keeps block i at
+index i): rank j's destination is a fresh slot or cache position j of its
+own table; no request writes a block another request of the call reads
+(copy-on-write compacts a shared or cached source into fresh blocks); and
+each (layer, request, head) row of src_cache is ascending, so rank j reads
+a position >= j. The kernel then writes a chunk of ranks as soon as the
+reads of that chunk and of the earlier ones are done, and needs no buffer
+the size of the budget.
 """
 from __future__ import annotations
 
@@ -60,7 +68,9 @@ def compact_plain(k_pool, v_pool, f_pool, new_f, src_bt, src_cache,
 def compact_cuda(k_pool, v_pool, f_pool, new_f, src_bt, src_cache,
                  dest_flat):
     """Launch ``csrc/compaction.cu`` on the current stream (one launch for
-    all layers)."""
+    all layers). Any budget k is taken; the kernel moves rows by 16-byte
+    copies, so head_dim must be a multiple of 4 and the pools 16-byte
+    aligned."""
     dev = k_pool.device
     for arg, t in (("k_pool", k_pool), ("v_pool", v_pool),
                    ("f_pool", f_pool), ("new_f", new_f)):
@@ -68,10 +78,13 @@ def compact_cuda(k_pool, v_pool, f_pool, new_f, src_bt, src_cache,
     cuda_tensor(NAME, "src_bt", src_bt, torch.int32, dev)
     require(src_cache.is_cuda and dest_flat.is_cuda, NAME,
             "src_cache and dest_flat must be CUDA tensors")
-    src_cache = src_cache.to(torch.int32).contiguous()
-    dest_flat = dest_flat.to(torch.int32).contiguous()
+    src_cache = src_cache.to(torch.int64).contiguous()
+    dest_flat = dest_flat.to(torch.int64).contiguous()
     L, N1, b, h, d = k_pool.shape
     require(v_pool.shape == k_pool.shape, NAME, "k/v pool shapes differ")
+    require(d % 4 == 0, NAME, f"head_dim {d} must be a multiple of 4")
+    require(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
+            NAME, "k_pool and v_pool must be 16-byte aligned")
     require(tuple(f_pool.shape) == (L, N1, b, h), NAME,
             f"f_pool {tuple(f_pool.shape)} vs k_pool {tuple(k_pool.shape)}")
     n, mb = src_bt.shape

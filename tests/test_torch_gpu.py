@@ -158,24 +158,46 @@ def test_flash_and_score_match_plain_on_wide_tables(cuda, mb, lens, shape):
     _close(logits, ps.paged_score_logits_plain(qw, k, bt, sl))
 
 
-def test_compaction_matches_sequential_plain(cuda):
+def _compaction_layout(rng, N, mb, budget):
+    """Source tables and destination blocks of four requests, as the
+    scheduler plans them: 0 and 1 share their first source block, so each
+    compacts it into a fresh block and the rest in place (copy-on-write);
+    2 compacts wholly in place, so ranks overlap their sources; 3 is a
+    padding row (destination: the sink page N)."""
+    free = [int(x) for x in rng.permutation(np.arange(1, N))]
+    shared = free.pop()
+    src = np.full((4, mb), -1, np.int32)
+    src[0] = [shared] + [free.pop() for _ in range(mb - 1)]
+    src[1] = [shared] + [free.pop() for _ in range(mb - 1)]
+    src[2] = [free.pop() for _ in range(mb)]
+    dest = np.full((4, budget), N)
+    dest[0] = [free.pop()] + list(src[0, 1:budget])
+    dest[1] = [free.pop()] + list(src[1, 1:budget])
+    dest[2] = src[2, :budget]
+    return src, dest
+
+
+@pytest.mark.parametrize("budget,d", [(3, 128), (64, 128), (3, 32)])
+def test_compaction_matches_sequential_plain(cuda, budget, d):
     """In place with overlapping ranks, a prefix-shared pair compacting
-    copy-on-write, and a padding row, at Qwen3-8B head widths."""
+    copy-on-write, and a padding row, at Qwen3-8B head widths (k = 48 and
+    k = 1024) and tiny-lm's head_dim, bit for bit on every page but the
+    sink."""
     rng = np.random.default_rng(3)
-    L, N, b, h, d, mb, budget = 3, 40, 16, 8, 128, 4, 3
+    L, b, h = 3, 16, 8
+    mb = budget + 1
+    N = 3 * mb + 4
     T, kk = mb * b, budget * b
     pools = {n: torch.from_numpy(rng.normal(size=shape).astype(np.float32))
              for n, shape in (("k", (L, N + 1, b, h, d)),
                               ("v", (L, N + 1, b, h, d)),
                               ("f", (L, N + 1, b, h)))}
-    src = torch.tensor([[3, 7, 1, 9], [3, 12, 5, 14], [2, 6, 8, 10],
-                        [-1, -1, -1, -1]], dtype=torch.int32)
-    dest = np.array([[20, 7, 1], [17, 12, 5], [2, 6, 8], [N, N, N]])
+    src, dest = _compaction_layout(rng, N, mb, budget)
+    src = torch.from_numpy(src)
     dest_flat = torch.from_numpy(np.repeat(dest, b, axis=1) * b
                                  + np.tile(np.arange(b), budget))
-    src_cache = torch.from_numpy(np.stack([np.stack([np.stack([
-        np.sort(rng.choice(T, kk, replace=False)) for _ in range(h)])
-        for _ in range(4)]) for _ in range(L)]))
+    src_cache = torch.from_numpy(np.sort(np.argsort(
+        rng.random((L, 4, h, T)), axis=-1)[..., :kk], axis=-1))
     new_f = torch.from_numpy(rng.uniform(size=(L, 4, T, h)).astype(
         np.float32))
     want = {n: x.clone() for n, x in pools.items()}
@@ -189,6 +211,20 @@ def test_compaction_matches_sequential_plain(cuda):
     assert ops.launch_counts[cmp.NAME] == before + 1
     for n in pools:       # the sink page N is garbage on both sides
         assert torch.equal(got[n][:, :N].cpu(), want[n][:, :N]), n
+
+
+def test_compaction_refuses_head_dim_not_a_multiple_of_4(cuda):
+    L, N, b, h, d, mb, budget = 1, 8, 4, 2, 6, 2, 1
+    pools = [torch.zeros(L, N + 1, b, h, d, device=cuda) for _ in range(2)]
+    f = torch.zeros(L, N + 1, b, h, device=cuda)
+    new_f = torch.zeros(L, 1, mb * b, h, device=cuda)
+    src = torch.tensor([[1, 2]], dtype=torch.int32, device=cuda)
+    sc = torch.arange(budget * b, device=cuda).expand(L, 1, h, -1)
+    dest = torch.arange(b, 2 * b, device=cuda)[None]
+    before = ops.launch_counts[cmp.NAME]
+    with pytest.raises(ValueError, match="multiple of 4"):
+        cmp.compact_cuda(*pools, f, new_f, src, sc, dest)
+    assert ops.launch_counts[cmp.NAME] == before
 
 
 def test_wrappers_refuse_bad_inputs(cuda):
@@ -211,6 +247,30 @@ def test_engine_on_card_matches_cpu(cuda):
     on_card = Zipage(cfg, _to(params, cuda), **shapes).generate(prompts, sp)
     assert [o.token_ids for o in on_card] == [o.token_ids for o in on_cpu]
     assert min(o.metrics.compression.n_compressions for o in on_card) > 0
+
+
+def test_engine_on_card_matches_cpu_at_a_budget_of_32_blocks(cuda):
+    """n_max = 33 at Qwen3-8B widths (2 layers): each compaction moves
+    k = 512 rows a (layer, request, head), more than a kernel staging a
+    whole stripe in shared memory could take. Greedy streams on the card
+    equal the CPU's, and every request compresses."""
+    import dataclasses
+
+    from repro_torch.api import SamplingParams, Zipage
+    cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=2,
+                              dtype="float32")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(6)
+    prompts = [[int(x) for x in rng.integers(0, cfg.vocab_size, n)]
+               for n in (560, 601)]
+    sp = SamplingParams(max_new_tokens=24)
+    knobs = dict(n_max=33, max_model_len=1024, max_batch=2)
+    on_cpu = Zipage(cfg, params, device="cpu", **knobs).generate(prompts, sp)
+    before = ops.launch_counts[cmp.NAME]
+    on_card = Zipage(cfg, _to(params, cuda), **knobs).generate(prompts, sp)
+    assert [o.token_ids for o in on_card] == [o.token_ids for o in on_cpu]
+    assert min(o.metrics.compression.n_compressions for o in on_card) > 0
+    assert ops.launch_counts[cmp.NAME] > before
 
 
 def test_second_path_and_seeded_streams_on_card_match_cpu(cuda):

@@ -303,23 +303,28 @@ def test_flash_redundancy_by_column_strips(strip, case):
     assert (np.abs(no_zero_out - got) > 1e-3).any()
 
 
-def compaction_case(seed=0, L=2, N=24, b=4, h=2, d=8, mb=4, budget=3):
-    """Four requests, as the block manager plans them: 0 and 1 share their
-    first source block (a prefix), so each copies it to a fresh block and
-    compacts the rest in place (copy-on-write); 2 compacts wholly in place
-    (its destination blocks are its first source blocks, so ranks overlap
-    their sources); 3 is a padding row (destination: the sink page)."""
+def compaction_case(seed=0, L=2, b=4, h=2, d=8, budget=3):
+    """Four requests, as the block manager plans them, on tables of
+    ``budget + 1`` blocks: 0 and 1 share their first source block (a
+    prefix), so each copies it to a fresh block and compacts the rest in
+    place (copy-on-write); 2 compacts wholly in place (its destination
+    blocks are its first source blocks, so ranks overlap their sources); 3
+    is a padding row (destination: the sink page)."""
     rng = np.random.default_rng(seed)
+    mb = budget + 1
+    N = 3 * mb + 4
     k = rng.normal(size=(L, N, b, h, d)).astype(np.float32)
     v = rng.normal(size=(L, N, b, h, d)).astype(np.float32)
     f = rng.uniform(size=(L, N, b, h)).astype(np.float32)
+    free = [int(x) for x in rng.permutation(np.arange(1, N))]
+    shared = free.pop()
     src = np.full((4, mb), -1, np.int32)
-    src[0] = [3, 7, 1, 9]
-    src[1] = [3, 12, 5, 14]
-    src[2] = [2, 6, 8, 10]
+    src[0] = [shared] + [free.pop() for _ in range(mb - 1)]
+    src[1] = [shared] + [free.pop() for _ in range(mb - 1)]
+    src[2] = [free.pop() for _ in range(mb)]
     dest = np.full((4, budget), -1, np.int32)
-    dest[0] = [20, 7, 1]
-    dest[1] = [17, 12, 5]
+    dest[0] = [free.pop()] + list(src[0, 1:budget])
+    dest[1] = [free.pop()] + list(src[1, 1:budget])
     dest[2] = src[2, :budget]
     T, kk = mb * b, budget * b
     # survivors per (layer, request, head): kk sorted positions of T
@@ -330,8 +335,12 @@ def compaction_case(seed=0, L=2, N=24, b=4, h=2, d=8, mb=4, budget=3):
     return k, v, f, new_f, src, dest, src_cache
 
 
-def test_compaction_matches_jax_compact_pool():
-    k, v, f, new_f, src, dest, src_cache = compaction_case()
+@pytest.mark.parametrize("b,budget", [(4, 3), (16, 30)])
+def test_compaction_matches_jax_compact_pool(b, budget):
+    """At the engine's default budget and at one of 30 blocks (k = 480),
+    above what a kernel staging a whole stripe in shared memory takes."""
+    k, v, f, new_f, src, dest, src_cache = compaction_case(b=b,
+                                                           budget=budget)
     L, N, b, h, d = k.shape
     # the port: pools with a sink page; padding/dropped slots go there
     sink = N

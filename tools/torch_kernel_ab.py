@@ -5,6 +5,7 @@ turns.
     git archive HEAD src/repro_torch | tar -x -C <dir>   # the older version
     python3 tools/torch_kernel_ab.py --before <dir>/src \
         --kernels lightning_redundancy paged_attention ragged_paged_attention
+    python3 tools/torch_kernel_ab.py --before <dir>/src --kernels compaction
 
 Runs four worker processes one after another -- before, after, after,
 before -- each importing ``repro_torch`` from its own copy of a source
@@ -12,12 +13,17 @@ tree (``--before``, and this checkout's ``src`` for "after") in a
 temporary directory, so each builds its own kernels there. Each worker
 runs ``chip_smoke.time_at`` on the named kernels (any of
 ``chip_smoke.TIMED_AT``) at a serve's shape (K2, K3, B5: 2 requests of 64
-entries, table width 4; K1, B4: 16 slots, 8 live at 55-64 entries,
-table width 32) and at the long inputs (table width 128; seq_lens 2048
-and 1999, or ``chip_smoke.LONG_DECODE_LENS``): the checks against the
-plain versions, then event, device and host ms of each kernel and its
-library yardstick, with the bound. Prints one line per kernel and turn
-and writes ``chiprun_out/kernel_ab.json``. Needs a card; imports no JAX.
+entries, table width 4; B6: the same, 36 layers, compacted to 3 blocks;
+K1, B4: 16 slots, 8 live at 55-64 entries, table width 32) and at the
+long inputs (table width 128; seq_lens 2048 and 1999, B6 compacted to
+``chip_smoke.LONG_BUDGET`` blocks, or ``chip_smoke.LONG_DECODE_LENS``):
+the checks against the plain versions, then event, device and host ms of
+each kernel and its library yardstick, with the bound. A kernel that the
+older version refuses at launch (a compaction kernel that staged a whole
+stripe in shared memory took no budget above 28 blocks) is recorded as
+refused in a "before" turn; in an "after" turn it fails the run. Prints
+one line per kernel and turn and writes ``chiprun_out/kernel_ab.json``.
+Needs a card; imports no JAX.
 """
 from __future__ import annotations
 
@@ -34,14 +40,16 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
-#: label -> (table width, seq_lens) of K2, K3, B5 and of K1, B4
+#: label -> (table width, seq_lens) of K2, K3, B5, B6 and of K1, B4, and
+#: B6's budget in blocks (the serve's: the engine's n_max - 1)
 INPUTS = {"serve": ((4, [64, 64]),
-                    (32, [64, 63, 62, 60, 59, 58, 56, 55] + [0] * 8)),
+                    (32, [64, 63, 62, 60, 59, 58, 56, 55] + [0] * 8), 3),
           "long": ((chip_smoke.LONG_TABLE, chip_smoke.LONG_LENS),
-                   (chip_smoke.LONG_TABLE, chip_smoke.LONG_DECODE_LENS))}
+                   (chip_smoke.LONG_TABLE, chip_smoke.LONG_DECODE_LENS),
+                   chip_smoke.LONG_BUDGET)}
 
 
-def worker(src, names):
+def worker(src, names, allow_refused):
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: no CUDA device")
@@ -56,10 +64,19 @@ def worker(src, names):
         from repro_torch.kernels import native
         native.build_all()
         dev = torch.device("cuda")
-        return {label: chip_smoke.time_at(
-                    torch, dev, get_config("qwen3-8b"), EngineOptions(),
-                    names, comp, dec)
-                for label, (comp, dec) in INPUTS.items()}
+        out = {}
+        for label, (comp, dec, budget) in INPUTS.items():
+            out[label] = {}
+            for name in names:
+                try:
+                    out[label].update(chip_smoke.time_at(
+                        torch, dev, get_config("qwen3-8b"), EngineOptions(),
+                        [name], comp, dec, budget))
+                except RuntimeError as e:
+                    if not (allow_refused and "at launch" in str(e)):
+                        raise
+                    out[label][name] = {"refused": str(e)}
+        return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -71,25 +88,37 @@ def main(argv=None):
     ap.add_argument("--kernels", nargs="+", required=True,
                     choices=chip_smoke.TIMED_AT, help="kernels to time")
     ap.add_argument("--worker", metavar="SRC", help=argparse.SUPPRESS)
+    ap.add_argument("--allow-refused", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(worker(args.worker, args.kernels)))
+        print(json.dumps(worker(args.worker, args.kernels,
+                                args.allow_refused)))
         return 0
     card = chip_smoke.card_line()
     turns = [("before", args.before), ("after", str(ROOT / "src")),
              ("after", str(ROOT / "src")), ("before", args.before)]
     results = []
     for version, src in turns:
+        refused = ["--allow-refused"] if version == "before" else []
         out = subprocess.run([sys.executable, __file__, "--before",
                               args.before, "--kernels", *args.kernels,
-                              "--worker", src],
-                             capture_output=True, text=True, check=True,
+                              "--worker", src, *refused],
+                             capture_output=True, text=True,
                              timeout=900, env={**os.environ,
                                                "PYTHONPATH": ""})
+        if out.returncode != 0:
+            sys.stderr.write(out.stdout[-4000:] + out.stderr[-8000:])
+            raise SystemExit(f"torch_kernel_ab: the {version} turn failed "
+                             f"(exit code {out.returncode})")
         recs = json.loads(out.stdout.strip().splitlines()[-1])
         results.append({"version": version, "inputs": recs})
         for label, by_name in recs.items():
             for name, r in by_name.items():
+                if "refused" in r:
+                    print(f"{version:6s} {name:22s} {label:5s} refused at "
+                          f"launch: {r['refused']}", flush=True)
+                    continue
                 print(f"{version:6s} {name:22s} {label:5s} event "
                       f"{r['ms']:.4f} device {r['device_ms']:.4f} host "
                       f"{r['host_ms']:.4f} ms | bound {r['bound_ms']:.5f} "
