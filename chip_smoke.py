@@ -10,7 +10,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      sm_90a, one process per source, all started together, with the
      ptxas report;
   3. kernels vs plain versions on the card, at the serves' shapes
-     (Qwen3-8B widths, engine defaults), over length mixes with
+     (Qwen3-8B widths, g = 4, engine defaults) and again at the head
+     layouts of OLMo-1B (g = 1, h_kv 16), Nemotron-4-15B (g = 6, h_kv 8)
+     and Qwen2.5-3B (g = 8, h_kv 2), d = 128, over length mixes with
      seq_len == 0 rows, sub-block rows, full-table rows and a NaN-poisoned
      page 0 that no live row maps; the dense decode kernel against the
      ragged one on live rows, bit for bit (any difference fails the run,
@@ -18,11 +20,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
      dense decode, lightning and flash redundancy kernels giving the same
      bits, the redundancy zero-outs firing, and an in-place compaction
      whose ranks overlap their sources beside a prefix-shared pair, bit for
-     bit at the engine's budget (k = 48) and at k = 1024;
+     bit at the engine's budget (k = 48) and at k = 1024; and the decode
+     kernels on idle slots (seq_len >= 1 over an empty table, as the
+     serve passes them), where a -1 entry below seq_len reads page 0;
   4. card vs CPU at Qwen3-8B widths and 2 layers: one paged prefill and a
      few decode steps (logits), the threefry sampling noise (bit for bit),
      greedy and seeded streams through the dense-decode / flash path, and
-     greedy streams at n_max = 33 (k = 512) with compression firing;
+     greedy streams at n_max = 33 (k = 512) with compression firing; then
+     at 2 layers of each other dense config, its own widths and head
+     layout (vocabulary capped at CPU_VOCAB, logged): logits, and greedy
+     and seeded streams with compression firing (Qwen2.5-3B's also through
+     the dense-decode / flash path);
   5. the main serve at full width: ``Zipage.from_config("qwen3-8b")`` at
      the engine defaults (36 layers, fp32, random weights from a seed)
      serves greedy requests; compression must fire, every compression goes
@@ -42,7 +50,18 @@ Phases, each fatal on failure (exit code != 0, no result line):
      there first (K3, B4, B5, B6 two launches bit for bit, B6 against
      plain bit for bit, B4 against K1 bit for bit on live rows);
   7. a profiled window of decode steps of the main serve: device-busy
-     share of wall time and kernel time by group.
+     share of wall time and kernel time by group;
+  8. with Qwen3-8B's weights released, each other dense config, smallest
+     to largest (OLMo-1B, Qwen2.5-3B, Llama-3-8B, Nemotron-4-15B), at full
+     width and depth through ``Zipage.from_config`` under
+     ZIPAGE_SANITIZE=1: a recorded warm-up at whose inputs K1 and K2 are
+     held against their plain versions, then 8 greedy requests of 128
+     tokens (compression fires, every compression goes through the
+     compaction kernel, no plain version runs, the sanitizer audits every
+     step and reports nothing); tok/s, step median, launches, peak memory
+     and the memory planner's figures. Qwen2.5-3B also serves through
+     dense decode and flash redundancy (2 greedy, 2 seeded), so that B4
+     and B5 run in a serve at g = 8.
 
 The last two lines of standard output are the card's name and power
 limit, and ``{"ok": true, "device": {...}}``; the line before them is the
@@ -51,6 +70,7 @@ limit, and ``{"ok": true, "device": {...}}``; the line before them is the
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -85,6 +105,19 @@ LONG_DECODE_LENS = [2048, 1999, 1536, 1024, 777, 512, 300, 64] + [0] * 8
 
 #: Qwen3's published thinking-mode sampling (the model card's advice)
 THINKING = dict(temperature=0.6, top_p=0.95, top_k=20)
+
+#: the other dense configs, smallest to largest (fp32 weights 4.7, 12.3,
+#: 32.1 and 62.5 GB), served at full width in phase 8
+DENSE_CONFIGS = ("olmo-1b", "qwen2.5-3b", "llama3-8b", "nemotron-4-15b")
+#: their head layouts that Qwen3-8B's g = 4 does not cover, held in
+#: phase 3: g = 1 (h_kv 16), 6 (h_kv 8) and 8 (h_kv 2)
+LAYOUT_CONFIGS = ("olmo-1b", "nemotron-4-15b", "qwen2.5-3b")
+#: phase 4's vocabulary cap for the other configs' 2-layer models, for the
+#: CPU side's memory (Nemotron-4-15B's 256000 x 6144 fp32 embedding and
+#: unembedding alone take 12.6 GB); the run logs each cut
+CPU_VOCAB = 65536
+#: phase 8's recorded warm-up before each serve: new tokens per request
+WARMUP_TOKENS = 16
 
 #: where each ported TPU kernel lived (function definition line)
 REPLACES = {
@@ -204,7 +237,7 @@ def max_err(torch, got, want, name):
     return float(err.max())
 
 
-def phase_kernels(torch, dev, cfg, opts):
+def phase_kernels(torch, dev, cfg, opts, phase="kernels"):
     import numpy as np
     from repro_torch.kernels import paged_score as ps
     from repro_torch.kernels import ragged_paged_attention as rpa
@@ -235,7 +268,7 @@ def phase_kernels(torch, dev, cfg, opts):
             raise AssertionError("ragged: seq_len == 0 rows are not zeros")
         e = max_err(torch, got, want, f"ragged[{label}]")
         errs[rpa.NAME] = max(errs[rpa.NAME], e)
-        log("kernels", f"{rpa.NAME}[{label}]: max_abs_err={e:.3e} "
+        log(phase, f"{rpa.NAME}[{label}]: max_abs_err={e:.3e} "
             f"(atol=rtol={TOL}) ok")
     comp_mixes = {
         "compress": [64, 176, 4, T, 16, 80, 0, 48],
@@ -252,7 +285,7 @@ def phase_kernels(torch, dev, cfg, opts):
         want = ps.paged_score_logits_plain(q_win, k, bt, sl)
         e = max_err(torch, got, want, f"paged_score[{label}]")
         errs[ps.NAME] = max(errs[ps.NAME], e)
-        log("kernels", f"{ps.NAME}[{label}]: max_abs_err={e:.3e} "
+        log(phase, f"{ps.NAME}[{label}]: max_abs_err={e:.3e} "
             f"(atol=rtol={TOL}) ok")
         got = red.lightning_redundancy_cuda(k, bt, sl,
                                             p_thresh=opts.compress.p_thresh)
@@ -265,20 +298,22 @@ def phase_kernels(torch, dev, cfg, opts):
             raise AssertionError("redundancy: two runs differ")
         no_thresh = red.lightning_redundancy_plain(k, bt, sl, p_thresh=2.0)
         n_thresh_hits += int((no_thresh != want).sum())
-        log("kernels", f"{red.NAME}[{label}]: max_abs_err={e:.3e} "
+        log(phase, f"{red.NAME}[{label}]: max_abs_err={e:.3e} "
             f"(atol=rtol={TOL}), the same in two runs, ok")
     if n_thresh_hits == 0:
         raise AssertionError("redundancy: the p_thresh zero-out never fired")
-    log("kernels", f"{red.NAME}: the p_thresh zero-out changed "
+    log(phase, f"{red.NAME}: the p_thresh zero-out changed "
         f"{n_thresh_hits} row sums (exercised)")
     torch.cuda.synchronize()
     errs.update(phase_kernels_alg34(torch, dev, cfg, opts, rng, decode_mixes,
-                                    comp_mixes))
+                                    comp_mixes, phase))
+    errs[rpa.NAME] = max(errs[rpa.NAME],
+                         check_idle_slots(torch, dev, cfg, opts, rng, phase))
     return errs
 
 
 def phase_kernels_alg34(torch, dev, cfg, opts, rng, decode_mixes,
-                        comp_mixes):
+                        comp_mixes, phase):
     """B4 dense decode, B5 flash redundancy and B6 compaction against their
     plain versions on the card."""
     from repro_torch.kernels import compaction as cmp
@@ -312,9 +347,9 @@ def phase_kernels_alg34(torch, dev, cfg, opts, rng, decode_mixes,
             raise AssertionError(
                 f"dense vs ragged[{label}]: live rows differ by up to "
                 f"{float((got[live] - ragged[live]).abs().max()):.3e}")
-        log("kernels", f"{pa.NAME}[{label}]: max_abs_err={e:.3e} "
+        log(phase, f"{pa.NAME}[{label}]: max_abs_err={e:.3e} "
             f"(atol=rtol={TOL}), the same in two runs, ok")
-    log("kernels", "dense vs ragged on live rows: bit-identical ok")
+    log(phase, "dense vs ragged on live rows: bit-identical ok")
 
     n_hits = 0
     for label, lens in comp_mixes.items():
@@ -331,16 +366,56 @@ def phase_kernels_alg34(torch, dev, cfg, opts, rng, decode_mixes,
             raise AssertionError("flash: two runs differ")
         no_thresh = red.flash_redundancy_plain(k, bt, sl, p_thresh=2.0)
         n_hits += int((no_thresh != want).sum())
-        log("kernels", f"{red.FLASH_NAME}[{label}]: max_abs_err={e:.3e} "
+        log(phase, f"{red.FLASH_NAME}[{label}]: max_abs_err={e:.3e} "
             f"(atol=rtol={TOL}), the same in two runs, ok")
     if n_hits == 0:
         raise AssertionError("flash: the p_thresh zero-out never fired")
-    log("kernels", f"{red.FLASH_NAME}: the p_thresh zero-out changed "
+    log(phase, f"{red.FLASH_NAME}: the p_thresh zero-out changed "
         f"{n_hits} row sums (exercised)")
 
-    errs[cmp.NAME] = check_compaction(torch, dev, cfg, opts, rng)
+    errs[cmp.NAME] = check_compaction(torch, dev, cfg, opts, rng, phase)
     torch.cuda.synchronize()
     return errs
+
+
+def check_idle_slots(torch, dev, cfg, opts, rng, phase):
+    """K1 and B4 against their plain versions on what the serve passes for
+    a slot that decodes nothing: it attends seq_len + 1 entries over an
+    empty (all -1) table, and a -1 entry below seq_len is page 0, as the
+    TPU kernels clamp it. Here a never-used slot (seq_len 1), finished
+    ones with stale seq_lens, and a live row with a -1 entry in the middle
+    of its table; page 0 holds finite data, as in a serve. The two kernels
+    must also agree bit for bit on every row. Returns K1's max error."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ragged_paged_attention as rpa
+
+    b, mb = opts.block_size, -(-opts.max_model_len // opts.block_size)
+    n_pages, B = opts.n_total_blocks, opts.max_batch
+    lens = [1, 1, 57, 130, 16, 1] + [int(x) for x in rng.integers(
+        1, 8 * b, B - 7)] + [0]
+    k, v = make_pool(torch, rng, n_pages, b, cfg.num_kv_heads, cfg.head_dim,
+                     dev)
+    k[0] = torch.randn_like(k[0])
+    v[0] = torch.randn_like(v[0])
+    bt, sl = make_tables(torch, rng, lens, b, mb, n_pages, dev, k, v)
+    bt[:4] = -1                         # idle: no page mapped below seq_len
+    bt[4, 0] = -1                       # a -1 entry below seq_len
+    q = torch.randn(B, cfg.num_heads, cfg.head_dim, device=dev,
+                    generator=torch.Generator(dev).manual_seed(SEED))
+    ragged = rpa.ragged_paged_attention_cuda(q, k, v, bt, sl)
+    dense = pa.paged_attention_cuda(q, k, v, bt, sl)
+    e = max_err(torch, ragged, rpa.ragged_paged_attention_plain(
+        q, k, v, bt, sl), f"{rpa.NAME}[idle slots]")
+    e_dense = max_err(torch, dense, pa.paged_attention_plain(q, k, v, bt, sl),
+                      f"{pa.NAME}[idle slots]")
+    if not bool(torch.equal(dense, ragged)):
+        raise AssertionError("idle slots: dense and ragged differ by "
+                             f"{float((dense - ragged).abs().max()):.3e}")
+    log(phase, f"idle slots (seq_len {lens[:6]} over empty tables or a -1 "
+        f"entry below seq_len, page 0 read): {rpa.NAME} max_abs_err="
+        f"{e:.3e}, {pa.NAME} {e_dense:.3e} (atol=rtol={TOL}), bit-identical "
+        "to each other ok")
+    return e
 
 
 def compaction_case(torch, dev, cfg, opts, rng, lens, kinds, width, budget,
@@ -387,7 +462,7 @@ def compaction_case(torch, dev, cfg, opts, rng, lens, kinds, width, budget,
             torch.from_numpy(dest_flat).to(dev))
 
 
-def check_compaction(torch, dev, cfg, opts, rng):
+def check_compaction(torch, dev, cfg, opts, rng, phase):
     """B6 in place at the engine's budget (k = 48) and at LONG_BUDGET
     blocks (k = 1024): six requests in place, a prefix-shared pair
     copy-on-write and two padding rows, 4 layers."""
@@ -399,7 +474,7 @@ def check_compaction(torch, dev, cfg, opts, rng):
                                width, budget, L=4)
         kk = budget * opts.block_size
         check_compaction_at(torch, args, f"compaction[k={kk}]")
-        log("kernels", f"compaction: {len(lens)} rows x 4 layers at k={kk} "
+        log(phase, f"compaction: {len(lens)} rows x 4 layers at k={kk} "
             "(in place with overlapping ranks, a prefix-shared pair "
             "copy-on-write, padding rows) equal to the sequential plain "
             "version bit for bit, and the same in two launches, "
@@ -452,12 +527,27 @@ def phase_card_vs_cpu(torch, dev, cfg):
         f"{torch.backends.cuda.matmul.allow_tf32})")
 
     small = dataclasses.replace(cfg, num_layers=2)
-    spec = serve_model.ServeSpec(n_slots=4, block_size=16, max_blocks=8,
-                                 n_total_blocks=32, m_qslots=4, window=4,
-                                 prefill_rows=2, prefill_len=64)
     gen = torch.Generator("cpu").manual_seed(SEED)
     p_cpu = lm.init(small, gen, "cpu")
     p_dev = _tree_to(p_cpu, dev)
+    worst = check_logits(torch, dev, small, p_cpu, p_dev, "card-vs-cpu",
+                         f"{cfg.name} widths")
+    check_noise(torch, dev, small.vocab_size)
+    check_streams(torch, dev, small, p_cpu, p_dev)
+    check_budget_streams(torch, dev, small, p_cpu, p_dev)
+    del p_dev
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_logits(torch, dev, small, p_cpu, p_dev, phase, what):
+    """One paged prefill and six decode steps of ``small`` on the CPU and
+    on the card: the logits within CARD_CPU_TOL. Returns the max error."""
+    from repro_torch.core import serve_model
+
+    spec = serve_model.ServeSpec(n_slots=4, block_size=16, max_blocks=8,
+                                 n_total_blocks=32, m_qslots=4, window=4,
+                                 prefill_rows=2, prefill_len=64)
     results = {}
     for name, device, params in (("cpu", "cpu", p_cpu), ("card", dev, p_dev)):
         st = serve_model.make_state(small, spec, device)
@@ -485,19 +575,45 @@ def phase_card_vs_cpu(torch, dev, cfg):
     for a, b in zip(results["cpu"], results["card"]):
         err = (a - b).abs()
         if bool((err > CARD_CPU_TOL + CARD_CPU_TOL * a.abs()).any()):
-            raise AssertionError(f"card vs cpu: logits off by "
+            raise AssertionError(f"{phase}: card vs cpu logits off by "
                                  f"{float(err.max()):.3e}")
         errs.append(float(err.max()))
     worst = max(errs)
-    log("card-vs-cpu", f"qwen3-8b widths, 2 layers: prefill + 6 decode "
-        f"steps, max_abs_err={worst:.3e} (atol=rtol={CARD_CPU_TOL}) ok; "
-        f"per output {', '.join(f'{e:.1e}' for e in errs)}")
-    check_noise(torch, dev, small.vocab_size)
-    check_streams(torch, dev, small, p_cpu, p_dev)
-    check_budget_streams(torch, dev, small, p_cpu, p_dev)
-    del p_dev
-    torch.cuda.empty_cache()
+    log(phase, f"{what}, 2 layers: prefill + 6 decode steps, max_abs_err="
+        f"{worst:.3e} (atol=rtol={CARD_CPU_TOL}) ok; per output "
+        f"{', '.join(f'{e:.1e}' for e in errs)}")
     return worst
+
+
+def phase_card_vs_cpu_configs(torch, dev):
+    """Card against CPU at 2 layers of each other dense config, at its own
+    widths and head layout: the logits, and greedy and seeded streams
+    through the main path with compression firing (Qwen2.5-3B's, g = 8,
+    through the Alg. 3 / Alg. 4 path too)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    for name in DENSE_CONFIGS:
+        phase = f"card-vs-cpu[{name}]"
+        cfg = dataclasses.replace(get_config(name), dtype="float32")
+        small = dataclasses.replace(cfg, num_layers=2, vocab_size=min(
+            cfg.vocab_size, CPU_VOCAB))
+        if small.vocab_size != cfg.vocab_size:
+            log(phase, f"vocabulary cut from {cfg.vocab_size} to "
+                f"{small.vocab_size} for the CPU side's memory")
+        p_cpu = lm.init(small, torch.Generator("cpu").manual_seed(SEED),
+                        "cpu")
+        p_dev = _tree_to(p_cpu, dev)
+        g = cfg.num_heads // cfg.num_kv_heads
+        check_logits(torch, dev, small, p_cpu, p_dev, phase,
+                     f"{name} widths (d_model {cfg.d_model}, "
+                     f"{cfg.num_heads}/{cfg.num_kv_heads} heads, g = {g}, "
+                     f"{cfg.norm_type})")
+        check_streams(torch, dev, small, p_cpu, p_dev, phase, alg34=False)
+        if name == "qwen2.5-3b":
+            check_streams(torch, dev, small, p_cpu, p_dev, phase)
+        del p_cpu, p_dev
+        torch.cuda.empty_cache()
 
 
 def check_noise(torch, dev, vocab):
@@ -519,9 +635,12 @@ def check_noise(torch, dev, vocab):
         "card and the CPU ok")
 
 
-def check_streams(torch, dev, small, p_cpu, p_dev):
-    """Greedy and seeded streams through the Alg. 3 / Alg. 4 path (dense
-    decode, flash redundancy, compaction), card against CPU."""
+def check_streams(torch, dev, small, p_cpu, p_dev, phase="card-vs-cpu",
+                  alg34=True):
+    """Greedy and seeded streams, card against CPU, with compression
+    firing: two of each through the Alg. 3 / Alg. 4 path (dense decode,
+    flash redundancy, compaction), or (``alg34=False``) two greedy and one
+    seeded through the main path (ragged decode, lightning redundancy)."""
     import numpy as np
     from repro_torch.api import SamplingParams, Zipage
     from repro_torch.core.compression import CompressOptions
@@ -535,24 +654,32 @@ def check_streams(torch, dev, small, p_cpu, p_dev):
            SamplingParams(max_new_tokens=24, seed=2**31 + 3, **THINKING)]
     knobs = dict(decode_kernel="dense", max_batch=4,
                  compress=CompressOptions(window=4, redundancy="flash"))
-    outs = {}
+    if not alg34:
+        prompts, sps, knobs = prompts[:3], sps[:3], dict(max_batch=4)
+    outs, n_comp = {}, {}
     for name, device, params in (("cpu", "cpu", p_cpu), ("card", dev, p_dev)):
         z = Zipage(small, params, device=device, **knobs)
         outs[name] = z.generate(prompts, sps)
-        n_comp = sum(o.metrics.compression.n_compressions
-                     for o in outs[name])
-        if n_comp == 0:
-            raise AssertionError(f"streams on {name}: no compression")
+        n_comp[name] = [o.metrics.compression.n_compressions
+                        for o in outs[name]]
+        if sum(n_comp[name]) == 0:
+            raise AssertionError(f"{phase}: streams on {name}: no "
+                                 "compression")
     for i, (a, b) in enumerate(zip(outs["cpu"], outs["card"])):
         kind = "greedy" if sps[i].is_greedy else "seeded"
-        log("card-vs-cpu", f"{kind} stream {i}: card {b.token_ids[:12]}...")
+        log(phase, f"{kind} stream {i}: card {b.token_ids[:12]}...")
         if a.token_ids != b.token_ids:
             j = next(j for j, (x, y) in enumerate(zip(a.token_ids,
                                                       b.token_ids)) if x != y)
-            raise AssertionError(f"{kind} stream {i} differs at token {j}: "
-                                 f"cpu {a.token_ids} card {b.token_ids}")
-    log("card-vs-cpu", "dense decode + flash redundancy, 2 greedy and 2 "
-        "seeded streams of 24 tokens: card == CPU ok")
+            raise AssertionError(f"{phase}: {kind} stream {i} differs at "
+                                 f"token {j}: cpu {a.token_ids} card "
+                                 f"{b.token_ids}")
+    n_seeded = sum(1 for sp in sps if not sp.is_greedy)
+    path = ("dense decode + flash redundancy" if alg34 else
+            "ragged decode + lightning redundancy")
+    log(phase, f"{path}, {len(sps) - n_seeded} greedy and {n_seeded} seeded "
+        f"streams of 24 tokens: card == CPU ok; compressions per request "
+        f"{n_comp['card']}")
 
 
 def check_budget_streams(torch, dev, small, p_cpu, p_dev):
@@ -1348,6 +1475,199 @@ def _group(key):
 
 
 # ----------------------------------------------------------------------
+# phase 8: the other dense configs at full width, under the sanitizer
+
+
+def phase_dense(torch, card, rows):
+    """Serve each of DENSE_CONFIGS, smallest to largest, at full width and
+    depth (``dense_serve``); their launch counts go into the kernel rows'
+    ``launches_per_serve``. Returns {config: summary}."""
+    by_name = {r["name"]: r for r in rows}
+    out = {}
+    for name in DENSE_CONFIGS:
+        t = time.monotonic()
+        out[name] = dense_serve(torch, card, name)
+        out[name]["phase_s"] = time.monotonic() - t
+        for serve, summary in out[name]["serves"].items():
+            for kname, n in summary["launches"].items():
+                by_name[kname]["launches_per_serve"][serve] = n
+        log(f"dense[{name}]", f"passed in {out[name]['phase_s']:.1f} s ("
+            + ", ".join(f"{k} {v:.1f} s" for k, v in out[name][
+                "took"].items()) + ")")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sanitized(fn):
+    """``fn()`` with ZIPAGE_SANITIZE=1, which an engine reads when it is
+    built; the variable is restored afterwards."""
+    old = os.environ.get("ZIPAGE_SANITIZE")
+    os.environ["ZIPAGE_SANITIZE"] = "1"
+    try:
+        return fn()
+    finally:
+        if old is None:
+            del os.environ["ZIPAGE_SANITIZE"]
+        else:
+            os.environ["ZIPAGE_SANITIZE"] = old
+
+
+def dense_serve(torch, card, name):
+    """``Zipage.from_config(name)`` at full width and the engine defaults,
+    fp32, random weights from the seed, built under ZIPAGE_SANITIZE=1 so
+    that the engine audits its whole state after every step. First a
+    recorded warm-up serve on the same weights, at whose inputs K1 and K2
+    are held against their plain versions; then the serve of N_REQUESTS
+    greedy requests of NEW_TOKENS tokens (``run_serve``: compression fires,
+    every compression goes through the compaction kernel, no plain version
+    runs), with its tok/s, step median, launches, peak memory and the
+    memory planner's figures. Qwen2.5-3B also serves through dense decode
+    and flash redundancy (two greedy, two seeded requests), so that B4 and
+    B5 run in a serve at g = 8."""
+    from repro_torch.api import SamplingParams, Zipage
+    from repro_torch.core import invariants, memory_planner
+    from repro_torch.core.compression import CompressOptions
+    from repro_torch.models import lm
+
+    phase = f"dense[{name}]"
+    took, t = {}, time.monotonic()
+
+    def lap(what):
+        nonlocal t
+        took[what] = time.monotonic() - t
+        t = time.monotonic()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    z = _sanitized(lambda: Zipage.from_config(name, param_seed=SEED))
+    torch.cuda.synchronize()
+    eng, cfg = z.engine, z.cfg
+    assert eng.sanitize, "the engine did not read ZIPAGE_SANITIZE"
+    g = cfg.num_heads // cfg.num_kv_heads
+    log(phase, f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim} (g = "
+        f"{g}), d_ff {cfg.d_ff} {cfg.ffn_act}, {cfg.norm_type}, vocab "
+        f"{cfg.vocab_size}, qkv_bias={cfg.qkv_bias}, tie_embeddings="
+        f"{cfg.tie_embeddings}; {lm.param_count(eng.params) / 1e9:.2f} B "
+        "params fp32 on the card")
+    opts = eng.opts
+    free, total = torch.cuda.mem_get_info()
+    weights = lm.param_count(eng.params) * 4
+    plan = memory_planner.plan_memory(cfg, free, opts.n_max,
+                                      block_size=opts.block_size,
+                                      window=opts.window)
+    if plan.m_kv_block != eng._kv_block_bytes():
+        raise AssertionError(f"{phase}: the planner's block bytes "
+                             f"{plan.m_kv_block} are not the pools' "
+                             f"{eng._kv_block_bytes()}")
+    log(phase, f"memory plan (Eq. 1): {weights / 1e9:.2f} GB of weights, "
+        f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free: M = {plan.M} "
+        f"requests, N_total = {plan.N_total} blocks of {plan.m_kv_block} B "
+        f"and {plan.m_q_req} B of window a request (the engine defaults use "
+        f"{opts.n_total_blocks} blocks and {opts.m_qslots} slots)")
+    lap("build")
+
+    audits = []
+    check = invariants.check_engine
+
+    def counted(engine):
+        audits.append(engine.step_count)
+        check(engine)
+
+    def serve(zz, label, prompts, sps, path):
+        """``run_serve`` with the audits counted: one after every step
+        (a violation raises in the step)."""
+        audits.clear()
+        summary = run_serve(torch, card, zz, label, prompts, sps, path)[2]
+        if audits != list(range(1, len(zz.engine.metrics) + 1)):
+            raise AssertionError(f"{label}: {len(audits)} audits over "
+                                 f"{len(zz.engine.metrics)} steps")
+        log(label, f"sanitizer: {len(audits)} audits, one after each step, "
+            "0 violations")
+        return dict(summary, audits=len(audits))
+
+    invariants.check_engine = counted
+    try:
+        errs = dense_warmup(torch, z, phase)
+        lap("warm-up")
+        prompts = make_prompts(cfg)
+        serves = {name: serve(z, f"{phase} sanitized", prompts, [
+            SamplingParams(max_new_tokens=NEW_TOKENS)] * N_REQUESTS,
+            MAIN_PATH)}
+        lap("serve")
+        if name == "qwen2.5-3b":
+            z34 = _sanitized(lambda: Zipage(
+                cfg, eng.params, decode_kernel="dense",
+                compress=CompressOptions(window=4, redundancy="flash")))
+            sps = [SamplingParams(max_new_tokens=NEW_TOKENS)] * 2 + [
+                SamplingParams(max_new_tokens=NEW_TOKENS, seed=SEED + i,
+                               **THINKING) for i in range(2)]
+            serves[f"{name}-alg34"] = serve(z34, f"{phase} alg34 sanitized",
+                                            prompts[:4], sps, ALG34_PATH)
+            del z34
+            lap("serve-alg34")
+    finally:
+        invariants.check_engine = check
+    peak = torch.cuda.max_memory_allocated()
+    log(phase, f"peak memory allocated {peak / 1e9:.2f} GB on {card}")
+    out = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads], "g": g,
+           "params": lm.param_count(eng.params), "peak_bytes": peak,
+           "free_bytes_after_weights": free, "plan": dataclasses.asdict(plan),
+           "recorded_errs": errs, "serves": serves, "took": took}
+    del z, eng
+    return out
+
+
+def dense_warmup(torch, z, phase):
+    """A warm-up serve of two requests through a second engine on ``z``'s
+    weights, recorded; compression fires. K1 and K2 are then held against
+    their plain versions at the recorded input whose live work is largest:
+    for K1 that input holds the serve's idle slots (seq_len 1, or a stale
+    one, over an empty table). Returns their errors."""
+    import numpy as np
+    from repro_torch.api import SamplingParams, Zipage
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_score as ps
+    from repro_torch.kernels import ragged_paged_attention as rpa
+
+    cfg = z.cfg
+    zw = _sanitized(lambda: Zipage(cfg, z.engine.params))
+    rng = np.random.default_rng(SEED + 7)
+    prompts = [[int(x) for x in rng.integers(0, cfg.vocab_size, n)]
+               for n in (100, 123)]
+    with Recorder(ops) as rec, PlainGuard():
+        outs = zw.generate(prompts, SamplingParams(
+            max_new_tokens=WARMUP_TOKENS))
+        torch.cuda.synchronize()
+    n_comp = [o.metrics.compression.n_compressions for o in outs]
+    if min(n_comp) == 0:
+        raise AssertionError(f"{phase}: the warm-up did not compress "
+                             f"({n_comp})")
+    b = zw.engine.opts.block_size
+    q, kp, vp, bt, sl = _pick(rec.calls["ragged_decode_attention"],
+                              lambda a: _live_entries(a[3], a[4], b))[0]
+    idle = int(((sl > 0) & ((bt >= 0).sum(1) * b < sl)).sum())
+    e1 = max_err(torch, rpa.ragged_paged_attention_cuda(q, kp, vp, bt, sl),
+                 rpa.ragged_paged_attention_plain(q, kp, vp, bt, sl),
+                 f"{phase} {rpa.NAME}[recorded]")
+    q_win, kp2, bt2, sl2 = _pick(rec.calls["score_logits"],
+                                 lambda a: _live_entries(a[2], a[3], b))[0]
+    e2 = max_err(torch, ps.paged_score_logits_cuda(q_win, kp2, bt2, sl2),
+                 ps.paged_score_logits_plain(q_win, kp2, bt2, sl2),
+                 f"{phase} {ps.NAME}[recorded]")
+    log(phase, f"warm-up: 2 requests of {WARMUP_TOKENS} tokens, "
+        f"compressions {n_comp}; at its recorded inputs {rpa.NAME} "
+        f"max_abs_err={e1:.3e} (batch {tuple(q.shape)}, seq_lens "
+        f"{sl.tolist()}, {idle} idle rows over empty tables), {ps.NAME} "
+        f"max_abs_err={e2:.3e} (seq_lens {sl2.tolist()}) (atol=rtol={TOL}) "
+        "ok")
+    del rec, zw
+    return {rpa.NAME: e1, ps.NAME: e2}
+
+
+# ----------------------------------------------------------------------
 
 
 def main():
@@ -1377,8 +1697,17 @@ def main():
     cfg = dataclasses.replace(get_config("qwen3-8b"), dtype="float32")
     opts = EngineOptions()
     errs = phase_kernels(torch, dev, cfg, opts)
+    for name in LAYOUT_CONFIGS:
+        lcfg = get_config(name)
+        g = lcfg.num_heads // lcfg.num_kv_heads
+        e = phase_kernels(torch, dev, dataclasses.replace(
+            lcfg, dtype="float32"), opts,
+            phase=f"kernels[{name}: g = {g}, h_kv = {lcfg.num_kv_heads}]")
+        errs = {k: max(v, e[k]) for k, v in errs.items()}
+        torch.cuda.empty_cache()
     lap("kernels")
     phase_card_vs_cpu(torch, dev, cfg)
+    phase_card_vs_cpu_configs(torch, dev)
     lap("card-vs-cpu")
     z, rec, launches, summary = phase_serve(torch, card)
     lap("serve")
@@ -1392,12 +1721,18 @@ def main():
     lap("timing")
     prof = phase_profile(torch, z, card)
     lap("profile")
+    del z                     # Qwen3-8B's weights make room for phase 8's
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = phase_dense(torch, card, rows)
+    lap("dense")
     log("done", f"all phases passed in {time.monotonic() - t0:.1f} s ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")")
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "serve": summary, "serve_alg34": summary34,
-                   "kernels": rows, "profile": prof}, f, indent=1)
+                   "kernels": rows, "profile": prof, "dense": dense}, f,
+                  indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Architecture configs the port serves: the paper's Qwen3-8B and the tiny
+"""Architecture configs the port serves: the dense GQA family (the paper's
+Qwen3-8B, Llama-3-8B, Qwen2.5-3B, OLMo-1B and Nemotron-4-15B) and the tiny
 CPU test model. Each module registers one ``ArchConfig`` on import."""
 import importlib
 
@@ -6,7 +7,8 @@ from repro_torch.configs.base import (  # noqa: F401
     ArchConfig, all_arch_names, get_config, register,
 )
 
-_MODULES = ["qwen3_8b", "tiny"]
+_MODULES = ["qwen3_8b", "llama3_8b", "qwen2_5_3b", "olmo_1b",
+            "nemotron_4_15b", "tiny"]
 
 _loaded = False
 

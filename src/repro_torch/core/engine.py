@@ -15,6 +15,8 @@ preemption, compressed-prefix caching, multi-step decode, the unfused
 sampler and other dtypes than float32 raise ``NotImplementedError``.
 
 Setting ``n_max=None`` disables compression (plain PagedAttention).
+``ZIPAGE_SANITIZE=1`` in the environment when an engine is built makes it
+audit its whole state after every step (``core/invariants.py``).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import serve_model
+from repro_torch.core import invariants, serve_model
 from repro_torch.core.block_manager import BlockManager
 from repro_torch.core.compression import CompressOptions, build_compress_fn
 from repro_torch.core.request import FinishReason, Request, State
@@ -188,6 +190,12 @@ class ZipageEngine:
         self.metrics: List[dict] = []
         self.step_hooks = []
         self.step_count = 0
+        # runtime sanitizer: a whole-engine audit after every step when
+        # ZIPAGE_SANITIZE=1 (core/invariants.py); _qwin_shadow holds host
+        # copies of free observation-window rows, so a write to a row no
+        # active slot owns is caught
+        self.sanitize = invariants.enabled()
+        self._qwin_shadow: Dict[int, np.ndarray] = {}
         if self.device.type == "cuda":
             native.build_all()       # compile before the first step, not in it
 
@@ -602,6 +610,8 @@ class ZipageEngine:
         self.metrics.append(entry)
         self.scheduler.observe_latency(
             (t_dec - t0) / max(1, self._last_horizon))
+        if self.sanitize:
+            invariants.check_engine(self)
         for hook in self.step_hooks:
             hook(entry)
 

@@ -143,6 +143,12 @@ __device__ __forceinline__ float zp_dot4(float4 a, float4 b, float s) {
 // ceil(seq_len / b) and zero-fills positions past seq_len instead of
 // reading them. The dense kernel reads every entry's page (a -1 entry as
 // page 0) and masks in the math, as the TPU baseline does.
+// In both, a position is valid iff it is below seq_len, whatever its
+// table entry: a -1 entry below seq_len reads page 0, as the TPU kernels
+// clamp it (jnp.maximum(bt, 0)) and mask by seq_len alone. The serve
+// passes such rows: a slot that decodes nothing still attends seq_len + 1
+// entries over an empty table (serve_model.build_decode_step), and its
+// output, unused, must equal the plain version's.
 constexpr int kDecodeWarps = 4;
 constexpr int kDecodeThreads = 32 * kDecodeWarps;
 constexpr int kDecodeRows = 16;                              // positions a tile
@@ -271,7 +277,7 @@ __device__ __forceinline__ ZpDecodeCopier zp_decode_copier(const ZpDecodeArgs& a
 
 // Issue the copies of the tile whose first row is chunk position rel0
 // (rel0 + t for row t; n_pos positions of the chunk are walked), and write
-// each row's validity (position < seq_len on a table entry >= 0). tbl holds
+// each row's validity (position < seq_len). tbl holds
 // the chunk's table entries (-1 past what the kernel may read). The dense
 // kernel reads every row of the chunk (a -1 entry as page 0); the ragged
 // one reads only valid rows and zero-fills the rest.
@@ -285,7 +291,7 @@ __device__ __forceinline__ void zp_decode_issue_tile(const ZpDecodeArgs& a,
   auto entry_of = [&](int rel) { return tbl[cp.shift >= 0 ? rel >> cp.shift : rel / b]; };
   if (threadIdx.x < kDecodeRows) {
     const int rel = rel0 + threadIdx.x;
-    valid_dst[threadIdx.x] = rel < n_pos && pos0 + rel < seq_len && entry_of(rel) >= 0;
+    valid_dst[threadIdx.x] = rel < n_pos && pos0 + rel < seq_len;
   }
   if (cp.tstep > 0) {
     for (int t = cp.t0; t < kDecodeRows; t += cp.tstep) {
@@ -295,8 +301,8 @@ __device__ __forceinline__ void zp_decode_issue_tile(const ZpDecodeArgs& a,
       if (ok) {
         const int j = cp.shift >= 0 ? rel >> cp.shift : rel / b;
         const int e = tbl[j];
-        if (!kDense) ok = e >= 0 && pos0 + rel < seq_len;
-        const int page = e >= 0 ? e : 0;  // dense: a -1 entry reads page 0, masked in the math
+        if (!kDense) ok = pos0 + rel < seq_len;
+        const int page = e >= 0 ? e : 0;  // a -1 entry reads page 0, as the TPU kernels' clamp
         off = page * cp.page_stride + (rel - j * b) * cp.row_stride + cp.col;
       }
       zp_cp_async16(k_dst + t * a.ld + 4 * cp.c4, a.k_pool + off, ok);
@@ -308,7 +314,7 @@ __device__ __forceinline__ void zp_decode_issue_tile(const ZpDecodeArgs& a,
     const int rel = rel0 + t;
     if (rel >= n_pos) return -1LL;
     const int e = entry_of(rel);
-    if (!kDense && (e < 0 || pos0 + rel >= seq_len)) return -1LL;
+    if (!kDense && pos0 + rel >= seq_len) return -1LL;
     const int page = e >= 0 ? e : 0;
     const int slot = rel - (cp.shift >= 0 ? (rel >> cp.shift) << cp.shift : (rel / b) * b);
     return (((long long)page * b + slot) * a.hkv + h) * a.d;

@@ -7,10 +7,11 @@
 // every slot: a -1 entry is clamped to page 0 and its page is DMA'd and
 // masked. It is the baseline the ragged kernel (ragged_paged_attention.cu)
 // is measured against, so this kernel does the baseline's work: it walks
-// all max_blocks entries of every slot, and an entry that is -1 or at or
-// beyond ceil(seq_len / b) loads the clamped page 0 all the same. Its
-// scores are masked to -1e30 and its V lanes read as zeros before p.V, so
-// a NaN page 0 or a stale tail cannot reach the output. Rows with
+// all max_blocks entries of every slot, and a -1 entry loads the clamped
+// page 0 all the same. Positions at or past seq_len have their scores
+// masked to -1e30 and their V lanes read as zeros before p.V, so a NaN
+// page 0 or a stale tail past seq_len cannot reach the output; a -1 entry
+// below seq_len is page 0, unmasked, as in the TPU kernel. Rows with
 // seq_len == 0 come out as zeros, as in the JAX package's
 // paged.paged_decode_attention.
 //

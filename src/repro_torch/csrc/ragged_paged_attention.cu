@@ -8,11 +8,11 @@
 // chunks that run in parallel, each keeping its state in registers, and a
 // second kernel merges the chunks' states in a fixed order.
 //
-// Contract (same as the TPU kernel): only pages 0..ceil(seq_len/b)-1 of the
-// slot's table are read, so a -1 table entry is never dereferenced; K and
-// V lanes at positions >= seq_len are zero-filled instead of read, and
-// masked, so stale or NaN pool data past seq_len cannot leak; rows with
-// seq_len == 0 are exact zeros. The g query heads that share a kv head are
+// Contract (same as the TPU kernel): only entries 0..ceil(seq_len/b)-1 of
+// the slot's table are read, and a -1 among them reads page 0 (the TPU
+// kernel's clamp); K and V lanes at positions >= seq_len are zero-filled
+// instead of read, and masked, so stale or NaN pool data past seq_len
+// cannot leak; rows with seq_len == 0 are exact zeros. The g query heads that share a kv head are
 // scored against each page together, so a page is read once for all of
 // them.
 //

@@ -5,7 +5,8 @@ Replaces ``src/repro/kernels/paged_attention.py`` (``paged_attention``).
 Contract: q (B, h_q, d); pools (N, b, h_kv, d); block_tables (B, mb) int32
 padded with -1; seq_lens (B,) int32. Returns (B, h_q, d): one-token GQA
 attention over each slot's first seq_len cache entries, computed over every
-entry of the table (a -1 entry reads page 0, masked), as the baseline the
+entry of the table (a -1 entry reads page 0: masked past seq_len, read as
+page 0 below it, as the TPU kernel's clamp does), as the baseline the
 ragged kernel is measured against. Live rows equal the ragged kernel's bit
 for bit; rows with seq_len == 0 are zeros.
 """

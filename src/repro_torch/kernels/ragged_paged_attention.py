@@ -5,7 +5,9 @@ Replaces ``src/repro/kernels/ragged_paged_attention.py``
 (``ragged_paged_attention``). Contract: q (B, h_q, d); pools (N, b, h_kv, d);
 block_tables (B, mb) int32 padded with -1; seq_lens (B,) int32. Returns
 (B, h_q, d): one-token GQA attention over each slot's first seq_len cache
-entries; rows with seq_len == 0 are exact zeros.
+entries, a -1 table entry among them reading page 0 (the TPU kernel's
+clamp: a slot that decodes nothing attends seq_len + 1 entries over an
+empty table); rows with seq_len == 0 are exact zeros.
 """
 from __future__ import annotations
 

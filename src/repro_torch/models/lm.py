@@ -3,10 +3,13 @@
 The JAX package stacks identical layers into scanned units; the port keeps
 a plain list of per-layer dicts, since PyTorch runs the layers eagerly:
 
-    {"embed": (V, d), "final_norm": {"scale": (d,)}, "unembed": (d, V),
-     "layers": [{"ln1", "ln2", "attn": {"wq", "wk", "wv", "wo",
+    {"embed": (V, d), "final_norm": norm, "unembed": (d, V),
+     "layers": [{"ln1": norm, "ln2": norm, "attn": {"wq", "wk", "wv", "wo",
                  ["q_norm", "k_norm"], ["bq", "bk", "bv"]},
                  "ffn": {"w1", "w2", ["w3"]}}, ...]}
+
+where a norm is {"scale": (d,)} (rmsnorm), {"scale", "bias": (d,)}
+(layernorm) or {} (nonparam_ln), as ``repro.models.common.init_norm``.
 
 ``repro_torch.convert.params_from_numpy`` maps the JAX package's stacked
 tree onto this layout. Only the dense GQA family is ported so far;
@@ -82,6 +85,17 @@ def _dense(shape, fan_in, generator, device):
     return w.mul_(1.0 / math.sqrt(fan_in))
 
 
+def _init_norm(cfg, d, device):
+    if cfg.norm_type == "rmsnorm":
+        return {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+    if cfg.norm_type == "layernorm":
+        return {"scale": torch.ones(d, dtype=torch.float32, device=device),
+                "bias": torch.zeros(d, dtype=torch.float32, device=device)}
+    if cfg.norm_type == "nonparam_ln":       # OLMo: no affine parameters
+        return {}
+    raise ValueError(cfg.norm_type)
+
+
 def _init_layer(cfg, generator, device):
     d, hq, hkv, dh, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim, cfg.d_ff)
@@ -102,23 +116,20 @@ def _init_layer(cfg, generator, device):
            "w2": _dense((f, d), f, generator, device)}
     if is_gated(cfg.ffn_act):
         ffn["w3"] = _dense((d, f), d, generator, device)
-    return {"ln1": {"scale": ones(d)}, "ln2": {"scale": ones(d)},
-            "attn": attn, "ffn": ffn}
+    return {"ln1": _init_norm(cfg, d, device),
+            "ln2": _init_norm(cfg, d, device), "attn": attn, "ffn": ffn}
 
 
 def init(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
     """Random parameters in the port's layout, drawn from ``generator``
     directly on ``device`` (the same scales as the JAX package's
-    ``dense_init``: std 1/sqrt(fan_in), unit norm scales). The two
-    packages' generators differ, so tests carry weights across with
-    ``convert.params_from_numpy`` instead."""
+    ``dense_init``: std 1/sqrt(fan_in), unit norm scales, zero norm
+    biases). The two packages' generators differ, so tests carry weights
+    across with ``convert.params_from_numpy`` instead."""
     check_supported(cfg)
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError(f"norm_type={cfg.norm_type!r} init")
     params = {"embed": _dense((cfg.vocab_size, cfg.d_model), cfg.d_model,
                               generator, device),
-              "final_norm": {"scale": torch.ones(
-                  cfg.d_model, dtype=torch.float32, device=device)}}
+              "final_norm": _init_norm(cfg, cfg.d_model, device)}
     if not cfg.tie_embeddings:
         params["unembed"] = _dense((cfg.d_model, cfg.vocab_size),
                                    cfg.d_model, generator, device)
@@ -148,8 +159,16 @@ def apply_layer(cfg, p, x, positions):
 
 
 def forward_hidden(cfg: ArchConfig, params, tokens, *, positions=None):
-    """Token ids (B, S) -> final hidden states (B, S, d)."""
+    """Token ids (B, S) -> final hidden states (B, S, d), in fp32.
+
+    The JAX package computes at ``cfg.dtype`` (bfloat16 by default); the
+    port computes in fp32 only, so any other dtype raises instead of
+    returning fp32 numbers under a bf16 config."""
     check_supported(cfg)
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"{cfg.name}: dtype={cfg.dtype!r} is not ported to repro_torch "
+            "yet (the forward computes in float32 only)")
     x = params["embed"][tokens]
     B, S, _ = x.shape
     if positions is None:

@@ -9,6 +9,11 @@ the engine's host telemetry. Greedy streams are compared exactly; the
 compression survivors behind them are the margin-checked ones of
 tests/test_torch_compression.py (these prompts and weights carry no
 near-tie that flips).
+
+Every flow runs under the port's sanitizer (``core/invariants.py``, as
+``ZIPAGE_SANITIZE=1`` would arm it): each port engine audits its whole
+state after every step, and a violation fails the flow. The JAX engines
+are left as they are: the environment variable is not set.
 """
 import jax
 import numpy as np
@@ -24,11 +29,25 @@ from repro.models import lm as jlm
 from repro_torch.api import SamplingParams, Zipage
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
+from repro_torch.core import invariants
 from repro_torch.core.engine import EngineOptions, ZipageEngine
 
 SHAPES = dict(block_size=8, n_total_blocks=64, max_batch=4,
               max_model_len=128, prefill_rows=2, prefill_len=64)
 PROMPTS = [[1, 2, 3, 4, 5] * 6, list(range(10, 80)), list(range(100, 121))]
+
+
+@pytest.fixture(autouse=True)
+def sanitized(monkeypatch):
+    """Arm the port's sanitizer for every engine a flow builds, and count
+    its audits."""
+    audits = []
+    check = invariants.check_engine
+    monkeypatch.setattr(invariants, "enabled", lambda: True)
+    monkeypatch.setattr(invariants, "check_engine",
+                        lambda eng: audits.append(eng.step_count) or check(eng))
+    yield
+    assert audits, "no port engine stepped under the sanitizer"
 
 
 @pytest.fixture(scope="module")

@@ -6,7 +6,12 @@ same engine on the CPU. They skip without a card and nvcc (decided in the
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerance: atol = rtol = 1e-4 (fp32; the kernels sum in another order
-than PyTorch's reductions).
+than PyTorch's reductions). Card-vs-CPU logits: 1e-3.
+
+The head layouts of the other dense configs (g = 1 at h_kv 16, g = 6 at
+h_kv 8, g = 8 at h_kv 2, d = 128) have kernel checks of their own, and each
+of those configs runs at 2 layers of its full widths on the card and on the
+CPU with equal greedy and seeded streams.
 """
 import shutil
 
@@ -384,3 +389,109 @@ def test_lightning_redundancy_matches_plain(cuda, b, mb, lens):
             != want).any()                 # the zero-out fired
     assert torch.equal(got, ops.lightning_redundancy(k, bt, sl,
                                                      p_thresh=0.8))
+
+
+#: (h_q, h_kv) of OLMo-1B (g = 1), Nemotron-4-15B (g = 6), Qwen2.5-3B (g = 8)
+HEAD_LAYOUTS = [(16, 16), (48, 8), (16, 2)]
+
+
+@pytest.mark.parametrize("hq,hkv", HEAD_LAYOUTS)
+def test_kernels_match_plain_at_head_layouts(cuda, hq, hkv):
+    """All six kernels against their plain versions at a config's head
+    layout (d = 128, b = 16): a NaN page 0, NaN stale tails and seq_len ==
+    0 rows; dense == ragged bit for bit on live rows; B6 bit for bit."""
+    lens = [0, 1, 15, 16, 17, 100, 128, 0, 64, 33]
+    q, qw, k, v, bt, sl = [x.to(cuda) for x in _case(5, lens, hq=hq,
+                                                     hkv=hkv)]
+    ragged = ops.ragged_decode_attention(q, k, v, bt, sl)
+    _close(ragged, rpa.ragged_paged_attention_plain(q, k, v, bt, sl))
+    dense = ops.paged_decode_attention(q, k, v, bt, sl)
+    live = sl > 0
+    _close(dense[live], pa.paged_attention_plain(q, k, v, bt, sl)[live])
+    assert torch.equal(dense[live], ragged[live])
+    assert (ragged[~live] == 0).all() and (dense[~live] == 0).all()
+    _close(ops.score_logits(qw, k, bt, sl),
+           ps.paged_score_logits_plain(qw, k, bt, sl))
+    for fn, plain in ((ops.lightning_redundancy,
+                       red.lightning_redundancy_plain),
+                      (ops.flash_redundancy, red.flash_redundancy_plain)):
+        got = fn(k, bt, sl, p_thresh=0.8)
+        _close(got, plain(k, bt, sl, p_thresh=0.8))
+        assert torch.equal(got, fn(k, bt, sl, p_thresh=0.8))
+    rng = np.random.default_rng(hkv)
+    L, b, d, budget = 2, 16, 128, 3
+    mb = budget + 1
+    N = 3 * mb + 4
+    T, kk = mb * b, budget * b
+    pools = {n: torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+             for n, shape in (("k", (L, N + 1, b, hkv, d)),
+                              ("v", (L, N + 1, b, hkv, d)),
+                              ("f", (L, N + 1, b, hkv)))}
+    src, dest = _compaction_layout(rng, N, mb, budget)
+    src = torch.from_numpy(src)
+    dest_flat = torch.from_numpy(np.repeat(dest, b, axis=1) * b
+                                 + np.tile(np.arange(b), budget))
+    src_cache = torch.from_numpy(np.sort(np.argsort(
+        rng.random((L, 4, hkv, T)), axis=-1)[..., :kk], axis=-1))
+    new_f = torch.rand(L, 4, T, hkv, generator=torch.Generator().manual_seed(
+        hkv))
+    want = {n: x.clone() for n, x in pools.items()}
+    cmp.compact_plain(want["k"], want["v"], want["f"], new_f, src,
+                      src_cache, dest_flat)
+    got = {n: x.to(cuda) for n, x in pools.items()}
+    ops.compact(got["k"], got["v"], got["f"], new_f.to(cuda), src.to(cuda),
+                src_cache.to(cuda), dest_flat.to(cuda))
+    for n in pools:
+        assert torch.equal(got[n][:, :N].cpu(), want[n][:, :N]), n
+
+
+@pytest.mark.parametrize("hq,hkv", [(16, 16), (32, 8)])
+def test_idle_slots_match_plain(cuda, hq, hkv):
+    """What the serve passes for slots that decode nothing: seq_len 1 (a
+    never-used slot) or a stale seq_len over an empty table, and a -1
+    entry below seq_len in a live table. A -1 entry below seq_len is page
+    0, as the TPU kernels clamp it; page 0 holds finite data, as in a
+    serve. K1 once returned zeros for such rows where its plain version
+    read page 0 (16384 entries off by up to 4.3 at OLMo-1B's serve input,
+    g = 1); here both decode kernels equal the plain versions and each
+    other."""
+    lens = [1, 1, 57, 130, 16, 40, 0, 9]
+    q, _, k, v, bt, sl = _case(9, lens, hq=hq, hkv=hkv, mb=16, n_pages=80)
+    k[0] = torch.randn_like(k[0])
+    v[0] = torch.randn_like(v[0])
+    bt[:4] = -1
+    bt[4, 0] = -1
+    q, k, v, bt, sl = [x.to(cuda) for x in (q, k, v, bt, sl)]
+    ragged = ops.ragged_decode_attention(q, k, v, bt, sl)
+    dense = ops.paged_decode_attention(q, k, v, bt, sl)
+    want = rpa.ragged_paged_attention_plain(q, k, v, bt, sl)
+    _close(ragged, want)
+    _close(dense, pa.paged_attention_plain(q, k, v, bt, sl))
+    assert torch.equal(dense, ragged)
+    assert (ragged[:4].abs().amax(dim=(1, 2)) > 0).all()
+
+
+@pytest.mark.parametrize("name", ["olmo-1b", "qwen2.5-3b", "llama3-8b",
+                                  "nemotron-4-15b"])
+def test_config_on_card_matches_cpu_at_2_layers(cuda, name):
+    """2 layers of the config at its full widths and head layout (the
+    vocabulary capped at 65536 for the CPU side's memory): two greedy and
+    one seeded stream equal on the card and the CPU, compression firing."""
+    import dataclasses
+
+    from repro_torch.api import SamplingParams, Zipage
+    cfg = get_config(name)
+    cfg = dataclasses.replace(cfg, num_layers=2, dtype="float32",
+                              vocab_size=min(cfg.vocab_size, 65536))
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(2)
+    prompts = [[int(x) for x in rng.integers(0, cfg.vocab_size, n)]
+               for n in (70, 96, 81)]
+    sps = [SamplingParams(max_new_tokens=24)] * 2 + [SamplingParams(
+        max_new_tokens=24, temperature=0.6, top_p=0.95, top_k=20, seed=7)]
+    on_cpu = Zipage(cfg, params, device="cpu", max_batch=4).generate(
+        prompts, sps)
+    on_card = Zipage(cfg, _to(params, cuda), max_batch=4).generate(prompts,
+                                                                   sps)
+    assert [o.token_ids for o in on_card] == [o.token_ids for o in on_cpu]
+    assert min(o.metrics.compression.n_compressions for o in on_card) > 0

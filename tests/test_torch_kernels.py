@@ -3,8 +3,10 @@
 On the CPU each kernel of ``repro_torch.kernels`` runs its plain PyTorch
 version; here those are compared with ``repro.kernels.ops`` run through the
 Pallas interpreter (``backend="pallas-interpret"``) on the same numpy
-inputs, at GQA shapes (8, 2) and (32, 8) (the dense decode at (8, 2) and
-(4, 4)), over length mixes with inactive (seq_len == 0), sub-block,
+inputs, at GQA shapes (8, 2) and (32, 8) and at the head layouts of the
+other dense configs, g = 1 (OLMo-1B's MHA), 6 (Nemotron-4-15B) and 8
+(Qwen2.5-3B) (the dense decode at (8, 2), (4, 4) and those layouts), over
+length mixes with inactive (seq_len == 0), sub-block,
 block-aligned and full-table rows, and with a NaN-poisoned page 0 that no
 live row maps. The kernels of the second slice (dense decode, flash
 redundancy, compaction) run at the interpreter's small sizes: n <= 2 or
@@ -31,7 +33,9 @@ from repro_torch.kernels import ragged_paged_attention as rpa
 from repro_torch.kernels import redundancy as red
 
 ATOL = RTOL = 1e-5
-GQA_SHAPES = [(8, 2), (32, 8)]
+#: (h_q, h_kv): g = 4 (Qwen3-8B, Llama-3-8B), then g = 1, 6 and 8
+LAYOUTS = [(4, 4), (12, 2), (16, 2)]
+GQA_SHAPES = [(8, 2), (32, 8)] + LAYOUTS
 LENGTH_MIXES = [
     [0, 1, 7, 24, 13],
     [24, 24, 24, 24, 24],
@@ -169,7 +173,7 @@ def test_cuda_wrappers_refuse_cpu_tensors(wrapper, args):
 SMALL_MIXES = [[0, 13], [16, 5], [9, 0], [1, 16]]
 
 
-@pytest.mark.parametrize("hq,hkv", [(8, 2), (4, 4)])
+@pytest.mark.parametrize("hq,hkv", [(8, 2)] + LAYOUTS)
 @pytest.mark.parametrize("mix", range(len(SMALL_MIXES)))
 @pytest.mark.parametrize("poison", [False, True])
 def test_dense_decode_matches_pallas(hq, hkv, mix, poison):
@@ -187,7 +191,7 @@ def test_dense_decode_matches_pallas(hq, hkv, mix, poison):
     np.testing.assert_array_equal(got.numpy()[sl == 0], 0.0)
 
 
-@pytest.mark.parametrize("hq,hkv", [(8, 2), (4, 4), (32, 8)])
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (32, 8)] + LAYOUTS)
 @pytest.mark.parametrize("mix", range(len(LENGTH_MIXES)))
 def test_dense_equals_ragged_on_live_rows(hq, hkv, mix):
     """The plain dense and ragged versions agree bit for bit on live rows
@@ -427,9 +431,10 @@ def decode_by_chunks(q, kp, vp, bt, sl, chunk_pages, dense, rows=16,
     a chunk walked in tiles of ``rows`` positions, each of ``warps`` warps
     taking rows // warps rows of a tile with its own online-softmax state;
     a chunk's warp states merged in warp order into the chunk's part, and
-    the parts merged in chunk order. ``dense`` walks every tile of every
-    chunk and reads a -1 entry as page 0 (masked); the ragged walk stops
-    at seq_len, reads no table entry past ceil(seq_len / b) and merges the
+    the parts merged in chunk order. A position is valid iff it is below
+    seq_len; a -1 table entry reads page 0 (the TPU kernels' clamp).
+    ``dense`` walks every tile of every chunk; the ragged walk stops at
+    seq_len, reads no table entry past ceil(seq_len / b) and merges the
     live chunks only."""
     f32 = np.float32
     B, hq, d = q.shape
@@ -466,7 +471,7 @@ def decode_by_chunks(q, kp, vp, bt, sl, chunk_pages, dense, rows=16,
                                 continue
                             j = rel // b
                             e = int(bt[i, e0 + j]) if j < n_read else -1
-                            valid[r] = pos0 + rel < L and e >= 0
+                            valid[r] = pos0 + rel < L
                             if dense or valid[r]:
                                 K[r] = kp[max(e, 0), rel % b, h]
                                 V[r] = vp[max(e, 0), rel % b, h]
@@ -512,3 +517,33 @@ def test_decode_by_chunks_matches_pallas_and_walks_agree(chunk_pages, mix):
         ragged, ops.ragged_decode_attention(t(q), t(kp), t(vp), t(bt),
                                             t(sl)).numpy(),
         rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (4, 4)])
+def test_idle_slots_read_page_zero(hq, hkv):
+    """A slot that decodes nothing still attends seq_len + 1 entries over
+    an empty (all -1) table, as the serve passes it every step; a -1 entry
+    below seq_len is page 0 in the JAX package's ragged and dense kernels
+    (their clamp) and in the port's plain versions and chunked walks. The
+    first rows are such idle slots, the last a live row with a -1 entry in
+    the middle of its table."""
+    lens = [1, 9, 17, 13]
+    q, kp, vp, bt, sl = make_case(hq, hkv, lens, seed=80)
+    bt[:3] = -1
+    bt[3, 1] = -1
+    ragged = ops.ragged_decode_attention(t(q), t(kp), t(vp), t(bt), t(sl))
+    dense = ops.paged_decode_attention(t(q), t(kp), t(vp), t(bt), t(sl))
+    assert torch.equal(dense, ragged)
+    for fn in (jops.ragged_decode_attention, jops.paged_decode_attention):
+        want = np.asarray(fn(q, kp, vp, bt, sl, backend="pallas-interpret"))
+        np.testing.assert_allclose(ragged.numpy(), want, rtol=RTOL,
+                                   atol=ATOL)
+    # row 0 attends the first entry of page 0 alone: its V there, per head
+    np.testing.assert_allclose(
+        ragged[0].numpy(), np.repeat(vp[0, 0], hq // hkv, axis=0),
+        rtol=RTOL, atol=ATOL)
+    for chunk_pages in (1, 6):
+        for walk in (True, False):
+            got = decode_by_chunks(q, kp, vp, bt, sl, chunk_pages, dense=walk)
+            np.testing.assert_allclose(got, ragged.numpy(), rtol=RTOL,
+                                       atol=ATOL)

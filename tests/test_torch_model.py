@@ -38,7 +38,8 @@ def jax_params(jcfg, seed=0):
     return params, jax.tree.map(np.asarray, params)
 
 
-@pytest.mark.parametrize("name", ["qwen3-8b", "tiny-lm"])
+@pytest.mark.parametrize("name", ["qwen3-8b", "tiny-lm", "llama3-8b",
+                                  "qwen2.5-3b", "olmo-1b", "nemotron-4-15b"])
 def test_config_copies_match(name):
     """The port keeps its own copies of the configs; they must describe
     the same networks."""

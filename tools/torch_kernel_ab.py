@@ -6,6 +6,7 @@ turns.
     python3 tools/torch_kernel_ab.py --before <dir>/src \
         --kernels lightning_redundancy paged_attention ragged_paged_attention
     python3 tools/torch_kernel_ab.py --before <dir>/src --kernels compaction
+    python3 tools/torch_kernel_ab.py --before <dir>/src --idle-slots
 
 Runs four worker processes one after another -- before, after, after,
 before -- each importing ``repro_torch`` from its own copy of a source
@@ -21,9 +22,13 @@ the checks against the plain versions, then event, device and host ms of
 each kernel and its library yardstick, with the bound. A kernel that the
 older version refuses at launch (a compaction kernel that staged a whole
 stripe in shared memory took no budget above 28 blocks) is recorded as
-refused in a "before" turn; in an "after" turn it fails the run. Prints
-one line per kernel and turn and writes ``chiprun_out/kernel_ab.json``.
-Needs a card; imports no JAX.
+refused in a "before" turn; in an "after" turn it fails the run.
+``--idle-slots`` also runs ``chip_smoke.check_idle_slots`` (K1 and B4
+against their plain versions on slots that attend seq_len >= 1 over an
+empty table, as the serve passes them) at g = 1 (h_kv 16) and g = 4
+(h_kv 8), recording a disagreement instead of failing. Prints one line
+per kernel and turn and writes ``chiprun_out/kernel_ab.json``. Needs a
+card; imports no JAX.
 """
 from __future__ import annotations
 
@@ -49,7 +54,11 @@ INPUTS = {"serve": ((4, [64, 64]),
                    chip_smoke.LONG_BUDGET)}
 
 
-def worker(src, names, allow_refused):
+#: --idle-slots: label -> (h_q, h_kv) at Qwen3-8B's other widths
+IDLE_LAYOUTS = {"g = 1, h_kv 16": (16, 16), "g = 4, h_kv 8": (32, 8)}
+
+
+def worker(src, names, allow_refused, idle_slots=False):
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: no CUDA device")
@@ -65,7 +74,24 @@ def worker(src, names, allow_refused):
         native.build_all()
         dev = torch.device("cuda")
         out = {}
+        if idle_slots:
+            import dataclasses
+
+            import numpy as np
+            out["idle_slots"] = {}
+            for label, (hq, hkv) in IDLE_LAYOUTS.items():
+                cfg = dataclasses.replace(get_config("qwen3-8b"),
+                                          num_heads=hq, num_kv_heads=hkv)
+                try:
+                    rec = {"max_abs_err": chip_smoke.check_idle_slots(
+                        torch, dev, cfg, EngineOptions(),
+                        np.random.default_rng(0), f"idle[{label}]")}
+                except AssertionError as e:
+                    rec = {"differs": str(e)}
+                out["idle_slots"][label] = rec
         for label, (comp, dec, budget) in INPUTS.items():
+            if not names:
+                break
             out[label] = {}
             for name in names:
                 try:
@@ -85,25 +111,29 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--before", required=True,
                     help="a src/ directory holding the older repro_torch")
-    ap.add_argument("--kernels", nargs="+", required=True,
+    ap.add_argument("--kernels", nargs="*", default=[],
                     choices=chip_smoke.TIMED_AT, help="kernels to time")
+    ap.add_argument("--idle-slots", action="store_true",
+                    help="check K1 and B4 on idle slots in each turn")
     ap.add_argument("--worker", metavar="SRC", help=argparse.SUPPRESS)
     ap.add_argument("--allow-refused", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
         print(json.dumps(worker(args.worker, args.kernels,
-                                args.allow_refused)))
+                                args.allow_refused, args.idle_slots)))
         return 0
     card = chip_smoke.card_line()
     turns = [("before", args.before), ("after", str(ROOT / "src")),
              ("after", str(ROOT / "src")), ("before", args.before)]
     results = []
     for version, src in turns:
-        refused = ["--allow-refused"] if version == "before" else []
+        flags = ["--allow-refused"] if version == "before" else []
+        if args.idle_slots:
+            flags.append("--idle-slots")
         out = subprocess.run([sys.executable, __file__, "--before",
                               args.before, "--kernels", *args.kernels,
-                              "--worker", src, *refused],
+                              "--worker", src, *flags],
                              capture_output=True, text=True,
                              timeout=900, env={**os.environ,
                                                "PYTHONPATH": ""})
@@ -113,6 +143,11 @@ def main(argv=None):
                              f"(exit code {out.returncode})")
         recs = json.loads(out.stdout.strip().splitlines()[-1])
         results.append({"version": version, "inputs": recs})
+        for label, r in recs.pop("idle_slots", {}).items():
+            print(f"{version:6s} idle slots at {label}: " + (
+                f"K1 and B4 equal their plain versions, max_abs_err "
+                f"{r['max_abs_err']:.3e}" if "max_abs_err" in r
+                else r["differs"]), flush=True)
         for label, by_name in recs.items():
             for name, r in by_name.items():
                 if "refused" in r:
