@@ -25,20 +25,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
      serve passes them), where a -1 entry below seq_len reads page 0;
   4. card vs CPU at Qwen3-8B widths and 2 layers: one paged prefill and a
      few decode steps (logits), the threefry sampling noise (bit for bit),
-     greedy and seeded streams through the dense-decode / flash path, and
-     greedy streams at n_max = 33 (k = 512) with compression firing; then
+     a fused chunk of 4 decode steps replayed from its CUDA graph against
+     the same chunk run eagerly, greedy and seeded, at offsets 0 and 4,
+     with an eos mid-chunk and idle slots (tokens, logprobs and state bit
+     for bit), greedy and seeded streams through the dense-decode / flash
+     path (also at ``decode_steps=8`` on the card and unfused on the CPU,
+     all four equal), and greedy streams at n_max = 33 (k = 512) with
+     compression firing; then
      at 2 layers of each other dense config, its own widths and head
      layout (vocabulary capped at CPU_VOCAB, logged): logits, and greedy
      and seeded streams with compression firing (Qwen2.5-3B's also through
      the dense-decode / flash path);
   5. the main serve at full width: ``Zipage.from_config("qwen3-8b")`` at
-     the engine defaults (36 layers, fp32, random weights from a seed)
-     serves greedy requests; compression must fire, every compression goes
-     through the compaction kernel and no plain version runs;
+     the engine defaults (36 layers, fp32, random weights from a seed,
+     ``decode_steps=1``, every decode step a CUDA graph replay) serves
+     greedy requests; compression must fire, every compression goes
+     through the compaction kernel, no plain version runs, and the decode
+     kernels' launches are counted through the replays;
   5b. the paper's Alg. 3 / Alg. 4 serve at full width on the same weight
      tensors: ``decode_kernel="dense"`` and flash redundancy, four greedy
      and four seeded requests (Qwen3's thinking-mode sampling);
-  6. timing of each kernel at the serves' own inputs: kernel, plain
+  6. timing of each kernel at the serves' own inputs (K1 and B4 at the
+     serve's state at its fullest step, held against their plain versions
+     there first; the compression kernels at recorded calls): kernel, plain
      version, a library call that computes the same function (or its
      product), and the bound from bytes and flops; for the kernel and the
      library call, CUDA-event time, device time (torch.profiler, the
@@ -51,6 +60,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      plain bit for bit, B4 against K1 bit for bit on live rows);
   7. a profiled window of decode steps of the main serve: device-busy
      share of wall time and kernel time by group;
+  7b. paired serves of Qwen3-8B at full width on the same weights, at
+     ``decode_steps`` 1, 8, 8 and 1 in turn: 4 greedy and 4 seeded
+     requests with logprobs, whose streams and logprobs must be equal in
+     all four; tok/s, step median, steps, graph replays, launches and the
+     device-idle share of a profiled window of each;
   8. with Qwen3-8B's weights released, each other dense config, smallest
      to largest (OLMo-1B, Qwen2.5-3B, Llama-3-8B, Nemotron-4-15B), at full
      width and depth through ``Zipage.from_config`` under
@@ -533,7 +547,9 @@ def phase_card_vs_cpu(torch, dev, cfg):
     worst = check_logits(torch, dev, small, p_cpu, p_dev, "card-vs-cpu",
                          f"{cfg.name} widths")
     check_noise(torch, dev, small.vocab_size)
-    check_streams(torch, dev, small, p_cpu, p_dev)
+    for greedy in (True, False):
+        check_graph_vs_eager(torch, dev, small, p_dev, greedy)
+    check_streams(torch, dev, small, p_cpu, p_dev, modes=True)
     check_budget_streams(torch, dev, small, p_cpu, p_dev)
     del p_dev
     torch.cuda.empty_cache()
@@ -635,12 +651,126 @@ def check_noise(torch, dev, vocab):
         "card and the CPU ok")
 
 
+def _graph_state(torch, dev, cfg, spec, seed):
+    """A decode state at ``cfg``'s widths: random pools and windows, five
+    live slots of 33-70 entries, one idle slot with a stale seq_len over
+    an empty table, two never used (seq_len 0)."""
+    from repro_torch.core import serve_model
+    g = torch.Generator(device=dev).manual_seed(seed)
+    st = serve_model.make_state(cfg, spec, dev)
+    for name in ("k", "v"):
+        st["pools"][name].normal_(generator=g)
+    st["pools"]["f"].uniform_(generator=g)
+    st["qwin"].normal_(generator=g)
+    b = spec.block_size
+    lens = [40, 57, 70, 33, 64, 21, 0]
+    page = 1
+    for i, n in enumerate(lens[:5]):
+        n = -(-(n + 8) // b)
+        st["block_tables"][i, :n] = torch.arange(page, page + n)
+        page += n
+    st["seq_lens"][:7] = torch.tensor(lens, dtype=torch.int32)
+    st["positions"][:7] = torch.tensor(lens, dtype=torch.int32) + 3
+    st["qslot"][:4] = torch.arange(4, dtype=torch.int32)
+    st["tokens_next"].random_(0, cfg.vocab_size, generator=g)
+    st["active_mask"][:5] = True
+    st["sample_counters"][:5] = torch.tensor([0, 5, 9, 1, 2],
+                                              dtype=torch.int32)
+    return st
+
+
+def check_graph_vs_eager(torch, dev, small, p_dev, greedy):
+    """The fused decode chunk (n_steps = 4) of ``small`` run eagerly on one
+    clone of a state and by replays of its captured CUDA graph on another,
+    at chunk offsets 0 and 4 (idx0 on the card): tokens, logprobs and the
+    state after both chunks must be the same bits. Row 0 meets its eos in
+    the first chunk; three slots are idle. The sink page and the sink
+    query slot are left out: the dropped writes of idle rows land there in
+    no fixed order."""
+    from repro_torch.core import serve_model
+    from repro_torch.core.decode_graphs import DecodeGraphs
+    from repro_torch.kernels import ops
+
+    spec = serve_model.ServeSpec(n_slots=8, block_size=16, max_blocks=8,
+                                 n_total_blocks=40, m_qslots=4, window=4)
+    st0 = _graph_state(torch, dev, small, spec, SEED + 9)
+    i32 = dict(dtype=torch.int32, device=dev)
+    inp = [torch.zeros((), **i32),
+           torch.tensor([8, 8, 3, 6, 8, 8, 8, 8], **i32),
+           torch.tensor([7, 2**31 + 5, 11, 0, 3, 1, 2, 4], device=dev),
+           torch.zeros(8, device=dev), torch.zeros(8, **i32),
+           torch.ones(8, device=dev),
+           torch.full((8, 2), -1, dtype=torch.int64, device=dev)]
+    if not greedy:
+        inp[3][1:4] = THINKING["temperature"]
+        inp[4][1:4] = THINKING["top_k"]
+        inp[5][1:4] = THINKING["top_p"]
+    fused = serve_model.build_fused_decode_step(small, spec, 4,
+                                                greedy=greedy)
+    probe = fused(p_dev, _tree_clone(st0), *inp)[0][:, 0].tolist()
+    inp[6][0, 1] = probe[1]
+    n0 = probe.index(probe[1]) + 1          # row 0's tokens up to its eos
+    eager, replayed = _tree_clone(st0), _tree_clone(st0)
+    graphs = DecodeGraphs(lambda k, g: fused(p_dev, replayed, *inp), inp[1])
+    before = ops.launch_counts["ragged_paged_attention"]
+    graphs.capture(4, greedy, 2)
+    if ops.launch_counts["ragged_paged_attention"] != before:
+        raise AssertionError("graphs: the capture counted launches")
+    outs = {"eager": [], "graph": []}
+    for off in (0, 4):
+        inp[0].fill_(off)
+        outs["eager"].append([t.clone() for t in fused(p_dev, eager, *inp)])
+        outs["graph"].append([t.clone() for t in graphs.replay(4, greedy,
+                                                               2)])
+    torch.cuda.synchronize()
+    counted = ops.launch_counts["ragged_paged_attention"] - before
+    pairs = [(f"{what} {i}", a, b)
+             for i, (x, y) in enumerate(zip(outs["eager"], outs["graph"]))
+             for what, a, b in (("tokens", x[0], y[0]),
+                                ("logprobs", x[1], y[1]))]
+    for name in ("seq_lens", "positions", "sample_counters", "active_mask",
+                 "tokens_next"):
+        pairs.append((name, eager[name], replayed[name]))
+    for name in ("k", "v", "f"):
+        pairs.append((f"pools[{name}]", eager["pools"][name][:, :-1],
+                      replayed["pools"][name][:, :-1]))
+    pairs.append(("qwin", eager["qwin"][:, :-1], replayed["qwin"][:, :-1]))
+    for name, a, b in pairs:
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not bool(torch.equal(a, b)):
+            raise AssertionError(f"graphs: {name} differs between eager and "
+                                 f"replay ({int((a != b).sum())} entries)")
+    steps = (eager["seq_lens"] - st0["seq_lens"]).tolist()
+    if steps != [n0, 8, 3, 6, 8, 0, 0, 0] or bool(eager["active_mask"][0]):
+        raise AssertionError(f"graphs: rows decoded {steps} tokens, expected "
+                             f"[{n0}, 8, 3, 6, 8, 0, 0, 0] with row 0 halted")
+    expect = 2 * 4 * small.num_layers * 2   # 2 replays + 2 eager chunks
+    if counted != expect:
+        raise AssertionError(f"graphs: {counted} K1 launches counted, "
+                             f"expected {expect}")
+    log("graphs", f"{'greedy' if greedy else 'seeded'} chunk of 4 at 2 "
+        f"layers of {small.name} widths, offsets 0 and 4: replay == eager "
+        f"bit for bit (tokens, logprobs, pools, qwin, seq_lens, positions, "
+        f"counters, mask); rows decoded {steps}, row 0 halted at its eos; "
+        f"captured launches {graphs.launches()}")
+
+
+def _tree_clone(t):
+    if isinstance(t, dict):
+        return {k: _tree_clone(v) for k, v in t.items()}
+    return t.clone()
+
+
 def check_streams(torch, dev, small, p_cpu, p_dev, phase="card-vs-cpu",
-                  alg34=True):
+                  alg34=True, modes=False):
     """Greedy and seeded streams, card against CPU, with compression
     firing: two of each through the Alg. 3 / Alg. 4 path (dense decode,
     flash redundancy, compaction), or (``alg34=False``) two greedy and one
-    seeded through the main path (ragged decode, lightning redundancy)."""
+    seeded through the main path (ragged decode, lightning redundancy).
+    ``modes`` adds the card at ``decode_steps=8`` (graph replays of
+    chunks of up to 4) and the CPU's unfused path, whose streams must be
+    the same."""
     import numpy as np
     from repro_torch.api import SamplingParams, Zipage
     from repro_torch.core.compression import CompressOptions
@@ -657,14 +787,26 @@ def check_streams(torch, dev, small, p_cpu, p_dev, phase="card-vs-cpu",
     if not alg34:
         prompts, sps, knobs = prompts[:3], sps[:3], dict(max_batch=4)
     outs, n_comp = {}, {}
-    for name, device, params in (("cpu", "cpu", p_cpu), ("card", dev, p_dev)):
-        z = Zipage(small, params, device=device, **knobs)
+    runs = [("cpu", "cpu", p_cpu, {}), ("card", dev, p_dev, {})]
+    if modes:
+        runs += [("card K=8", dev, p_dev, dict(decode_steps=8)),
+                 ("cpu unfused", "cpu", p_cpu, dict(fuse_sampling=False))]
+    for name, device, params, mode in runs:
+        z = Zipage(small, params, device=device, **knobs, **mode)
         outs[name] = z.generate(prompts, sps)
         n_comp[name] = [o.metrics.compression.n_compressions
                         for o in outs[name]]
         if sum(n_comp[name]) == 0:
             raise AssertionError(f"{phase}: streams on {name}: no "
                                  "compression")
+        if mode.get("decode_steps", 1) > 1 and max(
+                m["decode_horizon"] for m in z.metrics) < 2:
+            raise AssertionError(f"{phase}: {name}: no horizon above 1")
+        if name not in ("cpu", "card") and [
+                o.token_ids for o in outs[name]] != [
+                o.token_ids for o in outs["cpu"]]:
+            raise AssertionError(f"{phase}: {name} streams differ from the "
+                                 "CPU's fused K = 1 streams")
     for i, (a, b) in enumerate(zip(outs["cpu"], outs["card"])):
         kind = "greedy" if sps[i].is_greedy else "seeded"
         log(phase, f"{kind} stream {i}: card {b.token_ids[:12]}...")
@@ -678,8 +820,8 @@ def check_streams(torch, dev, small, p_cpu, p_dev, phase="card-vs-cpu",
     path = ("dense decode + flash redundancy" if alg34 else
             "ragged decode + lightning redundancy")
     log(phase, f"{path}, {len(sps) - n_seeded} greedy and {n_seeded} seeded "
-        f"streams of 24 tokens: card == CPU ok; compressions per request "
-        f"{n_comp['card']}")
+        f"streams of 24 tokens: {' == '.join(outs)} ok; compressions per "
+        f"request {n_comp['card']}")
 
 
 def check_budget_streams(torch, dev, small, p_cpu, p_dev):
@@ -728,12 +870,14 @@ def _tree_to(t, dev):
 
 
 class Recorder:
-    """Keeps references to the inputs of the kernels' calls during a serve
-    (no copies, no syncs), so phase 6 times the kernels on exactly the
-    serve's inputs."""
+    """Keeps references to the inputs of the compression kernels' calls
+    during a serve (no copies, no syncs), so phase 6 times them on exactly
+    the serve's inputs. The decode kernels run inside captured CUDA graphs,
+    whose arguments live in the graphs' memory pool and hold whatever a
+    later replay left there; their input comes from ``DecodeInputs``."""
 
-    NAMES = ("ragged_decode_attention", "score_logits", "lightning_redundancy",
-             "paged_decode_attention", "flash_redundancy", "compact")
+    NAMES = ("score_logits", "lightning_redundancy", "flash_redundancy",
+             "compact")
 
     def __init__(self, ops):
         self.ops = ops
@@ -758,6 +902,45 @@ class Recorder:
     def __exit__(self, *exc):
         for name, fn in self.orig.items():
             setattr(self.ops, name, fn)
+
+
+class DecodeInputs:
+    """A step hook that keeps the decode kernels' input of the serve with
+    the most live entries: after a step, the engine's block tables,
+    ``seq_lens + 1`` (the lengths its next decode step passes, idle slots
+    as they come) and layer 0's K and V pools, cloned on the card, and
+    later a query drawn from the seed. Live entries are counted on the
+    host mirrors, which equal the device state after a step (the
+    sanitizer holds them to it), so the hook reads nothing back."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.best, self.best_live = None, -1
+        eng.step_hooks.append(self)
+
+    def __call__(self, entry):
+        import numpy as np
+        e = self.eng
+        mapped = (e.host_bt >= 0).sum(1) * e.opts.block_size
+        live = int(np.minimum(e.host_seq + 1, mapped).sum())
+        if live <= self.best_live:
+            return
+        st = e.state
+        self.best = (st["pools"]["k"][0].clone(), st["pools"]["v"][0].clone(),
+                     st["block_tables"].clone(), st["seq_lens"] + 1)
+        self.best_live = live
+
+    def close(self):
+        self.eng.step_hooks.remove(self)
+
+    def args(self, torch):
+        """(q, k_pages, v_pages, block_tables, seq_lens) for K1 and B4."""
+        kp, vp, bt, sl = self.best
+        cfg = self.eng.cfg
+        gen = torch.Generator(device=kp.device).manual_seed(SEED + 8)
+        q = torch.randn(bt.shape[0], cfg.num_heads, cfg.head_dim,
+                        generator=gen, device=kp.device)
+        return q, kp, vp, bt, sl
 
 
 class PlainGuard:
@@ -808,6 +991,8 @@ def run_serve(torch, card, z, label, prompts, sps, path):
 
     eng = z.engine
     cfg = z.cfg
+    hook = DecodeInputs(eng)
+    replays0 = eng._graphs.replays
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t = time.monotonic()
@@ -816,6 +1001,10 @@ def run_serve(torch, card, z, label, prompts, sps, path):
         torch.cuda.synchronize()
     wall = time.monotonic() - t
     launches = dict(ops.launch_counts)
+    hook.close()
+    rec.decode_args = hook.args(torch)
+    replays = eng._graphs.replays - replays0
+    horizons = [m["decode_horizon"] for m in eng.metrics]
     n_tok = sum(len(o.token_ids) for o in outs)
     steps = [m["t_total"] for m in eng.metrics]
     n_comp = sum(o.metrics.compression.n_compressions for o in outs)
@@ -836,6 +1025,10 @@ def run_serve(torch, card, z, label, prompts, sps, path):
     log(label, f"{n_comp} compressions in {n_batches} launches; kernel "
         f"launches {launches}; decode pages visited {visited} (ragged) vs "
         f"{dense} (dense, decode_kernel={eng.opts.decode_kernel!r})")
+    log(label, f"decode_steps={eng.opts.decode_steps}: {replays} graph "
+        f"replays, horizon max {max(horizons)} mean "
+        f"{statistics.mean(horizons):.2f}; graphs captured "
+        f"{sorted(eng._graphs.graphs)}")
     # the repo's own checks of a finished serve
     assert all(len(o.token_ids) == NEW_TOKENS for o in outs), "short output"
     assert all(o.finish_reason == "length" for o in outs)
@@ -851,14 +1044,18 @@ def run_serve(torch, card, z, label, prompts, sps, path):
         assert name in path or n == 0, f"{name} launched off its path"
     assert launches["compaction"] == n_batches, \
         "a compression did not go through the compaction kernel"
+    assert replays > 0, f"no decode graph replayed ({label})"
     summary = {"tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
                "steps": len(steps), "step_median_ms": 1e3 * statistics.median(
                    steps), "compressions": n_comp,
                "compression_launches": n_batches, "launches": launches,
                "pages_visited": visited, "pages_dense": dense,
                "decode_kernel": eng.opts.decode_kernel,
-               "redundancy": eng.opts.compress.redundancy}
-    return rec, launches, summary
+               "redundancy": eng.opts.compress.redundancy,
+               "decode_steps": eng.opts.decode_steps, "graph_replays": replays,
+               "horizon_max": max(horizons),
+               "horizon_mean": statistics.mean(horizons)}
+    return rec, launches, summary, outs
 
 
 def phase_serve(torch, card):
@@ -879,8 +1076,8 @@ def phase_serve(torch, card):
         f"max_batch={eng.opts.max_batch}")
     prompts = make_prompts(cfg)
     sps = [SamplingParams(max_new_tokens=NEW_TOKENS)] * N_REQUESTS
-    rec, launches, summary = run_serve(torch, card, z, "serve", prompts, sps,
-                                       MAIN_PATH)
+    rec, launches, summary, _ = run_serve(torch, card, z, "serve", prompts,
+                                          sps, MAIN_PATH)
     return z, rec, launches, summary
 
 
@@ -898,8 +1095,8 @@ def phase_serve_alg34(torch, card, z_main):
     sps = [SamplingParams(max_new_tokens=NEW_TOKENS)] * half + [
         SamplingParams(max_new_tokens=NEW_TOKENS, seed=SEED + i, **THINKING)
         for i in range(N_REQUESTS - half)]
-    rec, launches, summary = run_serve(torch, card, z, "serve-alg34", prompts,
-                                       sps, ALG34_PATH)
+    rec, launches, summary, _ = run_serve(torch, card, z, "serve-alg34",
+                                          prompts, sps, ALG34_PATH)
     return z, rec, launches, summary
 
 
@@ -1027,17 +1224,38 @@ def _pick(calls, key):
 
 
 def phase_timing(torch, rec, rec34, launches, launches34, errs):
-    """Times every kernel at a recorded input of its serve: K1-K3 from the
-    main serve, B4-B6 from the Alg. 3 / Alg. 4 serve, whose launch count is
-    the row's ``launches``; ``launches_per_serve`` has both."""
+    """Times every kernel at an input of its serve: K1-K3 from the main
+    serve, B4-B6 from the Alg. 3 / Alg. 4 serve, whose launch count is the
+    row's ``launches``; ``launches_per_serve`` has both. The compression
+    kernels' inputs are recorded calls; the decode kernels' are the
+    serve's state at the step with the most live entries
+    (``DecodeInputs``), where K1 and B4 are first held against their plain
+    versions, B4 against K1 bit for bit on live rows."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ragged_paged_attention as rpa
+
     per_serve = {n: {"main": launches[n], "alg34": launches34[n]}
                  for n in launches}
+    errs = dict(errs)
+    for mod, args in ((rpa, rec.decode_args), (pa, rec34.decode_args)):
+        got = getattr(mod, mod.NAME + "_cuda")(*args)
+        e = max_err(torch, got, getattr(mod, mod.NAME + "_plain")(*args),
+                    f"{mod.NAME}[serve state]")
+        live = args[4] > 0
+        other = (rpa if mod is pa else pa)
+        if not bool(torch.equal(got[live], getattr(
+                other, other.NAME + "_cuda")(*args)[live])):
+            raise AssertionError(f"{mod.NAME}[serve state]: dense and "
+                                 "ragged decode differ on live rows")
+        b = args[1].shape[1]
+        idle = int(((args[3] >= 0).sum(1) * b < args[4]).sum())
+        log("timing", f"{mod.NAME} at the serve's state: max_abs_err={e:.3e}"
+            f" (atol=rtol={TOL}), {idle} idle rows of {args[0].shape[0]}, "
+            f"seq_lens {args[4].tolist()}")
+        errs[mod.NAME] = max(errs[mod.NAME], e)
 
     def pick(r, op, key):
         return _pick(r.calls[op], key)
-
-    def decode_live(a):
-        return _live_entries(a[3], a[4], a[1].shape[1])
 
     def comp_live(a):
         return _live_entries(a[1], a[2], a[0].shape[1])
@@ -1047,15 +1265,12 @@ def phase_timing(torch, rec, rec34, launches, launches34, errs):
 
     specs = [
         ("main", decode_spec(torch, "ragged_paged_attention",
-                             pick(rec, "ragged_decode_attention",
-                                  decode_live)[0])),
+                             rec.decode_args)),
         ("main", score_spec(torch, pick(rec, "score_logits", score_live)[0])),
         ("main", redundancy_spec(torch, "lightning_redundancy",
                                  *pick(rec, "lightning_redundancy",
                                        comp_live))),
-        ("alg34", decode_spec(torch, "paged_attention",
-                              pick(rec34, "paged_decode_attention",
-                                   decode_live)[0])),
+        ("alg34", decode_spec(torch, "paged_attention", rec34.decode_args)),
         ("alg34", redundancy_spec(torch, "flash_redundancy",
                                   *pick(rec34, "flash_redundancy",
                                         comp_live))),
@@ -1395,7 +1610,10 @@ def phase_long(torch, dev, cfg, opts, rows):
 # phase 7: profiled decode window
 
 
-def phase_profile(torch, z, card):
+def phase_profile(torch, z, card, label="profile", new_tokens=40):
+    """A profiled window of 8 steps of ``z`` over 4 fresh requests of
+    ``new_tokens`` tokens, after 3 steps of admission and prefill: the
+    device-busy share of wall time and kernel time by group."""
     import numpy as np
     from repro_torch.api import SamplingParams
     from torch.profiler import ProfilerActivity, profile
@@ -1404,11 +1622,12 @@ def phase_profile(torch, z, card):
     for n in rng.integers(60, 121, 4):
         z.add_request([int(x) for x in rng.integers(0, z.cfg.vocab_size,
                                                     int(n))],
-                      SamplingParams(max_new_tokens=40))
+                      SamplingParams(max_new_tokens=new_tokens))
     for _ in range(3):              # admission + prefill, out of the window
         z.step()
     torch.cuda.synchronize()
     n_steps = 8
+    tokens0 = sum(m["tokens"] for m in z.metrics)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.monotonic()
@@ -1416,6 +1635,7 @@ def phase_profile(torch, z, card):
             z.step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.monotonic() - t)
+    n_tok = sum(m["tokens"] for m in z.metrics) - tokens0
     groups = {}
     calls = {}                # device time and count of the port's kernels
     busy = 0.0
@@ -1434,17 +1654,79 @@ def phase_profile(torch, z, card):
     while z.has_unfinished():
         z.step()
     if busy <= 0:
-        log("profile", "the profiler recorded no device time (not measured)")
+        log(label, "the profiler recorded no device time (not measured)")
         return None
-    log("profile", f"{card}: {n_steps} steps in {wall_ms:.1f} ms wall, device "
-        f"busy {busy:.1f} ms ({busy / wall_ms:.3f} of wall)")
+    log(label, f"{card}: {n_steps} steps, {n_tok} tokens in {wall_ms:.1f} ms "
+        f"wall, device busy {busy:.1f} ms ({busy / wall_ms:.3f} of wall, "
+        f"idle {1 - busy / wall_ms:.3f})")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log("profile", f"  {g:<24s} {ms:8.2f} ms ({ms / busy:.3f} of busy)")
+        log(label, f"  {g:<24s} {ms:8.2f} ms ({ms / busy:.3f} of busy)")
     for g, (ms, n) in sorted(calls.items()):
-        log("profile", f"  {g}: {n} CUDA kernels, {ms / n:.4f} ms of device "
+        log(label, f"  {g}: {n} CUDA kernels, {ms / n:.4f} ms of device "
             "time each")  # a K1 or B4 call runs two: chunks, then merge
-    return {"steps": n_steps, "wall_ms": wall_ms, "busy_ms": busy,
+    return {"steps": n_steps, "tokens": n_tok, "wall_ms": wall_ms,
+            "busy_ms": busy, "idle": 1 - busy / wall_ms,
             "groups_ms": groups, "kernel_calls": calls}
+
+
+#: decode_steps of the paired serves, in order
+PAIRED_STEPS = (1, 8, 8, 1)
+
+
+def phase_paired(torch, card, z_main):
+    """Qwen3-8B at full width on the main serve's weights, served at
+    ``decode_steps`` 1, 8, 8 and 1 in turn (each a fresh engine whose
+    fused chunks replay CUDA graphs): 4 greedy and 4 seeded requests of
+    NEW_TOKENS tokens with logprobs. Token streams and logprobs must be
+    equal across the four serves (the tests/test_fused_decode.py
+    contract), and K = 8 must reach a horizon above 1. Each serve also
+    reads the device-idle share of a profiled window (``phase_profile``).
+    No limit is set on the times."""
+    from repro_torch.api import SamplingParams, Zipage
+
+    prompts = make_prompts(z_main.cfg)
+    half = N_REQUESTS // 2
+    sps = [SamplingParams(max_new_tokens=NEW_TOKENS, logprobs=True)] * half \
+        + [SamplingParams(max_new_tokens=NEW_TOKENS, seed=SEED + i,
+                          logprobs=True, **THINKING)
+           for i in range(N_REQUESTS - half)]
+    ref, out = None, []
+    for turn, k in enumerate(PAIRED_STEPS):
+        label = f"paired[{turn}: K={k}]"
+        t = time.monotonic()
+        z = Zipage(z_main.cfg, z_main.engine.params, decode_steps=k)
+        torch.cuda.synchronize()
+        ready = time.monotonic() - t
+        summary, outs = run_serve(torch, card, z, label, prompts, sps,
+                                  MAIN_PATH)[2:]
+        streams = [(o.token_ids, o.logprobs) for o in outs]
+        if ref is None:
+            ref = streams
+        for i, (a, b) in enumerate(zip(ref, streams)):
+            if a != b:
+                j = next((j for j, (x, y) in enumerate(zip(zip(*a),
+                                                           zip(*b)))
+                          if x != y), None)
+                raise AssertionError(f"{label}: request {i} differs from the "
+                                     f"first serve's (tokens equal: "
+                                     f"{a[0] == b[0]}; first difference at "
+                                     f"{j})")
+        if k > 1 and summary["horizon_max"] < 2:
+            raise AssertionError(f"{label}: the horizon never passed 1")
+        prof = phase_profile(torch, z, card, label, new_tokens=80)
+        summary.update(turn=turn, ready_s=ready, profile=prof)
+        idle = "not measured" if prof is None else f"{prof['idle']:.3f}"
+        log(label, f"{summary['tok_per_s']:.1f} tok/s, step median "
+            f"{summary['step_median_ms']:.1f} ms over {summary['steps']} "
+            f"steps, {summary['graph_replays']} graph replays, launches "
+            f"{summary['launches']}, device idle {idle} of a profiled "
+            f"window, engine ready in {ready:.1f} s; streams and logprobs "
+            f"== the first serve's ({card})")
+        out.append(summary)
+        del z
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def _group(key):
@@ -1623,9 +1905,11 @@ def dense_serve(torch, card, name):
 def dense_warmup(torch, z, phase):
     """A warm-up serve of two requests through a second engine on ``z``'s
     weights, recorded; compression fires. K1 and K2 are then held against
-    their plain versions at the recorded input whose live work is largest:
-    for K1 that input holds the serve's idle slots (seq_len 1, or a stale
-    one, over an empty table). Returns their errors."""
+    their plain versions at the input whose live work is largest: for K2
+    a recorded call, for K1 the warm-up's state at its fullest step
+    (``DecodeInputs``; its decode runs inside CUDA graphs), which holds
+    the serve's idle slots (seq_len 1, or a stale one, over an empty
+    table). Returns their errors."""
     import numpy as np
     from repro_torch.api import SamplingParams, Zipage
     from repro_torch.kernels import ops
@@ -1637,31 +1921,33 @@ def dense_warmup(torch, z, phase):
     rng = np.random.default_rng(SEED + 7)
     prompts = [[int(x) for x in rng.integers(0, cfg.vocab_size, n)]
                for n in (100, 123)]
+    hook = DecodeInputs(zw.engine)
     with Recorder(ops) as rec, PlainGuard():
         outs = zw.generate(prompts, SamplingParams(
             max_new_tokens=WARMUP_TOKENS))
         torch.cuda.synchronize()
+    hook.close()
     n_comp = [o.metrics.compression.n_compressions for o in outs]
     if min(n_comp) == 0:
         raise AssertionError(f"{phase}: the warm-up did not compress "
                              f"({n_comp})")
     b = zw.engine.opts.block_size
-    q, kp, vp, bt, sl = _pick(rec.calls["ragged_decode_attention"],
-                              lambda a: _live_entries(a[3], a[4], b))[0]
+    q, kp, vp, bt, sl = hook.args(torch)
     idle = int(((sl > 0) & ((bt >= 0).sum(1) * b < sl)).sum())
     e1 = max_err(torch, rpa.ragged_paged_attention_cuda(q, kp, vp, bt, sl),
                  rpa.ragged_paged_attention_plain(q, kp, vp, bt, sl),
-                 f"{phase} {rpa.NAME}[recorded]")
+                 f"{phase} {rpa.NAME}[serve state]")
     q_win, kp2, bt2, sl2 = _pick(rec.calls["score_logits"],
                                  lambda a: _live_entries(a[2], a[3], b))[0]
     e2 = max_err(torch, ps.paged_score_logits_cuda(q_win, kp2, bt2, sl2),
                  ps.paged_score_logits_plain(q_win, kp2, bt2, sl2),
                  f"{phase} {ps.NAME}[recorded]")
     log(phase, f"warm-up: 2 requests of {WARMUP_TOKENS} tokens, "
-        f"compressions {n_comp}; at its recorded inputs {rpa.NAME} "
+        f"compressions {n_comp}; at its state {rpa.NAME} "
         f"max_abs_err={e1:.3e} (batch {tuple(q.shape)}, seq_lens "
-        f"{sl.tolist()}, {idle} idle rows over empty tables), {ps.NAME} "
-        f"max_abs_err={e2:.3e} (seq_lens {sl2.tolist()}) (atol=rtol={TOL}) "
+        f"{sl.tolist()}, {idle} idle rows over empty tables), at a "
+        f"recorded call {ps.NAME} max_abs_err={e2:.3e} (seq_lens "
+        f"{sl2.tolist()}) (atol=rtol={TOL}) "
         "ok")
     del rec, zw
     return {rpa.NAME: e1, ps.NAME: e2}
@@ -1721,6 +2007,8 @@ def main():
     lap("timing")
     prof = phase_profile(torch, z, card)
     lap("profile")
+    paired = phase_paired(torch, card, z)
+    lap("paired")
     del z                     # Qwen3-8B's weights make room for phase 8's
     gc.collect()
     torch.cuda.empty_cache()
@@ -1731,8 +2019,8 @@ def main():
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "serve": summary, "serve_alg34": summary34,
-                   "kernels": rows, "profile": prof, "dense": dense}, f,
-                  indent=1)
+                   "kernels": rows, "profile": prof, "paired": paired,
+                   "dense": dense}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

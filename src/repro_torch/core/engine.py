@@ -5,14 +5,24 @@ The engine owns the device state and the host mirrors that feed it. Every
 scheduling decision lives in the host ``Scheduler``
 (``repro_torch.core.scheduler``, a copy of the JAX package's); ``step()``
 executes the plan it produces: paged prefill, compression launches
-(async: compressing requests sit out one decode step), and one fused
-decode+sample step over the running batch.
+(async: compressing requests sit out one decode step), and the decode of
+the running batch: fused decode+sample over the scheduler's quiescent
+horizon of up to ``decode_steps`` tokens, in power-of-two chunks, or
+(``fuse_sampling=False``) one decode step and the host-driven sampler.
+
+On a CUDA device every fused chunk is a replay of a CUDA graph captured at
+init (``core/decode_graphs.py``), the port's counterpart of the JAX
+package's one jitted dispatch a chunk; on the CPU the chunk runs eagerly.
+The graphs read fixed addresses, so the device state and the decode
+inputs are buffers allocated once: every host push, and ``restore()``,
+copies into them.
 
 Ported so far: dense GQA models, compression with lightning or flash
 redundancy, the ragged and the dense decode kernel, recompute preemption,
-block-level prefix caching of raw KV, and ``decode_steps=1``. Swap
-preemption, compressed-prefix caching, multi-step decode, the unfused
-sampler and other dtypes than float32 raise ``NotImplementedError``.
+block-level prefix caching of raw KV, fused and unfused decode at any
+``decode_steps``, and ``snapshot()`` / ``restore()``. Swap preemption,
+compressed-prefix caching and other dtypes than float32 raise
+``NotImplementedError``.
 
 Setting ``n_max=None`` disables compression (plain PagedAttention).
 ``ZIPAGE_SANITIZE=1`` in the environment when an engine is built makes it
@@ -20,8 +30,10 @@ audit its whole state after every step (``core/invariants.py``).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
+from collections import deque
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -31,6 +43,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import invariants, serve_model
 from repro_torch.core.block_manager import BlockManager
 from repro_torch.core.compression import CompressOptions, build_compress_fn
+from repro_torch.core.decode_graphs import DecodeGraphs
 from repro_torch.core.request import FinishReason, Request, State
 from repro_torch.core.sampling import (SamplingParams, sample_batch,
                                        sampling_noise)
@@ -39,6 +52,22 @@ from repro_torch.core.scheduler import (PrefillChunk, Scheduler,
 from repro_torch.device import resolve_device
 from repro_torch.kernels import native, ops
 from repro_torch.models import lm
+
+
+def _fused_chunk_sizes(k: int) -> List[int]:
+    """Decompose a horizon into power-of-two dispatch lengths
+    (largest-first), so only O(log decode_steps) chunk lengths are ever
+    captured; a single big chunk is split in half so the token fetch for
+    chunk N can overlap chunk N+1's compute (pipelined fetch)."""
+    sizes = []
+    rem = k
+    while rem:
+        p = 1 << (rem.bit_length() - 1)
+        sizes.append(p)
+        rem -= p
+    if len(sizes) == 1 and k >= 4:
+        sizes = [k // 2, k // 2]
+    return sizes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,10 +119,6 @@ def unported_options(opts: EngineOptions) -> List[str]:
         out.append("swap preemption (preemption_mode / swap_space_blocks)")
     if opts.cache_compressed_prefixes:
         out.append("cache_compressed_prefixes")
-    if opts.decode_steps != 1:
-        out.append(f"decode_steps={opts.decode_steps}")
-    if not opts.fuse_sampling:
-        out.append("fuse_sampling=False")
     if opts.kernel_backend != "auto":
         out.append(f"kernel_backend={opts.kernel_backend!r} (kernels follow "
                    "the device)")
@@ -112,6 +137,8 @@ class ZipageEngine:
         if missing:
             raise NotImplementedError(
                 "not ported to repro_torch yet: " + "; ".join(missing))
+        if opts.decode_steps > 1 and not opts.fuse_sampling:
+            raise ValueError("decode_steps > 1 requires fuse_sampling")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -161,7 +188,8 @@ class ZipageEngine:
                          prefix_cache_policy=opts.prefix_cache_policy,
                          prefix_cache_watermark=opts.prefix_cache_watermark))
         self._prefill = serve_model.build_prefill_step(cfg, self.spec)
-        self._fused = serve_model.build_fused_decode_step(cfg, self.spec)
+        self._decode = serve_model.build_decode_step(cfg, self.spec)
+        self._fused_fns: Dict[tuple, callable] = {}
         self._compress_fns: Dict[int, callable] = {}
         # host mirrors of the device tables (rebuilt from scheduler state
         # before each push)
@@ -180,6 +208,22 @@ class ZipageEngine:
         self._samp_version = -1
         self._samp_arrays = None
         self._eos_width = 1
+        # the fused chunk's inputs: allocated once, written with copy_
+        # (a captured graph reads these addresses on every replay)
+        B, dev = opts.max_batch, self.device
+        self._dec = {
+            "idx0": torch.zeros((), dtype=torch.int32, device=dev),
+            "step_caps": torch.zeros(B, dtype=torch.int32, device=dev),
+            "seeds": torch.zeros(B, dtype=torch.int64, device=dev),
+            "temps": torch.zeros(B, dtype=torch.float32, device=dev),
+            "top_k": torch.zeros(B, dtype=torch.int32, device=dev),
+            "top_p": torch.ones(B, dtype=torch.float32, device=dev),
+            "eos": torch.full((B, self._eos_width), -1, dtype=torch.int64,
+                              device=dev),
+        }
+        # pinned host buffers for the chunks' tokens and logprobs, one
+        # pair per chunk of a horizon (on the card)
+        self._staging: Dict[int, tuple] = {}
         self._t_blocked = 0.0
         self._step_decoded = 0
         self._last_horizon = 0
@@ -196,8 +240,23 @@ class ZipageEngine:
         # active slot owns is caught
         self.sanitize = invariants.enabled()
         self._qwin_shadow: Dict[int, np.ndarray] = {}
+        self._graphs: Optional[DecodeGraphs] = None
         if self.device.type == "cuda":
             native.build_all()       # compile before the first step, not in it
+            if opts.fuse_sampling:
+                self._capture_graphs()
+
+    def _capture_graphs(self):
+        """Capture a graph of every fused chunk that the configured
+        ``decode_steps`` can produce, greedy and sampled, before serving
+        starts (the JAX package's ``_warm_fused``)."""
+        self._graphs = DecodeGraphs(self._run_chunk, self._dec["step_caps"])
+        sizes = set()
+        for k in range(1, self.opts.decode_steps + 1):
+            sizes.update(_fused_chunk_sizes(k))
+        for k in sorted(sizes):
+            for greedy in (True, False):
+                self._graphs.capture(k, greedy, self._eos_width)
 
     # ------------------------------------------------------------------
     # scheduler views
@@ -217,6 +276,26 @@ class ZipageEngine:
     @property
     def finished(self) -> Dict[int, Request]:
         return self.scheduler.finished
+
+    @property
+    def free_slots(self) -> List[int]:
+        return self.scheduler.free_slots
+
+    @property
+    def free_qslots(self) -> List[int]:
+        return self.scheduler.free_qslots
+
+    @property
+    def admission_scale(self) -> float:
+        return self.scheduler.admission_scale
+
+    @property
+    def _ewma(self):
+        return self.scheduler.ewma
+
+    @_ewma.setter
+    def _ewma(self, value):
+        self.scheduler.ewma = value
 
     # ------------------------------------------------------------------
     def add_request(self, prompt, sampling: Optional[SamplingParams] = None,
@@ -253,6 +332,12 @@ class ZipageEngine:
     def _dev(self, a, dtype=None):
         return torch.as_tensor(a, dtype=dtype, device=self.device)
 
+    @staticmethod
+    def _put(dst: torch.Tensor, a: np.ndarray) -> None:
+        """Host array -> an allocated device buffer, in place (a copy on
+        the CPU too: the buffer never aliases the host mirror)."""
+        dst.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+
     def _fetch(self, *xs):
         """Device->host read; the wait counts as blocked-on-device time
         (the ``t_device`` share of the per-step metrics)."""
@@ -285,10 +370,10 @@ class ZipageEngine:
             self.host_seq[r.slot] = r.seq_len
             self.host_pos[r.slot] = r.position
             self.host_qslot[r.slot] = r.qslot
-        self.state["block_tables"] = self._dev(self.host_bt)
-        self.state["seq_lens"] = self._dev(self.host_seq)
-        self.state["positions"] = self._dev(self.host_pos)
-        self.state["qslot"] = self._dev(self.host_qslot)
+        self._put(self.state["block_tables"], self.host_bt)
+        self._put(self.state["seq_lens"], self.host_seq)
+        self._put(self.state["positions"], self.host_pos)
+        self._put(self.state["qslot"], self.host_qslot)
         self._pushed_version = v
 
     # ------------------------------------------------------------------
@@ -472,13 +557,38 @@ class ZipageEngine:
                 -(-(r.seq_len + j + 1) // b) for j in range(c))
         self._step_pages_dense += k * self.opts.max_batch * self.max_blocks
 
-    def _sampling_tensors(self):
-        """Per-slot sampling parameters, rebuilt only when the scheduler's
-        slot assignments changed. Returns (device seeds, temps (host),
-        device temps, top_k, top_p, eos)."""
+    def _run_decode(self, active):
+        """Unfused decode: one decode step, then the host-driven sampler
+        over the slots (``fuse_sampling=False``)."""
+        if not active:
+            return
+        self._track_pages(active, [1] * len(active), 1)
+        mask = np.zeros((self.opts.max_batch,), bool)
+        for r in active:
+            mask[r.slot] = True
+        self._push_host_state()
+        logits = self._decode(self.params, self.state,
+                              self._dev(self.tokens_next), self._dev(mask))
+        slot_reqs: List[Optional[Request]] = [None] * self.opts.max_batch
+        for r in active:
+            slot_reqs[r.slot] = r
+        tok, lp = self._sample_rows(logits, slot_reqs)
+        for r in active:
+            t = int(tok[r.slot])
+            self.tokens_next[r.slot] = t
+            self._record_token(r, t, None if lp is None else lp[r.slot])
+            self._advance_decoded(r)
+
+    def _sampling_tensors(self) -> bool:
+        """Copy the per-slot sampling parameters (seeds, temperatures,
+        top-k/top-p, padded eos-id sets) into the chunk's input buffers,
+        only when the scheduler's slot assignments changed. The eos pad
+        width grows by powers of two and never shrinks; a wider pad takes
+        a new buffer, and the graphs that read the old one are captured
+        anew. Returns whether every slot is greedy."""
         v = self.scheduler.version
         if self._samp_arrays is not None and self._samp_version == v:
-            return self._samp_arrays
+            return not (self._samp_arrays[1] > 0).any()
         B = self.opts.max_batch
         seeds = np.zeros((B,), np.int64)
         temps = np.zeros((B,), np.float32)
@@ -488,8 +598,14 @@ class ZipageEngine:
         for r in self.scheduler.running:
             if r.slot >= 0 and r.sampling.eos_ids:
                 e = max(e, len(r.sampling.eos_ids))
-        self._eos_width = 1 << (e - 1).bit_length()
-        eos = np.full((B, self._eos_width), -1, np.int64)
+        width = 1 << (e - 1).bit_length()
+        if width != self._eos_width:
+            self._eos_width = width
+            self._dec["eos"] = torch.full((B, width), -1, dtype=torch.int64,
+                                          device=self.device)
+            if self._graphs is not None:
+                self._graphs.recapture(width)
+        eos = np.full((B, width), -1, np.int64)
         for r in self.scheduler.running:
             if r.slot < 0:
                 continue
@@ -500,15 +616,18 @@ class ZipageEngine:
             top_p[r.slot] = sp.top_p
             if sp.eos_ids:
                 eos[r.slot, :len(sp.eos_ids)] = sp.eos_ids
-        self._samp_arrays = (self._dev(seeds), temps, self._dev(temps),
-                             self._dev(top_k), self._dev(top_p),
-                             self._dev(eos))
+        self._samp_arrays = (seeds, temps, top_k, top_p, eos)
+        for name, a in zip(("seeds", "temps", "top_k", "top_p", "eos"),
+                           self._samp_arrays):
+            self._put(self._dec[name], a)
         self._samp_version = v
-        return self._samp_arrays
+        return not (temps > 0).any()
 
     def _push_sampling_state(self, active):
-        """Sync the device-carried sampling state with the host's view,
-        pushing only what diverged."""
+        """Sync the device-carried sampling state (live mask, PRNG
+        counters, next input tokens) with the host's view, pushing only
+        what diverged. During steady decode the device advances all
+        three itself, so nothing is uploaded."""
         B = self.opts.max_batch
         mask = np.zeros((B,), bool)
         counters = np.zeros((B,), np.int32)
@@ -517,17 +636,66 @@ class ZipageEngine:
             counters[r.slot] = len(r.output)
         if self._dev_mask is None \
                 or not np.array_equal(mask, self._dev_mask):
-            self.state["active_mask"] = self._dev(mask)
+            self._put(self.state["active_mask"], mask)
         if self._dev_counters is None \
                 or not np.array_equal(counters, self._dev_counters):
-            self.state["sample_counters"] = self._dev(counters)
+            self._put(self.state["sample_counters"], counters)
         if self._tokens_dirty:
-            self.state["tokens_next"] = self._dev(self.tokens_next)
+            self._put(self.state["tokens_next"], self.tokens_next)
             self._tokens_dirty = False
         self._dev_mask = mask
         self._dev_counters = counters
 
+    def _run_chunk(self, k: int, greedy: bool):
+        """One fused chunk of ``k`` iterations on the static buffers,
+        eagerly: what the CPU runs, and what a graph captures."""
+        fn = self._fused_fns.get((k, greedy))
+        if fn is None:
+            fn = serve_model.build_fused_decode_step(self.cfg, self.spec, k,
+                                                     greedy=greedy)
+            self._fused_fns[(k, greedy)] = fn
+        d = self._dec
+        return fn(self.params, self.state, d["idx0"], d["step_caps"],
+                  d["seeds"], d["temps"], d["top_k"], d["top_p"], d["eos"])
+
+    def _stage(self, i: int, tok, lp):
+        """Chunk ``i``'s (k, B) tokens and logprobs out of the chunk's
+        outputs before the next chunk runs: on the card a graph's next
+        replay overwrites its output buffers, so they are copied, without
+        waiting, into pinned host buffers of chunk ``i``'s own, and an
+        event marks when they are there."""
+        if self._graphs is None:
+            return tok, lp, None
+        buf = self._staging.get(i)
+        if buf is None:
+            shape = (self.opts.decode_steps, self.opts.max_batch)
+            buf = (torch.empty(shape, dtype=tok.dtype, pin_memory=True),
+                   torch.empty(shape, dtype=lp.dtype, pin_memory=True))
+            self._staging[i] = buf
+        k = tok.shape[0]
+        host_tok, host_lp = buf[0][:k], buf[1][:k]
+        host_tok.copy_(tok, non_blocking=True)
+        host_lp.copy_(lp, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host_tok, host_lp, done
+
+    def _unstage(self, staged):
+        tok, lp, done = staged
+        if done is None:
+            return self._fetch(tok, lp)
+        t = time.monotonic()
+        done.synchronize()
+        self._t_blocked += time.monotonic() - t
+        return tok.numpy(), lp.numpy()
+
     def _run_decode_fused(self, active, plan=None):
+        """Fused decode+sample over the scheduler's quiescent horizon: up
+        to K decode steps in O(log K) power-of-two chunks, each a graph
+        replay on the card, with each chunk's token block fetched only
+        after the next chunk is in flight. The host records chunk N's
+        tokens while the device computes chunk N+1 (the carried
+        ``active_mask`` keeps in-flight eos exact across chunks)."""
         if not active:
             return
         K, caps = self.scheduler.quiescent_horizon(active, plan)
@@ -535,27 +703,44 @@ class ZipageEngine:
         self._track_pages(active, caps, K)
         self._push_host_state()
         self._push_sampling_state(active)
-        seeds, temps_host, temps, top_k, top_p, eos = self._sampling_tensors()
+        greedy = self._sampling_tensors()
         caps_arr = np.zeros((self.opts.max_batch,), np.int32)
         for r, c in zip(active, caps):
             caps_arr[r.slot] = c
-        noise = None
-        if (temps_host > 0).any():
-            # keyed by the device-carried counters: no host round trip
-            noise = sampling_noise(seeds, self.state["sample_counters"],
-                                   self.cfg.vocab_size)
-        tok, lp = self._fused(self.params, self.state, self._dev(caps_arr),
-                              temps, top_k, top_p, eos, noise)
-        tok, lp = self._fetch(tok, lp)
-        for r in active:
-            t = int(tok[r.slot])
-            self.tokens_next[r.slot] = t
-            self._dev_counters[r.slot] += 1
-            self._record_token(r, t, float(lp[r.slot]))
-            self._advance_decoded(r)
-            sp = r.sampling
-            if sp.eos_ids is not None and t in sp.eos_ids:
-                self._dev_mask[r.slot] = False
+        self._put(self._dec["step_caps"], caps_arr)
+        chunks = []
+        off = 0
+        for i, k in enumerate(_fused_chunk_sizes(K)):
+            self._dec["idx0"].fill_(off)
+            if self._graphs is not None:
+                tok, lp = self._graphs.replay(k, greedy, self._eos_width)
+            else:
+                tok, lp = self._run_chunk(k, greedy)
+            chunks.append((off, k, self._stage(i, tok, lp)))
+            off += k
+        halted: set = set()
+        for off, k, staged in chunks:
+            tok, lp = self._unstage(staged)
+            self._record_decode_block(active, off, k, tok, lp, caps, halted)
+
+    def _record_decode_block(self, active, off, k, tok, lp, caps, halted):
+        """Replay a fetched ``(k, B)`` token block into request state,
+        mirroring the device's in-chunk gating exactly: each row consumes
+        tokens up to its cap, stopping early at its first eos hit."""
+        for idx, r in enumerate(active):
+            if r.rid in halted:
+                continue
+            for j in range(min(k, caps[idx] - off)):
+                t = int(tok[j, r.slot])
+                self.tokens_next[r.slot] = t
+                self._dev_counters[r.slot] += 1
+                self._record_token(r, t, float(lp[j, r.slot]))
+                self._advance_decoded(r)
+                sp = r.sampling
+                if sp.eos_ids is not None and t in sp.eos_ids:
+                    halted.add(r.rid)
+                    self._dev_mask[r.slot] = False
+                    break
 
     # ------------------------------------------------------------------
     def step(self):
@@ -579,7 +764,10 @@ class ZipageEngine:
         self._launch_compression(plan)
         t_comp = time.monotonic()
         active = self.scheduler.schedule_decode(plan)
-        self._run_decode_fused(active, plan)
+        if self.opts.fuse_sampling:
+            self._run_decode_fused(active, plan)
+        else:
+            self._run_decode(active)
         if self.opts.measure_phases:
             self._sync()
         t_dec = time.monotonic()
@@ -619,3 +807,89 @@ class ZipageEngine:
         while self.scheduler.has_work() and self.step_count < max_steps:
             self.step()
         return {r.rid: r for r in self.scheduler.finished.values()}
+
+    # ------------------------------------------------------------------
+    # fault tolerance: full engine snapshot/restore
+
+    def snapshot(self):
+        """The whole engine as host data: the device state (sink page and
+        sink query slot included), the host mirrors, the scheduler's
+        queues, pools and counters, and the block manager. The swap tier
+        is not ported, so the snapshot carries none of it."""
+        dev = _tree_map(lambda t: t.to("cpu", copy=True), self.state)
+        return {
+            "device": dev,
+            "host": copy.deepcopy({
+                "bt": self.host_bt, "seq": self.host_seq,
+                "pos": self.host_pos, "qslot": self.host_qslot,
+                "tokens_next": self.tokens_next,
+                "free_slots": self.scheduler.free_slots,
+                "free_qslots": self.scheduler.free_qslots,
+                "rid": self._rid, "step": self.step_count,
+                "admission_scale": self.scheduler.admission_scale,
+                "ewma": self.scheduler.ewma,
+                "n_comp_by_policy": self.scheduler.n_comp_by_policy,
+                "n_comp_deferred": self.scheduler.n_comp_deferred,
+            }),
+            "requests": copy.deepcopy({
+                "waiting": list(self.scheduler.waiting),
+                "running": self.scheduler.running,
+                "finished": self.scheduler.finished,
+            }),
+            "bm": copy.deepcopy(self.bm),
+        }
+
+    def restore(self, snap):
+        """Resume from ``snapshot()``. The device state is copied into the
+        engine's own buffers, which its captured graphs read; then every
+        device mirror is invalidated, so the next step pushes tables and
+        sampling state wholesale."""
+        _copy_into(self.state, snap["device"])
+        h = copy.deepcopy(snap["host"])
+        self.host_bt, self.host_seq = h["bt"], h["seq"]
+        self.host_pos, self.host_qslot = h["pos"], h["qslot"]
+        self.tokens_next = h["tokens_next"]
+        sched = self.scheduler
+        sched.free_slots, sched.free_qslots = h["free_slots"], h["free_qslots"]
+        sched.admission_scale = h["admission_scale"]
+        sched.ewma = h["ewma"]
+        sched.n_comp_by_policy = dict(h["n_comp_by_policy"])
+        sched.n_comp_deferred = h["n_comp_deferred"]
+        # in-flight quality telemetry references the old device buffers;
+        # the requests it describes were deep-copied anyway
+        self._pending_quality = None
+        self._rid, self.step_count = h["rid"], h["step"]
+        r = copy.deepcopy(snap["requests"])
+        sched.waiting = deque(r["waiting"])
+        sched.running = r["running"]
+        sched.finished = r["finished"]
+        sched.bm = copy.deepcopy(snap["bm"])
+        self._pushed_version = -1
+        self._tokens_dirty = True
+        self._qwin_shadow = {}
+        self._dev_mask = None
+        self._dev_counters = None
+        self._samp_version = -1
+        self._samp_arrays = None
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _copy_into(dst: dict, src: dict) -> None:
+    """Copy a snapshot's host tensors into the device buffers ``dst``,
+    key by key, in place; shapes and keys must match exactly."""
+    if dst.keys() != src.keys():
+        raise ValueError(f"snapshot state keys {sorted(src)} are not the "
+                         f"engine's {sorted(dst)}")
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _copy_into(dst[k], v)
+        elif dst[k].shape != v.shape:
+            raise ValueError(f"snapshot {k!r} has shape {tuple(v.shape)}, "
+                             f"the engine's {tuple(dst[k].shape)}")
+        else:
+            dst[k].copy_(v)

@@ -2,7 +2,9 @@
 (``repro.core.serve_model`` for the layer kind the port serves).
 
 State layout (a dict of tensors on one device; the steps update it in
-place where the JAX package returned a new state):
+place where the JAX package returned a new state, and never replace a
+tensor of it, so a captured CUDA graph of a step reads and writes the same
+buffers on every replay):
   pools:  {"k", "v": (L, N + 1, b, h_kv, d), "f": (L, N + 1, b, h_kv)}
   qwin:   (L, M + 1, w, h_q, d) ring-ordered observation-window queries
 The extra last page of the pools and the extra last query slot are sinks:
@@ -20,7 +22,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import paged
-from repro_torch.core.sampling import sample_batch
+from repro_torch.core.sampling import sample_batch, sampling_noise
 from repro_torch.kernels import ops
 from repro_torch.models import layers as ML
 from repro_torch.models import lm
@@ -130,47 +132,61 @@ def build_decode_step(cfg: ArchConfig, spec: ServeSpec):
         x = apply_norm(cfg, params["final_norm"], x)
         logits = (x @ lm.unembed_matrix(cfg, params)).float()
         inc = active.to(seq.dtype)
-        state["seq_lens"] = seq + inc
-        state["positions"] = positions + inc
+        seq.add_(inc)
+        positions.add_(inc)
         return logits
 
     return step
 
 
-def build_fused_decode_step(cfg: ArchConfig, spec: ServeSpec):
-    """One decode+sample iteration on the device-carried sampling state
-    (``decode_steps=1`` of the JAX package's fused step).
+def build_fused_decode_step(cfg: ArchConfig, spec: ServeSpec, n_steps: int,
+                            greedy: bool = False):
+    """``n_steps`` decode+sample iterations on the device-carried sampling
+    state (the JAX package's fused step, its ``lax.scan`` written out).
 
-    fused(params, state, step_caps, temps, top_k, top_p, eos_ids,
-          noise=None) -> (tokens (B,), logprobs (B,))
+    fused(params, state, idx0, step_caps, seeds, temps, top_k, top_p,
+          eos_ids) -> (tokens (n_steps, B), logprobs (n_steps, B))
 
-    A row decodes if its ``active_mask`` bit is set and its cap is > 0.
-    ``tokens_next``, ``sample_counters`` and ``active_mask`` advance on the
-    device, so consecutive steps chain without the host writing them; a
-    row that samples one of its ``eos_ids`` (padded with -1) clears its own
-    mask bit. ``noise`` is the (B, V) uniform noise of ``sample_batch``
-    (``sampling.sampling_noise``); ``None`` means every row is greedy, and
-    then no sort and no noise are needed.
+    Row i decodes in iteration j while its ``active_mask`` bit is set and
+    ``idx0 + j < step_caps[i]``; ``idx0`` is a 0-d int tensor on the
+    device, so one captured graph of the function serves every chunk
+    offset. ``tokens_next``, ``sample_counters`` and ``active_mask``
+    advance on the device, in place, so consecutive iterations and calls
+    chain without the host writing them; a row that samples one of its
+    ``eos_ids`` (padded with -1) clears its own mask bit. Each iteration
+    draws the sampled rows' threefry noise from that iteration's
+    ``sample_counters`` (``sampling.sampling_noise``), so a request's
+    stream depends on its (seed, position) alone.
+
+    ``greedy=True`` builds the variant for batches whose rows are all
+    greedy: argmax and its logprob, no noise and no sort; ``seeds``,
+    ``temps``, ``top_k`` and ``top_p`` are not read.
     """
     core = build_decode_step(cfg, spec)
 
-    def fused(params, state, step_caps, temps, top_k, top_p, eos_ids,
-              noise=None):
-        gate = state["active_mask"] & (step_caps > 0)
-        logits = core(params, state, state["tokens_next"], gate)
-        if noise is not None:
-            tok, lp = sample_batch(logits, noise, temps, top_k, top_p)
-        else:
-            tok = torch.argmax(logits, -1)
-            lp = torch.gather(torch.log_softmax(logits, -1), 1,
-                              tok[:, None])[:, 0]
-        tok = torch.where(gate, tok, state["tokens_next"])
-        eos_hit = gate & (tok[:, None] == eos_ids).any(-1)
-        state["tokens_next"] = tok
-        state["sample_counters"] = state["sample_counters"] + gate.to(
-            state["sample_counters"].dtype)
-        state["active_mask"] = state["active_mask"] & ~eos_hit
-        return tok, lp
+    def fused(params, state, idx0, step_caps, seeds, temps, top_k, top_p,
+              eos_ids):
+        toks, lps = [], []
+        nxt, counters = state["tokens_next"], state["sample_counters"]
+        mask = state["active_mask"]
+        for j in range(n_steps):
+            gate = mask & (idx0 + j < step_caps)
+            logits = core(params, state, nxt, gate)
+            if greedy:
+                tok = torch.argmax(logits, -1)
+                lp = torch.gather(torch.log_softmax(logits, -1), 1,
+                                  tok[:, None])[:, 0]
+            else:
+                noise = sampling_noise(seeds, counters, logits.shape[-1])
+                tok, lp = sample_batch(logits, noise, temps, top_k, top_p)
+            tok = torch.where(gate, tok, nxt)
+            eos_hit = gate & (tok[:, None] == eos_ids).any(-1)
+            nxt.copy_(tok)
+            counters.add_(gate.to(counters.dtype))
+            mask.logical_and_(~eos_hit)
+            toks.append(tok)
+            lps.append(lp)
+        return torch.stack(toks), torch.stack(lps)
 
     return fused
 

@@ -10,7 +10,8 @@ is reused. Nothing here runs at import time: modules that import this one
 also run on machines without ``nvcc`` or a card.
 
 The launch counters live here too: each kernel wrapper adds one to its
-kernel's count right after a successful launch, and nowhere else.
+kernel's count right after a successful launch, and a replay of a captured
+CUDA graph adds the launches captured in it (``core/decode_graphs.py``).
 """
 from __future__ import annotations
 
@@ -76,6 +77,12 @@ def count_launch(name: str) -> None:
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count the launches of a graph replay: ``counts`` per kernel."""
+    for name, n in counts.items():
+        launch_counts[name] += n
 
 
 def nvcc_path() -> str:

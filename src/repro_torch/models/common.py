@@ -61,8 +61,10 @@ def is_gated(name):
 def rope_freqs(head_dim, theta, device=None):
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
                             device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exponent)
+    # torch.full, not torch.tensor: no host-to-device copy, which a CUDA
+    # graph capture of the decode step would refuse
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exponent)
 
 
 def apply_rope(x, positions, theta):

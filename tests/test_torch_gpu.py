@@ -495,3 +495,102 @@ def test_config_on_card_matches_cpu_at_2_layers(cuda, name):
                                                                    sps)
     assert [o.token_ids for o in on_card] == [o.token_ids for o in on_cpu]
     assert min(o.metrics.compression.n_compressions for o in on_card) > 0
+
+
+# ----------------------------------------------------------------------
+# CUDA graphs of the fused decode chunk (core/decode_graphs.py)
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+def test_graph_replay_equals_eager_bit_for_bit(cuda, greedy):
+    """chip_smoke.py's check at 2 layers of Qwen3-8B widths: a fused chunk
+    of 4 replayed from its CUDA graph and run eagerly, on clones of one
+    state, at offsets 0 and 4, with an eos mid-chunk and idle slots.
+    Tokens, logprobs and the state (but the sink page and sink query
+    slot) are the same bits, the rows decode their caps, and the replays'
+    K1 launches are counted while the warm-up's and capture's are not."""
+    import dataclasses
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=2,
+                              dtype="float32")
+    params = lm.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    chip_smoke.check_graph_vs_eager(torch, cuda, cfg, params, greedy)
+
+
+def test_engine_at_decode_steps_8_on_card_matches_cpu_unfused(cuda):
+    """tiny-lm, greedy and seeded (top-k, top-p) requests with compression
+    firing: the card's K = 8 engine, every chunk a graph replay, and the
+    card's unfused engine give the CPU unfused engine's tokens, finish
+    reasons and logprobs (1e-4)."""
+    from repro_torch.api import SamplingParams, Zipage
+    cfg = get_config("tiny-lm")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    shapes = dict(block_size=8, n_total_blocks=64, max_batch=4, m_qslots=4,
+                  n_max=3, max_model_len=256, prefill_rows=2,
+                  prefill_len=64)
+    prompts = [[1, 2, 3, 4, 5], [9, 8, 7], [10, 11, 12, 13, 14, 15, 16],
+               [20, 21]]
+    sps = [SamplingParams(max_new_tokens=28),
+           SamplingParams(max_new_tokens=28, temperature=0.8, top_k=5,
+                          seed=7, logprobs=True),
+           SamplingParams(max_new_tokens=28, temperature=1.1, top_p=0.9,
+                          seed=3),
+           SamplingParams(max_new_tokens=28, logprobs=True)]
+    want = Zipage(cfg, params, device="cpu", fuse_sampling=False,
+                  **shapes).generate(prompts, sps)
+    ops.reset_launch_counts()
+    z = Zipage(cfg, _to(params, cuda), decode_steps=8, **shapes)
+    got = z.generate(prompts, sps)
+    unfused = Zipage(cfg, _to(params, cuda), fuse_sampling=False,
+                     **shapes).generate(prompts, sps)
+    for run in (got, unfused):
+        assert [o.token_ids for o in run] == [o.token_ids for o in want]
+        assert [o.finish_reason for o in run] == [o.finish_reason
+                                                  for o in want]
+        for a, b in zip(run, want):
+            if a.logprobs is not None:
+                np.testing.assert_allclose(a.logprobs, b.logprobs, rtol=TOL,
+                                           atol=TOL)
+    assert max(m["decode_horizon"] for m in z.metrics) > 1
+    assert z.engine._graphs.replays > 0
+    assert ops.launch_counts[rpa.NAME] > 0
+    assert min(o.metrics.compression.n_compressions for o in got) > 0
+
+
+def test_snapshot_on_card_restores_into_a_captured_engine(cuda):
+    """A snapshot taken mid-horizon on the card restores into a fresh card
+    engine whose graphs were captured before the restore: its buffers stay
+    where they were, and the streams continue as the uninterrupted run."""
+    from repro_torch.core.engine import EngineOptions, ZipageEngine
+    from repro_torch.core.sampling import SamplingParams
+    cfg = get_config("tiny-lm")
+    params = _to(lm.init(cfg, torch.Generator().manual_seed(0), "cpu"), cuda)
+    opts = EngineOptions(block_size=8, n_total_blocks=64, max_batch=4,
+                         m_qslots=4, n_max=3, max_model_len=256,
+                         prefill_rows=2, prefill_len=64, decode_steps=8)
+    prompts = [[1, 2, 3, 4, 5], [9, 8, 7], [10, 11, 12]]
+    sps = [SamplingParams(max_new_tokens=28),
+           SamplingParams(max_new_tokens=28, temperature=0.6, top_p=0.95,
+                          top_k=20, seed=5, eos_ids=(3, 4, 5)),
+           SamplingParams(max_new_tokens=28, logprobs=True)]
+    eng = ZipageEngine(cfg, params, opts)
+    rids = [eng.add_request(p, sp) for p, sp in zip(prompts, sps)]
+    for _ in range(3):
+        eng.step()
+    assert any(m["decode_horizon"] > 1 for m in eng.metrics)
+    snap = eng.snapshot()
+    done_a = eng.run(max_steps=500)
+    fresh = ZipageEngine(cfg, params, opts)
+    assert fresh._graphs.graphs            # captured at init
+    ptrs = {k: v.data_ptr() for k, v in fresh.state.items()
+            if isinstance(v, torch.Tensor)}
+    fresh.restore(snap)
+    assert ptrs == {k: v.data_ptr() for k, v in fresh.state.items()
+                    if isinstance(v, torch.Tensor)}
+    done_b = fresh.run(max_steps=500)
+    assert [(done_b[r].output, done_b[r].logprobs) for r in rids] == \
+        [(done_a[r].output, done_a[r].logprobs) for r in rids]
+    assert fresh._graphs.replays > 0

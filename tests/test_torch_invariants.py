@@ -272,6 +272,20 @@ def test_device_mirror_divergence_is_detected():
                for m in msgs), msgs
 
 
+def test_corrupted_device_seq_lens_caught_right_after_a_push():
+    """The pushed tables are copies of the host mirrors on the CPU too: a
+    write into the device ``seq_lens`` just after a push (no decode step
+    in between) leaves the mirror as it was, and the audit catches it."""
+    eng = running_engine()
+    eng._push_host_state(force=True)
+    r = next(x for x in eng.running if x.slot >= 0)
+    eng.state["seq_lens"][r.slot] += 1
+    assert eng.host_seq[r.slot] == r.seq_len
+    with pytest.raises(invariants.InvariantViolation,
+                       match=f"rid {r.rid} slot {r.slot}: device seq_len"):
+        invariants.check_engine(eng)
+
+
 def test_qwin_write_to_free_row_is_detected():
     eng = make_engine(m_qslots=2, max_batch=2)
     eng.host_qslot.fill(-1)

@@ -7,7 +7,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.api import Zipage
+from repro_torch.api import SamplingParams, Zipage
 from repro_torch.configs import get_config
 from repro_torch.core.compression import CompressOptions
 from repro_torch.core.engine import EngineOptions, ZipageEngine
@@ -83,12 +83,39 @@ def test_cpu_when_asked(monkeypatch):
 @pytest.mark.parametrize("knob", [
     dict(preemption_mode="swap", swap_space_blocks=8),
     dict(cache_compressed_prefixes=True),
-    dict(decode_steps=4),
-    dict(fuse_sampling=False),
     dict(dtype="bfloat16"),
 ])
 def test_unported_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="not ported"):
+        Zipage.from_config("tiny-lm", device="cpu", **knob)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(decode_steps=4),
+    dict(decode_steps=8),
+    dict(fuse_sampling=False),
+])
+def test_decode_knobs_are_accepted(knob):
+    """Multi-step fused decode and the unfused path serve on the CPU."""
+    z = Zipage.from_config("tiny-lm", device="cpu", block_size=8,
+                           n_total_blocks=16, max_batch=2, max_model_len=64,
+                           prefill_rows=1, prefill_len=32, **knob)
+    for k, v in knob.items():
+        assert getattr(z.engine.opts, k) == v
+    outs = z.generate([[1, 2, 3], [4, 5]], SamplingParams(max_new_tokens=12))
+    assert [len(o.token_ids) for o in outs] == [12, 12]
+    horizon = max(m["decode_horizon"] for m in z.metrics)
+    assert (horizon > 1) == (knob.get("decode_steps", 1) > 1)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(fuse_sampling=False, decode_steps=4),
+    dict(decode_steps=0),
+])
+def test_decode_knobs_refused_as_in_jax(knob):
+    """``decode_steps > 1`` needs fused sampling and ``decode_steps`` is at
+    least 1 (tests/test_fused_decode.py)."""
+    with pytest.raises(ValueError, match="decode_steps"):
         Zipage.from_config("tiny-lm", device="cpu", **knob)
 
 
