@@ -30,8 +30,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
      with an eos mid-chunk and idle slots (tokens, logprobs and state bit
      for bit), greedy and seeded streams through the dense-decode / flash
      path (also at ``decode_steps=8`` on the card and unfused on the CPU,
-     all four equal), and greedy streams at n_max = 33 (k = 512) with
-     compression firing; then
+     all four equal), greedy streams at n_max = 33 (k = 512) with
+     compression firing, and the memory tier: a block round trip through
+     the pinned host swap pool (all layers and pool leaves, and the
+     observation-window row, bit for bit), a swap-mode serve at
+     tests/test_swap.py's tight shapes (card == CPU, pools drained), a
+     snapshot with a swapped request restored into a fresh captured card
+     engine, and compressed-prefix adoption (card == CPU: streams,
+     pos_gap, segment hits); then
      at 2 layers of each other dense config, its own widths and head
      layout (vocabulary capped at CPU_VOCAB, logged): logits, and greedy
      and seeded streams with compression firing (Qwen2.5-3B's also through
@@ -76,6 +82,18 @@ Phases, each fatal on failure (exit code != 0, no result line):
      and the memory planner's figures. Qwen2.5-3B also serves through
      dense decode and flash redundancy (2 greedy, 2 seeded), so that B4
      and B5 run in a serve at g = 8.
+  9. (run between 7b and 8, on the Qwen3-8B weights) memory pressure and
+     shared prefixes at full width, every engine under ZIPAGE_SANITIZE=1:
+     16 requests (8 greedy, 8 seeded, logprobs) on an ample pool, then
+     recompute, swap and auto on a tight pool that starts at 40 blocks
+     and shrinks until each run preempts at least 8 times; swap's streams
+     and logprobs must equal the ample run's bit for bit, auto's for
+     every request it never recomputed, recompute's are measured; swap
+     copies timed by CUDA events. Then a 128-token prompt and 8
+     extensions of it: cold (no prefix cache), raw prefix hits (equal to
+     cold bit for bit) and compressed-segment adoption after the raw
+     chain is evicted under the watermark (pos_gap 80, 8 segment hits),
+     with B6 held bit for bit at an adopter's copy-on-write launch.
 
 The last two lines of standard output are the card's name and power
 limit, and ``{"ok": true, "device": {...}}``; the line before them is the
@@ -132,6 +150,22 @@ LAYOUT_CONFIGS = ("olmo-1b", "nemotron-4-15b", "qwen2.5-3b")
 CPU_VOCAB = 65536
 #: phase 8's recorded warm-up before each serve: new tokens per request
 WARMUP_TOKENS = 16
+#: phase 9's pressure serves: requests, query slots (one a decode slot, so
+#: that when a request compresses does not depend on how many run beside
+#: it), the tight pool's first size (about 2.5 blocks a request, the ratio
+#: of tests/test_swap.py), its step and floor, the host swap pool, and the
+#: preemptions each tight run must reach
+PRESSURE_REQUESTS, PRESSURE_QSLOTS = 16, 16
+TIGHT_POOL, TIGHT_STEP, MIN_POOL = 40, 4, 20
+SWAP_BLOCKS = 64
+MIN_PREEMPTIONS = 8
+#: the host link's nominal rate a direction (PCIe Gen5 x16)
+HOST_LINK_BYTES_PER_S = 64e9
+#: phase 9's shared-prefix serves: the prompt, its extensions, and the
+#: watermark (4 of 256 blocks) under which the raw chain is evicted while
+#: the prompt's compressed segment (3 blocks, newer) stays
+PREFIX_TOKENS, EXTENSION_TOKENS, N_EXTENSIONS = 128, 8, 8
+SEGMENT_WATERMARK = 4 / 256
 
 #: where each ported TPU kernel lived (function definition line)
 REPLACES = {
@@ -551,6 +585,13 @@ def phase_card_vs_cpu(torch, dev, cfg):
         check_graph_vs_eager(torch, dev, small, p_dev, greedy)
     check_streams(torch, dev, small, p_cpu, p_dev, modes=True)
     check_budget_streams(torch, dev, small, p_cpu, p_dev)
+    t = time.monotonic()
+    check_block_round_trip(torch, dev, small, p_dev)
+    check_swap_streams(torch, dev, small, p_cpu, p_dev)
+    check_swap_snapshot(torch, dev, small, p_dev)
+    check_adoption(torch, dev, small, p_cpu, p_dev)
+    log("card-vs-cpu", f"the swap and prefix checks took "
+        f"{time.monotonic() - t:.1f} s")
     del p_dev
     torch.cuda.empty_cache()
     return worst
@@ -857,6 +898,217 @@ def check_budget_streams(torch, dev, small, p_cpu, p_dev):
         f"{n_comp['card']} (CPU {n_comp['cpu']})")
 
 
+#: the tight shapes of tests/test_swap.py: 10 blocks of 8 for four requests
+#: that want about four blocks each, so preemption fires
+SWAP_SHAPES = dict(block_size=8, n_total_blocks=10, max_batch=4, m_qslots=4,
+                   n_max=3, window=4, max_model_len=256, prefill_rows=2,
+                   prefill_len=64)
+
+
+def _bits(torch, t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def check_block_round_trip(torch, dev, small, p_dev):
+    """A request's blocks of all three pool leaves and all layers gathered
+    on the card, parked in the engine's pinned host swap pool over two runs
+    of host blocks, and scattered into other device blocks; its
+    observation-window row parked and restored into another query slot.
+    Both must equal their sources bit for bit."""
+    from repro_torch.api import Zipage
+    from repro_torch.core.request import Request
+
+    z = Zipage(small, p_dev, **SWAP_SHAPES, preemption_mode="swap",
+               swap_space_blocks=24)
+    eng = z.engine
+    pinned = [k for k, t in eng.swap_pool.items() if not t.is_pinned()]
+    if pinned:
+        raise AssertionError(f"memory: host swap pool {pinned} not pinned")
+    gen = torch.Generator(dev).manual_seed(SEED + 10)
+    for name, leaf in eng.state["pools"].items():
+        leaf.normal_(generator=gen) if name != "f" else leaf.uniform_(
+            generator=gen)
+    eng.state["qwin"].normal_(generator=gen)
+    r = Request(rid=0, prompt=[1, 2], max_new_tokens=4)
+    r.blocks, r.slot, r.qslot, r.output = [4, 2, 3, 7], 1, 2, [5, 9]
+    r.n_prefilled = r.prefill_target = 2
+    src = {k: v[:, r.blocks].clone() for k, v in eng.state["pools"].items()}
+    win = eng.state["qwin"][:, r.qslot].clone()
+    host_blocks, dest = [5, 6, 0, 1], [8, 0, 9, 1]
+    eng._swap_out_blocks(r, list(r.blocks), host_blocks)
+    r.slot, r.qslot = 3, 0
+    restored = eng._swap_in_blocks(r, host_blocks, dest)
+    torch.cuda.synchronize()
+    pairs = [(f"host pool[{k}]", eng.swap_pool[k][host_blocks].transpose(
+        0, 1), src[k].cpu()) for k in src]
+    pairs += [(f"pools[{k}]", eng.state["pools"][k][:, dest], src[k])
+              for k in src]
+    pairs.append(("qwin", eng.state["qwin"][:, 0], win))
+    for name, a, b in pairs:
+        if not bool(torch.equal(_bits(torch, a), _bits(torch, b))):
+            raise AssertionError(f"memory: block round trip: {name} differs "
+                                 "from its source")
+    if not restored or eng.tokens_next[3] != 9:
+        raise AssertionError("memory: swap-in did not restore the window or "
+                             "re-arm the next token")
+    nbytes = eng._kv_block_bytes() * len(dest)
+    log("card-vs-cpu", f"block round trip at 2 layers of {small.name} widths: "
+        f"{len(dest)} blocks x 3 pool leaves ({nbytes / 1e6:.2f} MB) card -> "
+        "pinned host pool (two runs of host blocks) -> other card blocks, "
+        "and the observation-window row into another query slot: bit for "
+        "bit ok")
+    del z, eng
+
+
+def _tight_prompts(vocab, seed, lens):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [[int(x) for x in rng.integers(0, vocab, n)] for n in lens]
+
+
+def _drained(z, label):
+    """The pools and the swap tier after a finished serve, as
+    tests/test_swap.py holds them."""
+    eng, bm = z.engine, z.bm
+    bm.check_invariants()
+    if bm.num_free != eng.opts.n_total_blocks \
+            or len(bm.swap_free) != eng.opts.swap_space_blocks \
+            or bm.swapped or eng.scheduler.swapped or eng._swap_qwin:
+        raise AssertionError(
+            f"{label}: pools not drained: {bm.num_free} of "
+            f"{eng.opts.n_total_blocks} free, {len(bm.swap_free)} of "
+            f"{eng.opts.swap_space_blocks} host blocks free, swapped "
+            f"{bm.swapped}, parked windows {sorted(eng._swap_qwin)}")
+
+
+def check_swap_streams(torch, dev, small, p_cpu, p_dev, phase="card-vs-cpu"):
+    """A swap-mode serve at tests/test_swap.py's tight shapes (four
+    requests, greedy and seeded, all with logprobs), on the card and on
+    the CPU: equal tokens, logprobs within CARD_CPU_TOL, preemption on
+    both, swap-outs == swap-ins, and the pools drained clean."""
+    import numpy as np
+    from repro_torch.api import SamplingParams, Zipage
+
+    prompts = _tight_prompts(small.vocab_size, SEED + 12, (5, 3, 7, 2))
+    sps = [SamplingParams(max_new_tokens=28, logprobs=True),
+           SamplingParams(max_new_tokens=28, seed=7, logprobs=True,
+                          **THINKING),
+           SamplingParams(max_new_tokens=28, logprobs=True),
+           SamplingParams(max_new_tokens=28, seed=11, logprobs=True,
+                          **THINKING)]
+    outs, counts = {}, {}
+    for name, device, params in (("cpu", "cpu", p_cpu), ("card", dev, p_dev)):
+        z = Zipage(small, params, device=device, **SWAP_SHAPES,
+                   preemption_mode="swap", swap_space_blocks=24)
+        outs[name] = z.generate(prompts, sps)
+        counts[name] = [sum(m[k] for m in z.metrics) for k in (
+            "n_preempted", "n_swapped_out", "n_swapped_in")]
+        if counts[name][1] == 0 or counts[name][1] != counts[name][2]:
+            raise AssertionError(f"{phase}: swap serve on {name}: preempted, "
+                                 f"swapped out, in {counts[name]}")
+        _drained(z, f"{phase}: swap serve on {name}")
+    for i, (a, b) in enumerate(zip(outs["cpu"], outs["card"])):
+        if a.token_ids != b.token_ids:
+            raise AssertionError(f"{phase}: swap serve stream {i} differs: "
+                                 f"cpu {a.token_ids} card {b.token_ids}")
+        np.testing.assert_allclose(b.logprobs, a.logprobs, rtol=CARD_CPU_TOL,
+                                   atol=CARD_CPU_TOL)
+    log(phase, f"swap serve at tests/test_swap.py's shapes (10 blocks of 8, "
+        f"2 greedy + 2 seeded requests of 28 tokens with logprobs): card == "
+        f"CPU (logprobs within {CARD_CPU_TOL}); preempted, swapped out, "
+        f"swapped in: card {counts['card']}, CPU {counts['cpu']}; pools "
+        "drained clean ok")
+    return counts["card"]
+
+
+def check_swap_snapshot(torch, dev, small, p_dev, phase="card-vs-cpu"):
+    """A snapshot taken on the card while a request's KV is parked on the
+    host restores into a fresh card engine whose decode graphs were
+    captured before the restore, into its own buffers and host pool, and
+    continues with the uninterrupted run's streams."""
+    from repro_torch.core.engine import EngineOptions, ZipageEngine
+    from repro_torch.core.compression import CompressOptions
+    from repro_torch.core.sampling import SamplingParams
+
+    prompts = _tight_prompts(small.vocab_size, SEED + 13, [5] * 5)
+    opts = EngineOptions(**SWAP_SHAPES, compress=CompressOptions(window=4),
+                         preemption_mode="swap", swap_space_blocks=24,
+                         prefix_caching=False)
+
+    def boot():
+        eng = ZipageEngine(small, p_dev, opts)
+        return eng, [eng.add_request(p, SamplingParams(max_new_tokens=30))
+                     for p in prompts]
+
+    eng, rids = boot()
+    snap = None
+    for _ in range(400):
+        eng.step()
+        if eng.scheduler.swapped:
+            snap = eng.snapshot()
+            break
+    if snap is None:
+        raise AssertionError(f"{phase}: never caught a swapped request")
+    done_a = eng.run(max_steps=2000)
+    fresh, _ = boot()
+    if not fresh._graphs.graphs:
+        raise AssertionError(f"{phase}: the fresh engine captured no graph")
+    ptrs = {k: v.data_ptr() for k, v in fresh.swap_pool.items()}
+    ptrs.update({k: v.data_ptr() for k, v in fresh.state["pools"].items()})
+    fresh.restore(snap)
+    done_b = fresh.run(max_steps=2000)
+    after = {k: v.data_ptr() for k, v in fresh.swap_pool.items()}
+    after.update({k: v.data_ptr() for k, v in fresh.state["pools"].items()})
+    if after != ptrs:
+        raise AssertionError(f"{phase}: restore rebound a pool")
+    a = [done_a[r].output for r in rids]
+    b = [done_b[r].output for r in rids]
+    if a != b:
+        raise AssertionError(f"{phase}: restored streams differ: {a} vs {b}")
+    log(phase, f"snapshot with {len(snap['requests']['swapped'])} request(s) "
+        "in the swapped queue, restored into a fresh captured card engine "
+        f"(buffers and host pool kept): streams == the uninterrupted run's, "
+        f"{fresh._graphs.replays} graph replays after the restore ok")
+
+
+def check_adoption(torch, dev, small, p_cpu, p_dev, phase="card-vs-cpu"):
+    """Compressed-prefix adoption, card against CPU: a 32-token prompt
+    (four blocks of 8) compresses prompt-pure and registers a segment of
+    two blocks; a watermark of 3 unreferenced cached blocks evicts its raw
+    chain leaf first; three extensions of the prompt adopt the segment.
+    Streams, pos_gap and the segment hits must be equal."""
+    from repro_torch.api import SamplingParams, Zipage
+
+    prefix, = _tight_prompts(small.vocab_size, SEED + 14, [32])
+    ext = [prefix + p for p in _tight_prompts(small.vocab_size, SEED + 15,
+                                              [2, 2, 2])]
+    got = {}
+    for name, device, params in (("cpu", "cpu", p_cpu), ("card", dev, p_dev)):
+        z = Zipage(small, params, device=device, **dict(
+            SWAP_SHAPES, n_total_blocks=64), cache_compressed_prefixes=True,
+            prefix_cache_watermark=0.05)
+        first = z.generate([prefix], SamplingParams(max_new_tokens=8))
+        segments = len(z.bm.segments)
+        outs = z.generate(ext, SamplingParams(max_new_tokens=24))
+        reqs = [z.engine.finished[o.request_id] for o in outs]
+        got[name] = dict(
+            first=first[0].token_ids, streams=[o.token_ids for o in outs],
+            pos_gap=[r.pos_gap for r in reqs], segments=segments,
+            segment_hits=z.metrics[-1]["prefix_segment_hits"])
+    if got["card"] != got["cpu"]:
+        raise AssertionError(f"{phase}: adoption differs: card {got['card']} "
+                             f"cpu {got['cpu']}")
+    g = got["card"]
+    if g["segments"] != 1 or g["segment_hits"] < len(ext) \
+            or g["pos_gap"] != [32 - 16] * len(ext):
+        raise AssertionError(f"{phase}: expected one segment adopted by each "
+                             f"extension at pos_gap 16, got {g}")
+    log(phase, f"compressed-prefix adoption (32-token prompt, segment of 2 "
+        f"blocks, watermark eviction of the raw chain): {len(ext)} adopters "
+        f"at pos_gap {g['pos_gap']}, {g['segment_hits']} segment hits, "
+        "streams card == CPU ok")
+
+
 def _tree_to(t, dev):
     if isinstance(t, dict):
         return {k: _tree_to(v, dev) for k, v in t.items()}
@@ -974,10 +1226,10 @@ class PlainGuard:
             setattr(m, n, fn)
 
 
-def make_prompts(cfg):
+def make_prompts(cfg, n_requests=N_REQUESTS):
     import numpy as np
     rng = np.random.default_rng(SEED)
-    lens = [int(x) for x in rng.integers(40, 181, N_REQUESTS)]
+    lens = [int(x) for x in rng.integers(40, 181, n_requests)]
     return [[int(x) for x in rng.integers(0, cfg.vocab_size, n)]
             for n in lens]
 
@@ -993,6 +1245,7 @@ def run_serve(torch, card, z, label, prompts, sps, path):
     cfg = z.cfg
     hook = DecodeInputs(eng)
     replays0 = eng._graphs.replays
+    m0 = len(eng.metrics)
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t = time.monotonic()
@@ -1004,14 +1257,15 @@ def run_serve(torch, card, z, label, prompts, sps, path):
     hook.close()
     rec.decode_args = hook.args(torch)
     replays = eng._graphs.replays - replays0
-    horizons = [m["decode_horizon"] for m in eng.metrics]
+    metrics = eng.metrics[m0:]
+    horizons = [m["decode_horizon"] for m in metrics]
     n_tok = sum(len(o.token_ids) for o in outs)
-    steps = [m["t_total"] for m in eng.metrics]
+    steps = [m["t_total"] for m in metrics]
     n_comp = sum(o.metrics.compression.n_compressions for o in outs)
-    n_batches = sum(1 for m in eng.metrics if m["n_compressing"] > 0)
-    t_dev = sum(m["t_device"] for m in eng.metrics)
-    visited = sum(m["pages_visited"] for m in eng.metrics)
-    dense = sum(m["pages_dense"] for m in eng.metrics)
+    n_batches = sum(1 for m in metrics if m["n_compressing"] > 0)
+    t_dev = sum(m["t_device"] for m in metrics)
+    visited = sum(m["pages_visited"] for m in metrics)
+    dense = sum(m["pages_dense"] for m in metrics)
     for i, o in enumerate(outs):
         kind = "greedy" if sps[i].is_greedy else "seeded"
         log(label, f"request {i} ({kind}): prompt {len(prompts[i])} tokens, "
@@ -1757,6 +2011,375 @@ def _group(key):
 
 
 # ----------------------------------------------------------------------
+# phase 9: memory pressure and shared prefixes at full width
+
+
+def _timed(torch, fn, out):
+    """A swap executor that appends (blocks, ms) for each call: CUDA events
+    around the callback, after a synchronize, so the span holds the
+    call's own gather, copies and scatter."""
+    def timed(r, src, dst):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        res = fn(r, src, dst)
+        end.record()
+        end.synchronize()
+        out.append((len(src), start.elapsed_time(end)))
+        return res
+    return timed
+
+
+def _swap_rate(times, block_bytes):
+    """Mean ms a copy and effective GB/s over ``times``."""
+    if not times:
+        return None, None
+    ms = sum(t for _, t in times)
+    gb = sum(n for n, _ in times) * block_bytes / 1e9
+    return ms / len(times), gb / (ms / 1e3)
+
+
+def pressure_serve(torch, card, cfg, params, label, prompts, sps, audits,
+                   **knobs):
+    """One pressure serve of phase 9 in a fresh engine built under
+    ZIPAGE_SANITIZE=1 on ``params``: ``run_serve`` with the audits
+    counted, the swap copies timed, and the pools drained clean after.
+    Returns its summary and its (tokens, logprobs) streams."""
+    from repro_torch.api import Zipage
+    z = _sanitized(lambda: Zipage(cfg, params, m_qslots=PRESSURE_QSLOTS,
+                                  **knobs))
+    eng = z.engine
+    times = {"out": [], "in": []}
+    if eng.swap_pool is not None:
+        sched = eng.scheduler
+        sched.swap_executor = _timed(torch, sched.swap_executor, times["out"])
+        sched.swap_in_executor = _timed(torch, sched.swap_in_executor,
+                                        times["in"])
+    summary, outs = sanitized_serve(
+        torch, card, z, label, prompts, sps, MAIN_PATH, audits)[2:]
+    _drained(z, label)
+    m = eng.metrics
+    block = eng._kv_block_bytes()
+    reqs = [eng.finished[o.request_id] for o in outs]
+    out_ms, out_rate = _swap_rate(times["out"], block)
+    in_ms, in_rate = _swap_rate(times["in"], block)
+    summary.update(
+        pool=eng.opts.n_total_blocks, mode=eng.opts.preemption_mode,
+        swap_space_blocks=eng.opts.swap_space_blocks,
+        preemptions=sum(x["n_preempted"] for x in m),
+        swapped_out=sum(x["n_swapped_out"] for x in m),
+        swapped_in=sum(x["n_swapped_in"] for x in m),
+        swap_gb=m[-1]["swap_bytes"] / 1e9,
+        prefill_tokens=sum(x["n_prefill_tokens"] for x in m),
+        recomputed=[i for i, r in enumerate(reqs)
+                    if r.preempt_count > r.n_swaps],
+        swap_out_ms=out_ms, swap_in_ms=in_ms, swap_out_gb_per_s=out_rate,
+        swap_in_gb_per_s=in_rate, block_bytes=block)
+    if summary["swapped_out"] != summary["swapped_in"]:
+        raise AssertionError(f"{label}: {summary['swapped_out']} swap-outs, "
+                             f"{summary['swapped_in']} swap-ins")
+    rate = "" if out_ms is None else (
+        f"; {out_ms:.3f} ms a swap-out ({out_rate:.1f} GB/s), {in_ms:.3f} ms "
+        f"a swap-in ({in_rate:.1f} GB/s) against the host link's nominal "
+        f"{HOST_LINK_BYTES_PER_S / 1e9:.0f} GB/s a direction")
+    log(label, f"pool {summary['pool']}: {summary['preemptions']} "
+        f"preemptions, {summary['swapped_out']} swap-outs, "
+        f"{summary['swapped_in']} swap-ins, {summary['swap_gb']:.3f} GB "
+        f"moved, {summary['prefill_tokens']} prefill tokens, recomputed "
+        f"requests {summary['recomputed']}{rate}; pools drained clean")
+    streams = [(o.token_ids, o.logprobs) for o in outs]
+    del z, eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, streams
+
+
+def _first_difference(a, b):
+    """(position, tokens differ there) of the first difference of two
+    (tokens, logprobs) streams."""
+    for j, (x, y) in enumerate(zip(zip(*a), zip(*b))):
+        if x != y:
+            return j, x[0] != y[0]
+    return min(len(a[0]), len(b[0])), True
+
+
+def phase_memory(torch, card, z_main, rows):
+    """Phase 9: pressure serves and shared-prefix serves of Qwen3-8B at
+    full width on the main serve's weights, each in a fresh engine under
+    ZIPAGE_SANITIZE=1; their launches go into the kernel rows'
+    ``launches_per_serve``."""
+    t = time.monotonic()
+    with Audits() as audits:
+        out = {"pressure": phase_pressure(torch, card, z_main, audits)}
+        out["pressure_s"] = time.monotonic() - t
+        out["prefix"] = phase_prefix(torch, card, z_main, audits)
+    out["phase_s"] = time.monotonic() - t
+    by_name = {r["name"]: r for r in rows}
+    for group in ("pressure", "prefix"):
+        for label, summary in out[group]["serves"].items():
+            for kname, n in summary["launches"].items():
+                by_name[kname]["launches_per_serve"][label] = n
+    log("memory", f"passed in {out['phase_s']:.1f} s (pressure "
+        f"{out['pressure_s']:.1f} s)")
+    return out
+
+
+def phase_pressure(torch, card, z_main, audits):
+    """PRESSURE_REQUESTS requests of ``make_prompts``' kind, half greedy
+    and half at Qwen3's thinking-mode sampling, NEW_TOKENS each with
+    logprobs, at the engine defaults but the pool and PRESSURE_QSLOTS
+    query slots: first an ample pool (256 blocks, no preemption), then
+    recompute, swap and auto on a tight pool that starts at TIGHT_POOL
+    blocks and shrinks by TIGHT_STEP until each of the three preempts at
+    least MIN_PREEMPTIONS times (swap and auto with SWAP_BLOCKS host
+    blocks). Swap's streams must equal the ample run's bit for bit, and
+    auto's too for every request it never recomputed; recompute's are
+    measured against it."""
+    from repro_torch.api import SamplingParams
+
+    cfg, params = z_main.cfg, z_main.engine.params
+    prompts = make_prompts(cfg, PRESSURE_REQUESTS)
+    half = PRESSURE_REQUESTS // 2
+    sps = [SamplingParams(max_new_tokens=NEW_TOKENS, logprobs=True)] * half \
+        + [SamplingParams(max_new_tokens=NEW_TOKENS, seed=SEED + i,
+                          logprobs=True, **THINKING) for i in range(half)]
+    serves = {}
+
+    def serve(label, **knobs):
+        summary, streams = pressure_serve(torch, card, cfg, params, label,
+                                          prompts, sps, audits, **knobs)
+        serves[label] = summary
+        return summary, streams
+
+    ample_s, ample = serve("memory[ample]")
+    if ample_s["preemptions"]:
+        raise AssertionError("memory[ample]: the ample pool preempted")
+    pool, tried = TIGHT_POOL, []
+    while True:
+        runs = {}
+        for mode in ("recompute", "swap", "auto"):
+            knobs = dict(n_total_blocks=pool, preemption_mode=mode)
+            if mode != "recompute":
+                knobs["swap_space_blocks"] = SWAP_BLOCKS
+            runs[mode] = serve(f"memory[{mode}, pool {pool}]", **knobs)
+            if runs[mode][0]["preemptions"] < MIN_PREEMPTIONS:
+                break
+        tried.append((pool, {m: r[0]["preemptions"] for m, r in runs.items()}))
+        if len(runs) == 3 and runs["auto"][0]["preemptions"] \
+                >= MIN_PREEMPTIONS:
+            break
+        pool -= TIGHT_STEP
+        if pool < MIN_POOL:
+            raise AssertionError(f"memory: no pool from {TIGHT_POOL} down to "
+                                 f"{MIN_POOL} preempts {MIN_PREEMPTIONS} "
+                                 f"times in each run: {tried}")
+        log("memory", f"preemptions {tried[-1][1]} at pool {tried[-1][0]}: "
+            f"shrinking the pool to {pool}")
+    swap_s, swap = runs["swap"]
+    if swap_s["swapped_out"] == 0:
+        raise AssertionError("memory: the swap run never swapped")
+    for i, (a, b) in enumerate(zip(ample, swap)):
+        if a != b:
+            raise AssertionError(f"memory: swap stream {i} differs from the "
+                                 f"ample run's at {_first_difference(a, b)}")
+    auto_s, auto = runs["auto"]
+    kept = [i for i in range(len(prompts)) if i not in auto_s["recomputed"]]
+    for i in kept:
+        if auto[i] != ample[i]:
+            raise AssertionError(f"memory: auto stream {i} (never "
+                                 "recomputed) differs from the ample run's at "
+                                 f"{_first_difference(ample[i], auto[i])}")
+    rec_s, rec = runs["recompute"]
+    diffs = []
+    for i, (a, b) in enumerate(zip(ample, rec)):
+        if a == b:
+            continue
+        j = next((j for j, (x, y) in enumerate(zip(a[0], b[0])) if x != y),
+                 None)
+        # at a flip, the ample run's logprob of its token minus the
+        # recompute run's of its own: with near-equal distributions, the
+        # top-2 logit margin there
+        margin = None if j is None else a[1][j] - b[1][j]
+        same = len(a[0]) if j is None else j
+        diffs.append(dict(
+            request=i, greedy=sps[i].is_greedy,
+            first_logprob_difference=_first_difference(a, b)[0],
+            first_token_difference=j, margin=margin,
+            max_logprob_delta=max(abs(x - y) for x, y in zip(
+                a[1][:same], b[1][:same])),
+            recomputed=i in rec_s["recomputed"]))
+    log("memory", f"pool {pool} ({tried}): swap == ample bit for bit "
+        f"(tokens and logprobs of {len(prompts)} requests); auto == ample on "
+        f"the {len(kept)} requests it never recomputed; recompute differs "
+        f"from ample on {len(diffs)} requests: {diffs} (measured, not "
+        "gated)")
+    for d in diffs:
+        if d["greedy"] and d["margin"] is not None and abs(d["margin"]) > 1e-3:
+            log("memory", f"recompute request {d['request']}: greedy flip at "
+                f"{d['first_token_difference']} with an estimated top-2 "
+                f"margin {d['margin']:.3e} above 1e-3: a fault for ROADMAP "
+                "§C")
+    return {"pool": pool, "tried": tried, "serves": serves,
+            "recompute_diffs": diffs,
+            "recompute_extra_prefill_tokens": rec_s["prefill_tokens"]
+            - ample_s["prefill_tokens"],
+            "auto_kept": kept}
+
+
+class CowCheck:
+    """Holds B6 against its plain version bit for bit, on the serve's own
+    input, at the first compaction launch that moves an adopter's shared
+    segment payload into fresh blocks (copy-on-write): the pools are
+    cloned before that launch and the plain version run on the clones."""
+
+    def __init__(self, torch, eng):
+        from repro_torch.kernels import compaction as cmp
+        from repro_torch.kernels import ops
+        self.torch, self.eng, self.ops = torch, eng, ops
+        self.plain = cmp.compact_plain      # held before PlainGuard swaps it
+        self.armed, self.checked = False, None
+
+    def __enter__(self):
+        self.launch, self.compact = self.eng._launch_compression, \
+            self.ops.compact
+
+        def launch(outs):
+            self.armed = any(
+                c.request.pos_gap > 0 and any(
+                    blk != c.request.blocks[i] for i, blk in enumerate(c.dest))
+                for c in outs.compress)
+            return self.launch(outs)
+
+        def compact(*args):
+            if not self.armed or self.checked is not None:
+                return self.compact(*args)
+            want = [x.clone() for x in args[:3]]
+            out = self.compact(*args)
+            self.plain(*want, *args[3:])
+            for name, a, r in zip("kvf", args[:3], want):
+                if not bool(self.torch.equal(a[:, :-1], r[:, :-1])):
+                    raise AssertionError(f"memory: B6 at an adopter's "
+                                         f"copy-on-write launch: {name} pool "
+                                         "differs from the plain version")
+            self.checked = dict(rows=int(args[4].shape[0]),
+                                width=int(args[4].shape[1]),
+                                k=int(args[6].shape[1]))
+            return out
+
+        self.eng._launch_compression = launch
+        self.ops.compact = compact
+        return self
+
+    def __exit__(self, *exc):
+        self.eng._launch_compression = self.launch
+        self.ops.compact = self.compact
+
+
+def phase_prefix(torch, card, z_main, audits):
+    """Shared-prefix serves: a PREFIX_TOKENS prompt served first
+    (WARMUP_TOKENS new tokens), then N_EXTENSIONS requests that extend it
+    by EXTENSION_TOKENS distinct tokens (half greedy, half seeded, with
+    logprobs, NEW_TOKENS each), in three fresh engines: no prefix cache
+    (cold), the default raw cache (hits must equal cold bit for bit), and
+    ``cache_compressed_prefixes`` under a watermark of SEGMENT_WATERMARK
+    (the raw chain is evicted, the extensions adopt the prompt's
+    compressed segment; B6 held bit for bit at an adopter's copy-on-write
+    launch)."""
+    import numpy as np
+    from repro_torch.api import SamplingParams, Zipage
+    from repro_torch.core.engine import EngineOptions
+
+    cfg, params = z_main.cfg, z_main.engine.params
+    rng = np.random.default_rng(SEED + 16)
+    prefix = [int(x) for x in rng.integers(0, cfg.vocab_size, PREFIX_TOKENS)]
+    ext = [prefix + [int(x) for x in rng.integers(0, cfg.vocab_size,
+                                                  EXTENSION_TOKENS)]
+           for _ in range(N_EXTENSIONS)]
+    half = N_EXTENSIONS // 2
+    sps = [SamplingParams(max_new_tokens=NEW_TOKENS, logprobs=True)] * half \
+        + [SamplingParams(max_new_tokens=NEW_TOKENS, seed=SEED + i,
+                          logprobs=True, **THINKING) for i in range(half)]
+    engines = {"cold": dict(prefix_caching=False), "raw-hit": {},
+               "segment": dict(cache_compressed_prefixes=True,
+                               prefix_cache_watermark=SEGMENT_WATERMARK)}
+    serves, streams, cow = {}, {}, None
+    for name, knobs in engines.items():
+        label = f"memory[prefix {name}]"
+        z = _sanitized(lambda: Zipage(cfg, params, **knobs))
+        eng = z.engine
+        z.generate([prefix], SamplingParams(max_new_tokens=WARMUP_TOKENS))
+        chain = eng.bm._block_chain(prefix)
+        raw = sum(h in eng.bm.hash_to_block for h in chain)
+        segments = len(eng.bm.segments)
+        held = []
+        n_blocks = eng.opts.n_total_blocks
+        eng.step_hooks.append(lambda m: held.append(
+            (m["n_running"], round(m["block_util"] * n_blocks))))
+        with CowCheck(torch, eng) as check:
+            summary, outs = sanitized_serve(
+                torch, card, z, label, ext, sps, MAIN_PATH, audits)[2:]
+        reqs = [eng.finished[o.request_id] for o in outs]
+        peak = max(n for n, _ in held)
+        used = next(u for n, u in held if n == peak)
+        m = eng.metrics[-1]
+        summary.update(
+            raw_chain_blocks_cached=raw, segments=segments,
+            n_cached=[r.n_cached for r in reqs],
+            pos_gap=[r.pos_gap for r in reqs],
+            prefill_tokens=sum(x["n_prefill_tokens"]
+                               for x in eng.metrics[-summary["steps"]:]),
+            blocks_per_request=used / peak, peak_running=peak,
+            prefix_hits=m["prefix_hits"],
+            prefix_segment_hits=m["prefix_segment_hits"],
+            cached_tokens_per_block=m["cached_tokens_per_block"])
+        serves[label] = summary
+        streams[name] = [(o.token_ids, o.logprobs) for o in outs]
+        if name == "segment":
+            cow = check.checked
+        log(label, f"raw chain blocks cached after the first request {raw} "
+            f"of {len(chain)}, segments {segments}; n_cached "
+            f"{summary['n_cached']}, pos_gap {summary['pos_gap']}, "
+            f"{summary['prefill_tokens']} prefill tokens, "
+            f"{used / peak:.2f} blocks a request at {peak} running, "
+            f"prefix hits {m['prefix_hits']}, segment hits "
+            f"{m['prefix_segment_hits']}, cached tokens a block "
+            f"{m['cached_tokens_per_block']:.2f}")
+        del z, eng, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+    cold, hit, seg = (serves[f"memory[prefix {n}]"] for n in engines)
+    if streams["raw-hit"] != streams["cold"]:
+        i = next(i for i, (a, b) in enumerate(zip(streams["cold"],
+                                                  streams["raw-hit"]))
+                 if a != b)
+        raise AssertionError(
+            f"memory: raw prefix hit stream {i} differs from the cold run's "
+            "at "
+            f"{_first_difference(streams['cold'][i], streams['raw-hit'][i])}")
+    if hit["n_cached"] != [PREFIX_TOKENS] * N_EXTENSIONS:
+        raise AssertionError(f"memory: raw hits cached {hit['n_cached']}")
+    b = EngineOptions().block_size
+    gap = PREFIX_TOKENS - (EngineOptions().n_max - 1) * b
+    if seg["segments"] != 1 \
+            or seg["raw_chain_blocks_cached"] >= PREFIX_TOKENS // b \
+            or seg["pos_gap"] != [gap] * N_EXTENSIONS \
+            or seg["prefix_segment_hits"] < N_EXTENSIONS \
+            or seg["cached_tokens_per_block"] <= b:
+        raise AssertionError(f"memory: segment adoption: {seg}")
+    if cow is None:
+        raise AssertionError("memory: no copy-on-write compaction launch of "
+                             "an adopter was held against plain")
+    saved = [cold["prefill_tokens"] - x["prefill_tokens"] for x in (hit, seg)]
+    log("memory", f"raw hits == cold bit for bit; adopters at pos_gap {gap}; "
+        f"B6 at an adopter's copy-on-write launch ({cow}) == plain bit for "
+        f"bit; prefill tokens saved: raw {saved[0]}, segment {saved[1]}; "
+        "tok/s "
+        f"cold {cold['tok_per_s']:.1f}, raw hit {hit['tok_per_s']:.1f}, "
+        f"segment {seg['tok_per_s']:.1f}")
+    return {"serves": serves, "cow_launch": cow, "pos_gap": gap}
+
+
+# ----------------------------------------------------------------------
 # phase 8: the other dense configs at full width, under the sanitizer
 
 
@@ -1778,6 +2401,44 @@ def phase_dense(torch, card, rows):
                 "took"].items()) + ")")
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+class Audits:
+    """While on, counts the sanitizer's audits (``invariants.check_engine``
+    wrapped; a violation still raises in the step)."""
+
+    def __init__(self):
+        from repro_torch.core import invariants
+        self.invariants = invariants
+        self.steps = []
+
+    def __enter__(self):
+        check = self.check = self.invariants.check_engine
+
+        def counted(engine):
+            self.steps.append(engine.step_count)
+            check(engine)
+
+        self.invariants.check_engine = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.invariants.check_engine = self.check
+
+
+def sanitized_serve(torch, card, z, label, prompts, sps, path, audits):
+    """``run_serve`` under ``audits``: one audit after every step of the
+    serve, and none reports a violation."""
+    audits.steps.clear()
+    s0 = z.engine.step_count
+    out = run_serve(torch, card, z, label, prompts, sps, path)
+    if audits.steps != list(range(s0 + 1, z.engine.step_count + 1)):
+        raise AssertionError(f"{label}: {len(audits.steps)} audits over "
+                             f"{z.engine.step_count - s0} steps")
+    log(label, f"sanitizer: {len(audits.steps)} audits, one after each "
+        "step, 0 violations")
+    out[2]["audits"] = len(audits.steps)
     return out
 
 
@@ -1808,7 +2469,7 @@ def dense_serve(torch, card, name):
     and flash redundancy (two greedy, two seeded requests), so that B4 and
     B5 run in a serve at g = 8."""
     from repro_torch.api import SamplingParams, Zipage
-    from repro_torch.core import invariants, memory_planner
+    from repro_torch.core import memory_planner
     from repro_torch.core.compression import CompressOptions
     from repro_torch.models import lm
 
@@ -1850,27 +2511,11 @@ def dense_serve(torch, card, name):
         f"{opts.n_total_blocks} blocks and {opts.m_qslots} slots)")
     lap("build")
 
-    audits = []
-    check = invariants.check_engine
-
-    def counted(engine):
-        audits.append(engine.step_count)
-        check(engine)
-
     def serve(zz, label, prompts, sps, path):
-        """``run_serve`` with the audits counted: one after every step
-        (a violation raises in the step)."""
-        audits.clear()
-        summary = run_serve(torch, card, zz, label, prompts, sps, path)[2]
-        if audits != list(range(1, len(zz.engine.metrics) + 1)):
-            raise AssertionError(f"{label}: {len(audits)} audits over "
-                                 f"{len(zz.engine.metrics)} steps")
-        log(label, f"sanitizer: {len(audits)} audits, one after each step, "
-            "0 violations")
-        return dict(summary, audits=len(audits))
+        return sanitized_serve(torch, card, zz, label, prompts, sps, path,
+                               audits)[2]
 
-    invariants.check_engine = counted
-    try:
+    with Audits() as audits:
         errs = dense_warmup(torch, z, phase)
         lap("warm-up")
         prompts = make_prompts(cfg)
@@ -1889,8 +2534,6 @@ def dense_serve(torch, card, name):
                                             prompts[:4], sps, ALG34_PATH)
             del z34
             lap("serve-alg34")
-    finally:
-        invariants.check_engine = check
     peak = torch.cuda.max_memory_allocated()
     log(phase, f"peak memory allocated {peak / 1e9:.2f} GB on {card}")
     out = {"layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -2009,6 +2652,8 @@ def main():
     lap("profile")
     paired = phase_paired(torch, card, z)
     lap("paired")
+    memory = phase_memory(torch, card, z, rows)
+    lap("memory")
     del z                     # Qwen3-8B's weights make room for phase 8's
     gc.collect()
     torch.cuda.empty_cache()
@@ -2020,7 +2665,7 @@ def main():
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "serve": summary, "serve_alg34": summary34,
                    "kernels": rows, "profile": prof, "paired": paired,
-                   "dense": dense}, f, indent=1)
+                   "memory": memory, "dense": dense}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,12 +29,19 @@ made while it was captured and adds them again at every replay; the
 counts of the warm-up calls and of the capture itself are taken back,
 since those calls decode nothing.
 
+The cyclic garbage collector is off while a graph is captured. A dead
+engine in a reference cycle holds its graphs; collected mid-capture, a
+graph's destruction is a CUDA call that a capturing stream does not
+permit, and it invalidates the capture in progress (seen on the H100 when
+an earlier test's engines were collected during a capture).
+
 Nothing here falls back: a failed capture or replay raises. Only an engine
 on a CUDA device uses this module; on the CPU the engine calls the chunk
 function eagerly.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -75,8 +82,14 @@ class DecodeGraphs:
         torch.cuda.current_stream().wait_stream(side)
         before = dict(native.launch_counts)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
-            out = self.run(k, greedy)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                out = self.run(k, greedy)
+        finally:
+            if collecting:
+                gc.enable()
         launched = {n: native.launch_counts[n] - before[n] for n in before
                     if native.launch_counts[n] != before[n]}
         native.launch_counts.update(counts)

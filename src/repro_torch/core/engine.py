@@ -18,11 +18,11 @@ inputs are buffers allocated once: every host push, and ``restore()``,
 copies into them.
 
 Ported so far: dense GQA models, compression with lightning or flash
-redundancy, the ragged and the dense decode kernel, recompute preemption,
-block-level prefix caching of raw KV, fused and unfused decode at any
-``decode_steps``, and ``snapshot()`` / ``restore()``. Swap preemption,
-compressed-prefix caching and other dtypes than float32 raise
-``NotImplementedError``.
+redundancy, the ragged and the dense decode kernel, recompute, swap and
+auto preemption with the host swap tier (a pinned host pool on the card),
+block-level prefix caching of raw KV and of compressed prefixes, fused and
+unfused decode at any ``decode_steps``, and ``snapshot()`` /
+``restore()``. Other dtypes than float32 raise ``NotImplementedError``.
 
 Setting ``n_max=None`` disables compression (plain PagedAttention).
 ``ZIPAGE_SANITIZE=1`` in the environment when an engine is built makes it
@@ -115,10 +115,6 @@ class EngineOptions:
 def unported_options(opts: EngineOptions) -> List[str]:
     """Engine knobs whose settings the port does not support yet."""
     out = []
-    if opts.preemption_mode != "recompute" or opts.swap_space_blocks:
-        out.append("swap preemption (preemption_mode / swap_space_blocks)")
-    if opts.cache_compressed_prefixes:
-        out.append("cache_compressed_prefixes")
     if opts.kernel_backend != "auto":
         out.append(f"kernel_backend={opts.kernel_backend!r} (kernels follow "
                    "the device)")
@@ -176,7 +172,12 @@ class ZipageEngine:
                 compression_deferral=opts.compression_deferral,
                 quality_defer_min_free=opts.quality_defer_min_free,
                 quality_entropy_threshold=opts.quality_entropy_threshold,
-                cache_compressed_prefixes=False,
+                # compressed-prefix caching needs segments to register
+                # (compression on) and hits to be adoptable (prefix on);
+                # outside that it is silently inert, not an error
+                cache_compressed_prefixes=(opts.cache_compressed_prefixes
+                                           and self.compression_enabled
+                                           and self.prefix_ok),
                 decode_steps=opts.decode_steps,
                 compression_enabled=self.compression_enabled,
                 budget_blocks=self.budget_blocks,
@@ -184,7 +185,7 @@ class ZipageEngine:
                 ring_blocks=0),
             BlockManager(opts.n_total_blocks, b,
                          enable_prefix_cache=self.prefix_ok,
-                         swap_space_blocks=0,
+                         swap_space_blocks=opts.swap_space_blocks,
                          prefix_cache_policy=opts.prefix_cache_policy,
                          prefix_cache_watermark=opts.prefix_cache_watermark))
         self._prefill = serve_model.build_prefill_step(cfg, self.spec)
@@ -240,6 +241,19 @@ class ZipageEngine:
         # active slot owns is caught
         self.sanitize = invariants.enabled()
         self._qwin_shadow: Dict[int, np.ndarray] = {}
+        # qslots any table push of the current step mapped: a request can
+        # be admitted, prefilled and preempted within one step, and its
+        # window row was written while it owned it
+        self._step_qslots: set = set()
+        self.swap_pool: Optional[Dict[str, torch.Tensor]] = None
+        self._swap_qwin: Dict[int, torch.Tensor] = {}   # rid -> parked window
+        self._swap_out = serve_model.build_swap_out_step(cfg, self.spec)
+        self._swap_in = serve_model.build_swap_in_step(cfg, self.spec)
+        # host swap tier: every arch the port serves keeps its whole
+        # request state in the paged pools (lm.check_supported), so the JAX
+        # engine's recompute fallback for per-slot state never applies
+        if opts.swap_space_blocks > 0:
+            self._init_swap()
         self._graphs: Optional[DecodeGraphs] = None
         if self.device.type == "cuda":
             native.build_all()       # compile before the first step, not in it
@@ -320,6 +334,7 @@ class ZipageEngine:
         r = self.scheduler.abort(rid)
         if r is None:
             return False
+        self._swap_qwin.pop(rid, None)
         r.state = State.FINISHED
         r.finish_reason = FinishReason.ABORT
         r.t_finish = time.monotonic()
@@ -374,6 +389,7 @@ class ZipageEngine:
         self._put(self.state["seq_lens"], self.host_seq)
         self._put(self.state["positions"], self.host_pos)
         self._put(self.state["qslot"], self.host_qslot)
+        self._step_qslots.update(int(q) for q in self.host_qslot if q >= 0)
         self._pushed_version = v
 
     # ------------------------------------------------------------------
@@ -527,12 +543,92 @@ class ZipageEngine:
         rids, dev = pq
         stats = self._fetch(dev)
         live = {r.rid: r for r in self.scheduler.running}
+        for sw in self.scheduler.swapped:
+            live[sw.rid] = sw
         for i, rid in enumerate(rids):
             r = live.get(rid)
             if r is None:
                 continue
             r.redundancy = float(stats[i, 0])
             r.attn_entropy = float(stats[i, 1])
+
+    # ------------------------------------------------------------------
+    # plan execution: the host swap tier
+
+    def _init_swap(self):
+        """Allocate the host swap pool, once: one mirror a pool leaf,
+        ``swap_space_blocks`` wide and block-major (``(S, L, b, ...)``,
+        each block's layers contiguous, as ``build_swap_out_step`` gathers
+        them), pinned on the card, so that every copy is a direct DMA; a
+        failed pinned allocation raises. Then register the two executors
+        the scheduler calls at plan time."""
+        pin = self.device.type == "cuda"
+        S = self.opts.swap_space_blocks
+        self.swap_pool = {
+            k: torch.zeros((S, leaf.shape[0]) + tuple(leaf.shape[2:]),
+                           dtype=leaf.dtype, pin_memory=pin)
+            for k, leaf in self.state["pools"].items()}
+        self.scheduler.swap_executor = self._swap_out_blocks
+        self.scheduler.swap_in_executor = self._swap_in_blocks
+
+    def _host_copy(self, t: torch.Tensor) -> torch.Tensor:
+        """A host tensor to receive ``t`` (pinned on the card)."""
+        return torch.empty(t.shape, dtype=t.dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    def _swap_out_blocks(self, r: Request, src_blocks, dst_host_blocks):
+        """Scheduler swap-out callback: gather the victim's blocks from
+        every layer's pools and park them in the host swap pool, with its
+        observation-window row keyed by rid, so a swap-in with a fresh
+        qslot resumes compression scoring where the swap-out left it. The
+        copies are waited for before returning: the scheduler releases
+        the device blocks right after."""
+        gathered = self._swap_out(self.state["pools"],
+                                  self._dev(np.asarray(src_blocks, np.int64)))
+        for k, vals in gathered.items():
+            host = self.swap_pool[k]
+            for i, j, h in _runs(dst_host_blocks):
+                host[h:h + j - i].copy_(vals[i:j], non_blocking=True)
+        if r.qslot >= 0:
+            win = self.state["qwin"][:, r.qslot]
+            parked = self._host_copy(win)
+            parked.copy_(win, non_blocking=True)
+            self._swap_qwin[r.rid] = parked
+        self._sync()
+
+    def _swap_in_blocks(self, r: Request, src_host_blocks,
+                        dst_dev_blocks) -> bool:
+        """Scheduler swap-in callback: copy the parked blocks to the card
+        and scatter them into the freshly allocated device blocks, in
+        place; re-arm the decode input (the victim's last sampled token
+        becomes ``tokens_next`` of its new slot) and restore the parked
+        window into the new qslot. Returns True when the window was
+        restored (the scheduler keeps ``win_count`` only then).
+
+        The host-to-device copies are queued without waiting. The host
+        blocks they read go back to the scheduler on return, but the only
+        writer of the host pool is a later swap-out's device-to-host copy,
+        which the stream runs after them (``restore()`` waits for the
+        device first); a parked window is a block of the caching pinned
+        allocator, which holds it until the copies queued from it have
+        run."""
+        vals = {}
+        for k, host in self.swap_pool.items():
+            buf = torch.empty((len(dst_dev_blocks),) + tuple(host.shape[1:]),
+                              dtype=host.dtype, device=self.device)
+            for i, j, h in _runs(src_host_blocks):
+                buf[i:j].copy_(host[h:h + j - i], non_blocking=True)
+            vals[k] = buf
+        self._swap_in(self.state["pools"],
+                      self._dev(np.asarray(dst_dev_blocks, np.int64)), vals)
+        if r.output and not r.prefill_pending:
+            self.tokens_next[r.slot] = r.output[-1]
+            self._tokens_dirty = True
+        parked = self._swap_qwin.pop(r.rid, None)
+        if parked is None or r.qslot < 0:
+            return False
+        self.state["qwin"][:, r.qslot].copy_(parked, non_blocking=True)
+        return True
 
     # ------------------------------------------------------------------
     # plan execution: fused decode
@@ -752,6 +848,7 @@ class ZipageEngine:
         self._last_horizon = 0
         self._step_pages_visited = 0
         self._step_pages_dense = 0
+        self._step_qslots = {int(q) for q in self.host_qslot if q >= 0}
         self.step_count += 1
         plan = self.scheduler.schedule(self.step_count)
         t_admit = time.monotonic()
@@ -814,8 +911,9 @@ class ZipageEngine:
     def snapshot(self):
         """The whole engine as host data: the device state (sink page and
         sink query slot included), the host mirrors, the scheduler's
-        queues, pools and counters, and the block manager. The swap tier
-        is not ported, so the snapshot carries none of it."""
+        queues, pools and counters, the block manager, and the host swap
+        tier: the swapped queue, its counters, the host swap pool and the
+        parked observation windows."""
         dev = _tree_map(lambda t: t.to("cpu", copy=True), self.state)
         return {
             "device": dev,
@@ -828,22 +926,34 @@ class ZipageEngine:
                 "rid": self._rid, "step": self.step_count,
                 "admission_scale": self.scheduler.admission_scale,
                 "ewma": self.scheduler.ewma,
+                "n_swapped_out": self.scheduler.n_swapped_out,
+                "n_swapped_in": self.scheduler.n_swapped_in,
+                "swap_bytes": self.scheduler.swap_bytes,
                 "n_comp_by_policy": self.scheduler.n_comp_by_policy,
                 "n_comp_deferred": self.scheduler.n_comp_deferred,
             }),
             "requests": copy.deepcopy({
                 "waiting": list(self.scheduler.waiting),
                 "running": self.scheduler.running,
+                "swapped": list(self.scheduler.swapped),
                 "finished": self.scheduler.finished,
             }),
             "bm": copy.deepcopy(self.bm),
+            "swap_pool": (None if self.swap_pool is None else
+                          _tree_map(torch.clone, self.swap_pool)),
+            "swap_qwin": {rid: a.clone()
+                          for rid, a in self._swap_qwin.items()},
         }
 
     def restore(self, snap):
         """Resume from ``snapshot()``. The device state is copied into the
         engine's own buffers, which its captured graphs read; then every
         device mirror is invalidated, so the next step pushes tables and
-        sampling state wholesale."""
+        sampling state wholesale. The swap pool is copied into the engine's
+        own host pool. Into an engine without a swap tier, the swapped
+        requests re-enter as recompute admissions (the scheduler demotes
+        them) and their parked windows are dropped."""
+        self._sync()                 # queued swap-ins may read the host pool
         _copy_into(self.state, snap["device"])
         h = copy.deepcopy(snap["host"])
         self.host_bt, self.host_seq = h["bt"], h["seq"]
@@ -853,6 +963,9 @@ class ZipageEngine:
         sched.free_slots, sched.free_qslots = h["free_slots"], h["free_qslots"]
         sched.admission_scale = h["admission_scale"]
         sched.ewma = h["ewma"]
+        sched.n_swapped_out = h["n_swapped_out"]
+        sched.n_swapped_in = h["n_swapped_in"]
+        sched.swap_bytes = h["swap_bytes"]
         sched.n_comp_by_policy = dict(h["n_comp_by_policy"])
         sched.n_comp_deferred = h["n_comp_deferred"]
         # in-flight quality telemetry references the old device buffers;
@@ -862,8 +975,16 @@ class ZipageEngine:
         r = copy.deepcopy(snap["requests"])
         sched.waiting = deque(r["waiting"])
         sched.running = r["running"]
+        sched.swapped = deque(r["swapped"])
         sched.finished = r["finished"]
         sched.bm = copy.deepcopy(snap["bm"])
+        self._swap_qwin = {}
+        if self.swap_pool is not None:
+            if snap["swap_pool"] is not None:
+                _copy_into(self.swap_pool, snap["swap_pool"])
+            for rid, a in snap["swap_qwin"].items():
+                self._swap_qwin[rid] = self._host_copy(a)
+                self._swap_qwin[rid].copy_(a)
         self._pushed_version = -1
         self._tokens_dirty = True
         self._qwin_shadow = {}
@@ -871,6 +992,16 @@ class ZipageEngine:
         self._dev_counters = None
         self._samp_version = -1
         self._samp_arrays = None
+
+
+def _runs(ids):
+    """Maximal runs of consecutive ids: ``(i, j, ids[i])`` for each run
+    ``ids[i:j]``, so a run of host blocks is one copy."""
+    i = 0
+    for j in range(1, len(ids) + 1):
+        if j == len(ids) or ids[j] != ids[j - 1] + 1:
+            yield i, j, ids[i]
+            i = j
 
 
 def _tree_map(fn, tree):

@@ -22,7 +22,12 @@ What differs from the JAX package's sanitizer:
     (``repro_torch.core.paged.sink_page``). Nothing owns them and they
     change on every step, so no audit reads them: the block audits run
     over the scheduler's ``num_blocks`` real blocks, and the window audit
-    over the ``m_qslots`` real query slots.
+    over the ``m_qslots`` real query slots;
+  * the window audit exempts every query slot that a table push of the
+    audited step mapped (``engine._step_qslots``), not only those of the
+    last push: under a tight pool a request can be admitted, prefilled
+    (writing its window row) and preempted within one step, and the JAX
+    package's audit reports that legitimate write as a violation.
 
 Pure host: this module imports no device code. Reading device state makes
 each audit a sync point, which is why it is opt-in.
@@ -394,10 +399,12 @@ def _qwin_ownership(engine, out: List[str]) -> None:
     sched = engine.scheduler
     free = set(sched.free_qslots)
     shadow = engine._qwin_shadow
-    # rows legitimately writable under the last table push: a qslot can
-    # be assigned AND freed within one step (tenant finishes), so current
-    # freeness alone is not enough to declare a row quiescent
-    dispatched = {int(q) for q in engine.host_qslot if q >= 0}
+    # rows legitimately writable under the step's table pushes: a qslot
+    # can be assigned AND freed within one step (tenant finishes, or is
+    # admitted, prefilled and preempted), so current freeness alone is not
+    # enough to declare a row quiescent
+    dispatched = {int(q) for q in engine.host_qslot if q >= 0} \
+        | engine._step_qslots
     for q in list(shadow):
         if q not in free or q in dispatched:
             del shadow[q]

@@ -66,6 +66,30 @@ def scatter_prefill(pool, block_tables, values, lengths, start=None):
 
 
 # ----------------------------------------------------------------------
+# whole-block copies (the host swap tier)
+
+def gather_kv_blocks(pool, block_ids):
+    """Gather whole blocks across every layer of a pool leaf.
+
+    pool: (L, N_total + 1, b, ...) with the sink page last; block_ids:
+    (m,) int, padded with -1. Returns (L, m, b, ...); a -1 id reads page
+    0, as in the JAX package, and callers slice by the real block count.
+    The swap-out half of the host swap tier.
+    """
+    return pool.index_select(1, block_ids.long().clamp(min=0))
+
+
+def scatter_kv_blocks(pool, block_ids, values):
+    """Inverse of :func:`gather_kv_blocks`, in place: write (L, m, b, ...)
+    values into the pool at ``block_ids``; a -1 id writes to the sink page
+    (the JAX package drops it). Swap-in restores a request's KV bit for
+    bit."""
+    ids = block_ids.long()
+    ids = torch.where(ids >= 0, ids, torch.full_like(ids, pool.shape[1] - 1))
+    pool.index_copy_(1, ids, values.to(pool.dtype))
+
+
+# ----------------------------------------------------------------------
 # reads
 
 def gather_entries(pool, block_tables):

@@ -191,6 +191,40 @@ def build_fused_decode_step(cfg: ArchConfig, spec: ServeSpec, n_steps: int,
     return fused
 
 
+def build_swap_out_step(cfg: ArchConfig, spec: ServeSpec):
+    """``swap_out(pools, block_ids) -> {leaf: (m, L, b, ...)}``: whole KV
+    blocks of every layer and pool leaf, gathered for a swap-out.
+
+    Block-major, where the JAX package returns ``(L, m, b, ...)``: the
+    engine's host swap pool holds each block's layers contiguously, so a
+    run of consecutive host blocks is one direct copy between the device
+    and pinned host memory, without a staging buffer.
+    """
+    lm.check_supported(cfg)
+
+    def swap_out(pools, block_ids):
+        return {k: paged.gather_kv_blocks(v, block_ids).transpose(0, 1)
+                .contiguous() for k, v in pools.items()}
+
+    return swap_out
+
+
+def build_swap_in_step(cfg: ArchConfig, spec: ServeSpec):
+    """``swap_in(pools, block_ids, values)``: scatter block-major values
+    (``build_swap_out_step``'s layout) back into the device pools, in
+    place, so a captured decode graph keeps reading the same buffers;
+    swap-in restores the request's KV bit for bit. A -1 id writes to the
+    sink page."""
+    lm.check_supported(cfg)
+
+    def swap_in(pools, block_ids, values):
+        for k, pool in pools.items():
+            paged.scatter_kv_blocks(pool, block_ids,
+                                    values[k].transpose(0, 1))
+
+    return swap_in
+
+
 def build_prefill_step(cfg: ArchConfig, spec: ServeSpec):
     """prefill_step(params, state, tokens, slot_ids, lengths, start_pos,
     rope_start=None) -> last-token logits (P, V).

@@ -137,18 +137,14 @@ def test_chunked_order_breaks_without_the_precondition(rows):
                                  want)
 
 
-def test_scheduler_plans_destinations_the_kernel_takes():
-    """The port's scheduler, driven through compressions of requests with
-    a shared, cached prompt prefix (copy-on-write) and without one (in
-    place): every planned destination block is block i of the request's
-    own table, or a block in no table of the launch."""
-    cfg = get_config("tiny-lm")
-    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    z = Zipage(cfg, params, device="cpu", block_size=8, n_total_blocks=64,
-               max_batch=4, max_model_len=128, prefill_rows=2,
-               prefill_len=64)
-    eng = z.engine
-    seen = {"in_place": 0, "copy_on_write": 0}
+def checking(eng):
+    """Hold every compression launch the engine plans to the kernel's
+    precondition: each destination block is block i of the request's own
+    table, or a block in no table of the launch. Returns counts of the
+    launches by kind: in place or copy-on-write, and launches of requests
+    that adopted a compressed segment or came back by swap-in."""
+    seen = {"in_place": 0, "copy_on_write": 0, "adopted": 0,
+            "swapped_in": 0}
     launch = eng._launch_compression
 
     def checked(outs):
@@ -159,9 +155,25 @@ def test_scheduler_plans_destinations_the_kernel_takes():
             fresh = [blk for i, blk in enumerate(c.dest) if blk != blocks[i]]
             assert not set(fresh) & tables, (c.dest, blocks)
             seen["copy_on_write" if fresh else "in_place"] += 1
+            seen["adopted"] += c.request.pos_gap > 0
+            seen["swapped_in"] += c.request.n_swaps > 0
         return launch(outs)
 
     eng._launch_compression = checked
+    return seen
+
+
+def test_scheduler_plans_destinations_the_kernel_takes():
+    """The port's scheduler, driven through compressions of requests with
+    a shared, cached prompt prefix (copy-on-write) and without one (in
+    place): every planned destination block is block i of the request's
+    own table, or a block in no table of the launch."""
+    cfg = get_config("tiny-lm")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    z = Zipage(cfg, params, device="cpu", block_size=8, n_total_blocks=64,
+               max_batch=4, max_model_len=128, prefill_rows=2,
+               prefill_len=64)
+    seen = checking(z.engine)
     prefix = list(range(1, 33))
     prompts = [prefix + [40 + i] * (3 + 5 * i) for i in range(3)]
     prompts.append(list(range(100, 127)))
@@ -171,4 +183,48 @@ def test_scheduler_plans_destinations_the_kernel_takes():
     assert min(o.metrics.compression.n_compressions for o in outs) > 0
     assert seen["in_place"] > 0 and seen["copy_on_write"] > 0, seen
     assert z.num_free_blocks == 64
+    z.bm.check_invariants()
+
+
+def test_adopters_plan_destinations_the_kernel_takes():
+    """Requests that adopt a compressed segment hold its payload at the
+    front of their tables (shared, copy-on-write protected); their later
+    compressions copy it into fresh blocks and keep the rest in place."""
+    cfg = get_config("tiny-lm")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    z = Zipage(cfg, params, device="cpu", block_size=8, n_total_blocks=64,
+               max_batch=4, max_model_len=128, prefill_rows=2,
+               prefill_len=64, cache_compressed_prefixes=True,
+               prefix_cache_watermark=0.05)
+    seen = checking(z.engine)
+    prefix = list(range(1, 33))
+    z.generate([prefix], SamplingParams(max_new_tokens=8))
+    assert z.bm.segments
+    outs = z.generate([prefix + [40 + i, 50 + i] for i in range(3)],
+                      SamplingParams(max_new_tokens=40))
+    assert all(o.metrics.compression.n_compressions for o in outs)
+    assert seen["adopted"] > 0 and seen["copy_on_write"] > 0, seen
+    assert z.num_free_blocks == 64
+    z.bm.check_invariants()
+
+
+@pytest.mark.parametrize("mode", ["swap", "auto"])
+def test_swapped_in_requests_plan_destinations_the_kernel_takes(mode):
+    """A swap-in gives the request all-new blocks and no shared prefix;
+    its later compressions stay in place on its own table. (``auto`` runs
+    at ``swap_cost_per_token=0.1`` here, so that it picks swap.)"""
+    cfg = get_config("tiny-lm")
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    z = Zipage(cfg, params, device="cpu", block_size=8, n_total_blocks=10,
+               max_batch=4, m_qslots=4, n_max=3, max_model_len=256,
+               prefill_rows=2, prefill_len=64, preemption_mode=mode,
+               swap_space_blocks=24, swap_cost_per_token=0.1)
+    seen = checking(z.engine)
+    prompts = [[1, 2, 3, 4, 5], [9, 8, 7], [10, 11, 12, 13, 14, 15, 16],
+               [20, 21]]
+    outs = z.generate(prompts, SamplingParams(max_new_tokens=60))
+    assert sum(m["n_swapped_in"] for m in z.metrics) > 0
+    assert seen["swapped_in"] > 0, seen
+    assert all(len(o.token_ids) == 60 for o in outs)
+    assert z.num_free_blocks == 10
     z.bm.check_invariants()

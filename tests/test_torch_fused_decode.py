@@ -398,3 +398,48 @@ def test_graph_replays_count_the_captured_launches(monkeypatch):
     graphs.recapture(2)
     assert set(graphs.graphs) == {(4, True, 2)}
     native.reset_launch_counts()
+
+
+def test_capture_runs_with_the_cyclic_collector_off(monkeypatch):
+    """A graph captured while the garbage collector may run can be
+    invalidated by a dead engine's graph being destroyed mid-capture: the
+    collector is off during the capture, and on again after it (also when
+    the capture raises)."""
+    import gc
+    seen = []
+
+    class Context(_FakeGraphContext):
+        def __enter__(self):
+            seen.append(gc.isenabled())
+
+    class Stream:
+        def __init__(self, device=None):
+            pass
+
+        def wait_stream(self, other):
+            pass
+
+    cuda = torch.cuda
+    monkeypatch.setattr(cuda, "graph_pool_handle", lambda: (0, 0))
+    monkeypatch.setattr(cuda, "Stream", Stream)
+    monkeypatch.setattr(cuda, "current_stream", lambda device=None: Stream())
+    monkeypatch.setattr(cuda, "stream", lambda s: _FakeGraphContext(None))
+    monkeypatch.setattr(cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(cuda, "graph", Context)
+    calls = []
+
+    def run(k, greedy):
+        calls.append(gc.isenabled())
+        if greedy is None and not gc.isenabled():
+            raise RuntimeError("capture failed")
+        return torch.zeros(k, 2), torch.zeros(k, 2)
+
+    graphs = decode_graphs.DecodeGraphs(run, torch.zeros(2, dtype=torch.int32))
+    assert gc.isenabled()
+    graphs.capture(1, True, 1)
+    assert seen == [False] and calls[-1] is False
+    assert calls[:decode_graphs.WARMUP_CALLS] == [True] * 3
+    assert gc.isenabled()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        graphs.capture(1, None, 1)
+    assert gc.isenabled()

@@ -594,3 +594,39 @@ def test_snapshot_on_card_restores_into_a_captured_engine(cuda):
     assert [(done_b[r].output, done_b[r].logprobs) for r in rids] == \
         [(done_a[r].output, done_a[r].logprobs) for r in rids]
     assert fresh._graphs.replays > 0
+
+
+# ----------------------------------------------------------------------
+# the host swap tier and compressed-prefix caching (chip_smoke.py phase 4)
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.fixture(scope="module")
+def tiny(cuda):
+    cfg = get_config("tiny-lm")
+    p_cpu = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    return cfg, p_cpu, _to(p_cpu, cuda)
+
+
+@pytest.mark.parametrize("check", ["block_round_trip", "swap_streams",
+                                   "swap_snapshot", "adoption"])
+def test_memory_checks_on_card(cuda, tiny, check):
+    """chip_smoke.py's phase 4 checks of the host swap tier and of
+    compressed-prefix adoption, at tiny-lm: a block round trip through the
+    pinned host pool bit for bit; a swap-mode serve on the card equal to
+    the CPU's; a snapshot with a swapped request restored into a captured
+    card engine; segment adoption on the card equal to the CPU's."""
+    cs = _chip_smoke()
+    cfg, p_cpu, p_dev = tiny
+    args = {"block_round_trip": (cfg, p_dev),
+            "swap_streams": (cfg, p_cpu, p_dev),
+            "swap_snapshot": (cfg, p_dev),
+            "adoption": (cfg, p_cpu, p_dev)}[check]
+    getattr(cs, f"check_{check}")(torch, cuda, *args)

@@ -2,9 +2,10 @@
 
   * ``repro_torch.core.invariants``, the ``ZIPAGE_SANITIZE=1`` sanitizer:
     a healthy run audits clean after every step, and each seeded
-    corruption of ``tests/test_invariants.py`` that applies to the port
-    (all but the swap pool's, as swap is not ported) is reported with the
-    same message; writes into the sink page and sink query slot are not.
+    corruption of ``tests/test_invariants.py`` is reported with the same
+    message; writes into the sink page and sink query slot are not, nor is
+    the window row of a request admitted, prefilled and preempted within
+    one step (which the JAX package's audit reports).
     The flag is set through ``monkeypatch.setenv`` only, so no later engine
     of either package in the same worker audits itself.
   * ``repro_torch.core.memory_planner``: equal to the JAX package's at the
@@ -306,6 +307,58 @@ def test_qwin_shadow_retired_for_dispatched_qslots():
     eng.host_qslot[0] = q                       # legitimately dispatched
     eng.state["qwin"][:, q] += 1.0
     assert invariants.audit_engine(eng) == []
+
+
+def test_window_of_a_request_preempted_in_its_admission_step():
+    """Under a tight pool a request is admitted with a query slot,
+    prefilled (its window row written) and recompute-preempted in the same
+    step; the step's pushes mapped that slot, so the row is no violation,
+    while a later write into it, once free, is."""
+    eng = make_engine(block_size=16, n_total_blocks=40, max_batch=16,
+                      m_qslots=16, n_max=4, max_model_len=512,
+                      prefill_rows=4, prefill_len=128)
+    rng = np.random.default_rng(0)
+    for n in rng.integers(40, 181, 16):
+        submit(eng, [int(x) for x in rng.integers(0, CFG.vocab_size, n)],
+               128)
+    seen = None
+    for _ in range(6):
+        admitted = {r.rid: r.qslot for r in eng.running}
+        eng.step()
+        assert invariants.audit_engine(eng) == []
+        new = {r.rid for r in eng.scheduler.waiting if r.preempt_count} - \
+            set(admitted)
+        if new and seen is None:
+            seen = new
+    assert seen, "no request was preempted in its admission step"
+    q = eng.scheduler.free_qslots[-1]
+    eng.state["qwin"][:, q] += 1.0
+    eng._step_qslots = set()
+    eng.host_qslot.fill(-1)
+    invariants.audit_engine(eng)
+    eng.state["qwin"][:, q] += 1.0
+    assert any(f"free qslot {q}" in m for m in invariants.audit_engine(eng))
+
+
+def test_healthy_swap_run_audits_clean():
+    eng = make_engine(n_total_blocks=10, max_batch=4, m_qslots=4,
+                      prefix_caching=False, preemption_mode="swap",
+                      swap_space_blocks=16)
+    for p in PROMPTS:
+        submit(eng, p, 24)
+    while eng.scheduler.has_work():
+        eng.step()
+        assert invariants.audit_engine(eng) == []
+        assert eng.step_count < 800
+    assert sum(m["n_swapped_out"] for m in eng.metrics) > 0
+
+
+def test_swap_pool_leak_is_detected():
+    eng = running_engine(preemption_mode="swap", swap_space_blocks=16,
+                         prefix_caching=False)
+    eng.bm.swapped[9999] = [eng.bm.swap_free.pop()]   # rid not in queue
+    msgs = invariants.audit_engine(eng)
+    assert any("rid 9999" in m and "swap-pool leak" in m for m in msgs), msgs
 
 
 def test_sink_page_and_sink_query_slot_are_not_audited():

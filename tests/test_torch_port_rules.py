@@ -81,13 +81,33 @@ def test_cpu_when_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(preemption_mode="swap", swap_space_blocks=8),
-    dict(cache_compressed_prefixes=True),
     dict(dtype="bfloat16"),
 ])
 def test_unported_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="not ported"):
         Zipage.from_config("tiny-lm", device="cpu", **knob)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(preemption_mode="swap", swap_space_blocks=8),
+    dict(preemption_mode="auto", swap_space_blocks=8),
+    dict(cache_compressed_prefixes=True),
+])
+def test_memory_knobs_are_accepted(knob):
+    """The host swap tier and compressed-prefix caching serve on the CPU
+    (tests/test_torch_swap.py and tests/test_torch_prefix_cache.py hold
+    them against the JAX engine)."""
+    z = Zipage.from_config("tiny-lm", device="cpu", block_size=8,
+                           n_total_blocks=16, max_batch=2, max_model_len=64,
+                           prefill_rows=1, prefill_len=32, **knob)
+    for k, v in knob.items():
+        assert getattr(z.engine.opts, k) == v
+    assert (z.engine.swap_pool is not None) == ("swap_space_blocks" in knob)
+    assert z.engine.scheduler.p.cache_compressed_prefixes == \
+        knob.get("cache_compressed_prefixes", False)
+    outs = z.generate([[1, 2, 3], [4, 5]], SamplingParams(max_new_tokens=12))
+    assert [len(o.token_ids) for o in outs] == [12, 12]
+    assert z.num_free_blocks == 16
 
 
 @pytest.mark.parametrize("knob", [
