@@ -23,6 +23,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      bit at the engine's budget (k = 48) and at k = 1024; and the decode
      kernels on idle slots (seq_len >= 1 over an empty table, as the
      serve passes them), where a -1 entry below seq_len reads page 0;
+     then all of it again at bf16 inputs, against the kernels' bf16
+     variants (fp32 outputs within BF16_TOL, bf16 outputs within one ulp,
+     B6 and dense vs ragged bit for bit);
   4. card vs CPU at Qwen3-8B widths and 2 layers: one paged prefill and a
      few decode steps (logits), the threefry sampling noise (bit for bit),
      a fused chunk of 4 decode steps replayed from its CUDA graph against
@@ -41,7 +44,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      at 2 layers of each other dense config, its own widths and head
      layout (vocabulary capped at CPU_VOCAB, logged): logits, and greedy
      and seeded streams with compression firing (Qwen2.5-3B's also through
-     the dense-decode / flash path);
+     the dense-decode / flash path); and at bf16, 2 layers of Qwen3-8B
+     widths with bf16 weights: logits within a relative L2 of
+     BF16_REL_L2, the noise bit for bit, graph replay == eager bit for
+     bit, and the card's streams at ``decode_steps=8`` equal its K = 1
+     streams, tokens and logprobs (the CPU's measured against them);
   5. the main serve at full width: ``Zipage.from_config("qwen3-8b")`` at
      the engine defaults (36 layers, fp32, random weights from a seed,
      ``decode_steps=1``, every decode step a CUDA graph replay) serves
@@ -94,6 +101,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
      cold bit for bit) and compressed-segment adoption after the raw
      chain is evicted under the watermark (pos_gap 80, 8 segment hits),
      with B6 held bit for bit at an adopter's copy-on-write launch.
+  10. (run after 6, before 7, on the Qwen3-8B weights cast to bf16, norms
+     fp32) bfloat16 at full width: the main serve at the engine defaults
+     under ZIPAGE_SANITIZE=1 on the phase 5 prompts (where each stream
+     leaves its fp32 twin is logged), paired serves at ``decode_steps``
+     1 and 8 (equal streams and logprobs), dense decode with flash
+     redundancy (4 greedy, 4 seeded), a profiled window (device idle,
+     matmul's share of busy time), the six kernels' bf16 variants timed
+     as in phase 6 at the serves' inputs and the long inputs (bounds at
+     bf16 bytes, products at the bf16 tensor-core peak), and the memory
+     planner's M and N_total at bf16 against fp32.
 
 The last two lines of standard output are the card's name and power
 limit, and ``{"ok": true, "device": {...}}``; the line before them is the
@@ -117,11 +134,22 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 0
 TOL = 1e-4            # atol = rtol for fp32 kernel-vs-plain comparisons:
 #                       the kernels sum in another order than PyTorch
+#: atol = rtol for the kernels against their plain versions at bf16
+#: inputs: fp32 outputs (K2, K3, B5) to 1e-5, bf16 outputs (K1, B4) to one
+#: bf16 ulp (both round an fp32 result once)
+BF16_TOL, BF16_OUT_TOL = 1e-5, 2.0 ** -7
 CARD_CPU_TOL = 1e-3   # atol = rtol for card-vs-CPU logits of a 4096-wide
 #                       model: each matmul sums 4096-12288 products in a
 #                       different order on each device
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+#: H100 SXM dense bf16 on the tensor cores: the least time for products of
+#: bf16 inputs (the port's bf16 kernels form them in fp32 on CUDA cores)
+BF16_FLOPS_PER_S = 989e12
+#: relative L2 of bf16 logits, card against CPU (and the port against the
+#: JAX package on the CPU): cuBLAS and the CPU sum bf16 products in other
+#: orders, and bf16 rounds every stored result
+BF16_REL_L2 = 2e-2
 N_REQUESTS = 8
 NEW_TOKENS = 128
 #: the long inputs of phase 6: table width and seq_lens of K2, K3 and B5,
@@ -241,10 +269,11 @@ def _ptxas_function(line):
 # phase 3: kernels against their plain versions
 
 
-def make_pool(torch, rng, n_pages, b, hkv, d, dev, *, similar=False):
-    """Random pool on the card; page 0 is NaN. ``similar`` makes the keys
-    of a page near-duplicates, so cosines cross the redundancy
-    threshold."""
+def make_pool(torch, rng, n_pages, b, hkv, d, dev, *, similar=False,
+              dtype=None):
+    """Random pool on the card (fp32, or ``dtype``); page 0 is NaN.
+    ``similar`` makes the keys of a page near-duplicates, so cosines cross
+    the redundancy threshold."""
     import numpy as np
     k = rng.normal(size=(n_pages, b, hkv, d)).astype(np.float32)
     if similar:
@@ -253,7 +282,9 @@ def make_pool(torch, rng, n_pages, b, hkv, d, dev, *, similar=False):
     v = rng.normal(size=(n_pages, b, hkv, d)).astype(np.float32)
     k[0] = np.nan
     v[0] = np.nan
-    return torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
+    dtype = dtype or torch.float32
+    return (torch.from_numpy(k).to(dev, dtype),
+            torch.from_numpy(v).to(dev, dtype))
 
 
 def make_tables(torch, rng, seq_lens, b, mb, n_pages, dev, pool_k=None,
@@ -274,23 +305,39 @@ def make_tables(torch, rng, seq_lens, b, mb, n_pages, dev, pool_k=None,
             torch.tensor(seq_lens, dtype=torch.int32, device=dev))
 
 
-def max_err(torch, got, want, name):
+def max_err(torch, got, want, name, tol=TOL):
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: kernel output is not finite")
-    err = (got - want).abs()
-    bad = err > TOL + TOL * want.abs()
+    if got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.dtype} out, the plain version "
+                             f"gives {want.dtype}")
+    want = want.float()
+    err = (got.float() - want).abs()
+    bad = err > tol + tol * want.abs()
     if bool(bad.any()):
         raise AssertionError(f"{name}: {int(bad.sum())} entries off by up to "
-                             f"{float(err.max()):.3e} (tol {TOL})")
+                             f"{float(err.max()):.3e} (tol {tol})")
     return float(err.max())
 
 
-def phase_kernels(torch, dev, cfg, opts, phase="kernels"):
+def kernel_tols(torch, dtype):
+    """(tolerance of fp32 outputs, of outputs in the input dtype) for the
+    kernels against their plain versions at inputs of ``dtype``."""
+    if dtype == torch.bfloat16:
+        return BF16_TOL, BF16_OUT_TOL
+    return TOL, TOL
+
+
+def phase_kernels(torch, dev, cfg, opts, phase="kernels", dtype=None):
+    """The kernels against their plain versions at inputs of ``dtype``
+    (fp32 unless given)."""
     import numpy as np
     from repro_torch.kernels import paged_score as ps
     from repro_torch.kernels import ragged_paged_attention as rpa
     from repro_torch.kernels import redundancy as red
 
+    dtype = dtype or torch.float32
+    tol, out_tol = kernel_tols(torch, dtype)
     b, mb = opts.block_size, -(-opts.max_model_len // opts.block_size)
     n_pages, B = opts.n_total_blocks, opts.max_batch
     hq, hkv, d, w = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
@@ -305,19 +352,20 @@ def phase_kernels(torch, dev, cfg, opts, phase="kernels"):
         "inactive": [0] * B,
     }
     for label, lens in decode_mixes.items():
-        k, v = make_pool(torch, rng, n_pages, b, hkv, d, dev)
+        k, v = make_pool(torch, rng, n_pages, b, hkv, d, dev, dtype=dtype)
         bt, sl = make_tables(torch, rng, lens, b, mb, n_pages, dev, k, v)
         q = torch.randn(B, hq, d, device=dev,
-                        generator=torch.Generator(dev).manual_seed(SEED))
+                        generator=torch.Generator(dev).manual_seed(SEED)) \
+            .to(dtype)
         got = rpa.ragged_paged_attention_cuda(q, k, v, bt, sl)
         want = rpa.ragged_paged_attention_plain(q, k, v, bt, sl)
         torch.cuda.synchronize()
         if not bool((got[sl == 0] == 0).all()):
             raise AssertionError("ragged: seq_len == 0 rows are not zeros")
-        e = max_err(torch, got, want, f"ragged[{label}]")
+        e = max_err(torch, got, want, f"ragged[{label}]", out_tol)
         errs[rpa.NAME] = max(errs[rpa.NAME], e)
         log(phase, f"{rpa.NAME}[{label}]: max_abs_err={e:.3e} "
-            f"(atol=rtol={TOL}) ok")
+            f"(atol=rtol={out_tol}) ok")
     comp_mixes = {
         "compress": [64, 176, 4, T, 16, 80, 0, 48],
         "similar": [64, 64, 128, 200, 31, T, 5, 0],
@@ -325,21 +373,22 @@ def phase_kernels(torch, dev, cfg, opts, phase="kernels"):
     n_thresh_hits = 0
     for label, lens in comp_mixes.items():
         k, v = make_pool(torch, rng, n_pages, b, hkv, d, dev,
-                         similar=label == "similar")
+                         similar=label == "similar", dtype=dtype)
         bt, sl = make_tables(torch, rng, lens, b, mb, n_pages, dev, k, v)
         q_win = torch.randn(len(lens), w, hq, d, device=dev,
-                            generator=torch.Generator(dev).manual_seed(SEED))
+                            generator=torch.Generator(dev).manual_seed(SEED)) \
+            .to(dtype)
         got = ps.paged_score_logits_cuda(q_win, k, bt, sl)
         want = ps.paged_score_logits_plain(q_win, k, bt, sl)
-        e = max_err(torch, got, want, f"paged_score[{label}]")
+        e = max_err(torch, got, want, f"paged_score[{label}]", tol)
         errs[ps.NAME] = max(errs[ps.NAME], e)
         log(phase, f"{ps.NAME}[{label}]: max_abs_err={e:.3e} "
-            f"(atol=rtol={TOL}) ok")
+            f"(atol=rtol={tol}) ok")
         got = red.lightning_redundancy_cuda(k, bt, sl,
                                             p_thresh=opts.compress.p_thresh)
         want = red.lightning_redundancy_plain(k, bt, sl,
                                               p_thresh=opts.compress.p_thresh)
-        e = max_err(torch, got, want, f"redundancy[{label}]")
+        e = max_err(torch, got, want, f"redundancy[{label}]", tol)
         errs[red.NAME] = max(errs[red.NAME], e)
         if not bool(torch.equal(got, red.lightning_redundancy_cuda(
                 k, bt, sl, p_thresh=opts.compress.p_thresh))):
@@ -347,23 +396,23 @@ def phase_kernels(torch, dev, cfg, opts, phase="kernels"):
         no_thresh = red.lightning_redundancy_plain(k, bt, sl, p_thresh=2.0)
         n_thresh_hits += int((no_thresh != want).sum())
         log(phase, f"{red.NAME}[{label}]: max_abs_err={e:.3e} "
-            f"(atol=rtol={TOL}), the same in two runs, ok")
+            f"(atol=rtol={tol}), the same in two runs, ok")
     if n_thresh_hits == 0:
         raise AssertionError("redundancy: the p_thresh zero-out never fired")
     log(phase, f"{red.NAME}: the p_thresh zero-out changed "
         f"{n_thresh_hits} row sums (exercised)")
     torch.cuda.synchronize()
     errs.update(phase_kernels_alg34(torch, dev, cfg, opts, rng, decode_mixes,
-                                    comp_mixes, phase))
-    errs[rpa.NAME] = max(errs[rpa.NAME],
-                         check_idle_slots(torch, dev, cfg, opts, rng, phase))
+                                    comp_mixes, phase, dtype))
+    errs[rpa.NAME] = max(errs[rpa.NAME], check_idle_slots(
+        torch, dev, cfg, opts, rng, phase, dtype))
     return errs
 
 
 def phase_kernels_alg34(torch, dev, cfg, opts, rng, decode_mixes,
-                        comp_mixes, phase):
+                        comp_mixes, phase, dtype):
     """B4 dense decode, B5 flash redundancy and B6 compaction against their
-    plain versions on the card."""
+    plain versions on the card, at inputs of ``dtype``."""
     from repro_torch.kernels import compaction as cmp
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ragged_paged_attention as rpa
@@ -372,17 +421,19 @@ def phase_kernels_alg34(torch, dev, cfg, opts, rng, decode_mixes,
     b, mb = opts.block_size, -(-opts.max_model_len // opts.block_size)
     n_pages, B = opts.n_total_blocks, opts.max_batch
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tol, out_tol = kernel_tols(torch, dtype)
     errs = {pa.NAME: 0.0, red.FLASH_NAME: 0.0, cmp.NAME: 0.0}
     for label, lens in decode_mixes.items():
-        k, v = make_pool(torch, rng, n_pages, b, hkv, d, dev)
+        k, v = make_pool(torch, rng, n_pages, b, hkv, d, dev, dtype=dtype)
         bt, sl = make_tables(torch, rng, lens, b, mb, n_pages, dev, k, v)
         q = torch.randn(B, hq, d, device=dev,
-                        generator=torch.Generator(dev).manual_seed(SEED))
+                        generator=torch.Generator(dev).manual_seed(SEED)) \
+            .to(dtype)
         got = pa.paged_attention_cuda(q, k, v, bt, sl)
         want = pa.paged_attention_plain(q, k, v, bt, sl)
         ragged = rpa.ragged_paged_attention_cuda(q, k, v, bt, sl)
         torch.cuda.synchronize()
-        e = max_err(torch, got, want, f"dense[{label}]")
+        e = max_err(torch, got, want, f"dense[{label}]", out_tol)
         errs[pa.NAME] = max(errs[pa.NAME], e)
         if not bool((got[sl == 0] == 0).all()):
             raise AssertionError("dense: seq_len == 0 rows are not zeros")
@@ -394,20 +445,20 @@ def phase_kernels_alg34(torch, dev, cfg, opts, rng, decode_mixes,
         if not bool(torch.equal(got[live], ragged[live])):
             raise AssertionError(
                 f"dense vs ragged[{label}]: live rows differ by up to "
-                f"{float((got[live] - ragged[live]).abs().max()):.3e}")
+                f"{float((got[live] - ragged[live]).float().abs().max()):.3e}")
         log(phase, f"{pa.NAME}[{label}]: max_abs_err={e:.3e} "
-            f"(atol=rtol={TOL}), the same in two runs, ok")
+            f"(atol=rtol={out_tol}), the same in two runs, ok")
     log(phase, "dense vs ragged on live rows: bit-identical ok")
 
     n_hits = 0
     for label, lens in comp_mixes.items():
         k, _ = make_pool(torch, rng, n_pages, b, hkv, d, dev,
-                         similar=label == "similar")
+                         similar=label == "similar", dtype=dtype)
         bt, sl = make_tables(torch, rng, lens, b, mb, n_pages, dev, k, k)
         p = opts.compress.p_thresh
         got = red.flash_redundancy_cuda(k, bt, sl, p_thresh=p)
         want = red.flash_redundancy_plain(k, bt, sl, p_thresh=p)
-        e = max_err(torch, got, want, f"flash[{label}]")
+        e = max_err(torch, got, want, f"flash[{label}]", tol)
         errs[red.FLASH_NAME] = max(errs[red.FLASH_NAME], e)
         if not bool(torch.equal(got, red.flash_redundancy_cuda(
                 k, bt, sl, p_thresh=p))):
@@ -415,18 +466,19 @@ def phase_kernels_alg34(torch, dev, cfg, opts, rng, decode_mixes,
         no_thresh = red.flash_redundancy_plain(k, bt, sl, p_thresh=2.0)
         n_hits += int((no_thresh != want).sum())
         log(phase, f"{red.FLASH_NAME}[{label}]: max_abs_err={e:.3e} "
-            f"(atol=rtol={TOL}), the same in two runs, ok")
+            f"(atol=rtol={tol}), the same in two runs, ok")
     if n_hits == 0:
         raise AssertionError("flash: the p_thresh zero-out never fired")
     log(phase, f"{red.FLASH_NAME}: the p_thresh zero-out changed "
         f"{n_hits} row sums (exercised)")
 
-    errs[cmp.NAME] = check_compaction(torch, dev, cfg, opts, rng, phase)
+    errs[cmp.NAME] = check_compaction(torch, dev, cfg, opts, rng, phase,
+                                      dtype)
     torch.cuda.synchronize()
     return errs
 
 
-def check_idle_slots(torch, dev, cfg, opts, rng, phase):
+def check_idle_slots(torch, dev, cfg, opts, rng, phase, dtype=None):
     """K1 and B4 against their plain versions on what the serve passes for
     a slot that decodes nothing: it attends seq_len + 1 entries over an
     empty (all -1) table, and a -1 entry below seq_len is page 0, as the
@@ -439,35 +491,38 @@ def check_idle_slots(torch, dev, cfg, opts, rng, phase):
 
     b, mb = opts.block_size, -(-opts.max_model_len // opts.block_size)
     n_pages, B = opts.n_total_blocks, opts.max_batch
+    dtype = dtype or torch.float32
+    out_tol = kernel_tols(torch, dtype)[1]
     lens = [1, 1, 57, 130, 16, 1] + [int(x) for x in rng.integers(
         1, 8 * b, B - 7)] + [0]
     k, v = make_pool(torch, rng, n_pages, b, cfg.num_kv_heads, cfg.head_dim,
-                     dev)
+                     dev, dtype=dtype)
     k[0] = torch.randn_like(k[0])
     v[0] = torch.randn_like(v[0])
     bt, sl = make_tables(torch, rng, lens, b, mb, n_pages, dev, k, v)
     bt[:4] = -1                         # idle: no page mapped below seq_len
     bt[4, 0] = -1                       # a -1 entry below seq_len
     q = torch.randn(B, cfg.num_heads, cfg.head_dim, device=dev,
-                    generator=torch.Generator(dev).manual_seed(SEED))
+                    generator=torch.Generator(dev).manual_seed(SEED)).to(dtype)
     ragged = rpa.ragged_paged_attention_cuda(q, k, v, bt, sl)
     dense = pa.paged_attention_cuda(q, k, v, bt, sl)
     e = max_err(torch, ragged, rpa.ragged_paged_attention_plain(
-        q, k, v, bt, sl), f"{rpa.NAME}[idle slots]")
+        q, k, v, bt, sl), f"{rpa.NAME}[idle slots]", out_tol)
     e_dense = max_err(torch, dense, pa.paged_attention_plain(q, k, v, bt, sl),
-                      f"{pa.NAME}[idle slots]")
+                      f"{pa.NAME}[idle slots]", out_tol)
     if not bool(torch.equal(dense, ragged)):
-        raise AssertionError("idle slots: dense and ragged differ by "
-                             f"{float((dense - ragged).abs().max()):.3e}")
+        diff = (dense - ragged).float().abs().max()
+        raise AssertionError(f"idle slots: dense and ragged differ by "
+                             f"{float(diff):.3e}")
     log(phase, f"idle slots (seq_len {lens[:6]} over empty tables or a -1 "
         f"entry below seq_len, page 0 read): {rpa.NAME} max_abs_err="
-        f"{e:.3e}, {pa.NAME} {e_dense:.3e} (atol=rtol={TOL}), bit-identical "
-        "to each other ok")
+        f"{e:.3e}, {pa.NAME} {e_dense:.3e} (atol=rtol={out_tol}), "
+        "bit-identical to each other ok")
     return e
 
 
 def compaction_case(torch, dev, cfg, opts, rng, lens, kinds, width, budget,
-                    L):
+                    L, dtype=None):
     """A compression batch as the scheduler plans it, at Qwen3-8B heads and
     ``L`` layers: request i holds ``lens[i]`` entries on a ``width``-wide
     table and is compacted to ``budget`` blocks as ``kinds[i]`` says:
@@ -476,7 +531,8 @@ def compaction_case(torch, dev, cfg, opts, rng, lens, kinds, width, budget,
     "cow" request shares: two fresh blocks, then its own blocks 2 ..
     budget - 1) or "pad" (a padding row writing the sink page). Random
     pools, survivors and scores from ``rng``; the sink page last. Returns
-    the arguments of ``compact_cuda``."""
+    the arguments of ``compact_cuda``; K and V at ``dtype`` (fp32 unless
+    given), F fp32."""
     import numpy as np
     b, h, d = opts.block_size, cfg.num_kv_heads, cfg.head_dim
     n, kk = len(lens), budget * b
@@ -502,7 +558,7 @@ def compaction_case(torch, dev, cfg, opts, rng, lens, kinds, width, budget,
     src_cache = np.sort(np.argsort(keys, axis=-1)[..., :kk], axis=-1)
     gen = torch.Generator(dev).manual_seed(int(rng.integers(2**31)))
     pools = [torch.randn(L, N + 1, b, h, d, device=dev, generator=gen)
-             for _ in range(2)]
+             .to(dtype or torch.float32) for _ in range(2)]
     pools.append(torch.rand(L, N + 1, b, h, device=dev, generator=gen))
     new_f = torch.rand(L, n, width * b, h, device=dev, generator=gen)
     return (*pools, new_f, torch.from_numpy(src).to(dev),
@@ -510,16 +566,16 @@ def compaction_case(torch, dev, cfg, opts, rng, lens, kinds, width, budget,
             torch.from_numpy(dest_flat).to(dev))
 
 
-def check_compaction(torch, dev, cfg, opts, rng, phase):
+def check_compaction(torch, dev, cfg, opts, rng, phase, dtype=None):
     """B6 in place at the engine's budget (k = 48) and at LONG_BUDGET
     blocks (k = 1024): six requests in place, a prefix-shared pair
-    copy-on-write and two padding rows, 4 layers."""
+    copy-on-write and two padding rows, 4 layers, K and V at ``dtype``."""
     kinds = ["in_place"] * 6 + ["cow"] * 2 + ["pad"] * 2
     for width, budget in ((8, opts.n_max - 1), (LONG_TABLE, LONG_BUDGET)):
         lens = [int(x) * opts.block_size
                 for x in rng.integers(budget + 1, width + 1, 8)] + [0, 0]
         args = compaction_case(torch, dev, cfg, opts, rng, lens, kinds,
-                               width, budget, L=4)
+                               width, budget, L=4, dtype=dtype)
         kk = budget * opts.block_size
         check_compaction_at(torch, args, f"compaction[k={kk}]")
         log(phase, f"compaction: {len(lens)} rows x 4 layers at k={kk} "
@@ -550,9 +606,10 @@ def check_compaction_at(torch, args, label):
             a, r = a[:, :-1], r[:, :-1]     # the sink page: garbage on both
             if not bool(torch.isfinite(a).all()):
                 raise AssertionError(f"{label}: {n} pool not finite")
-            if not bool(torch.equal(a, r)):
-                raise AssertionError(f"{label}: {n} pool differs from {what} "
-                                     f"by {float((a - r).abs().max()):.3e}")
+            if not bool(torch.equal(_bits(torch, a), _bits(torch, r))):
+                raise AssertionError(
+                    f"{label}: {n} pool differs from {what} by "
+                    f"{float((a.float() - r.float()).abs().max()):.3e}")
 
 
 # ----------------------------------------------------------------------
@@ -599,12 +656,15 @@ def phase_card_vs_cpu(torch, dev, cfg):
 
 def check_logits(torch, dev, small, p_cpu, p_dev, phase, what):
     """One paged prefill and six decode steps of ``small`` on the CPU and
-    on the card: the logits within CARD_CPU_TOL. Returns the max error."""
+    on the card, at ``small.dtype``: the logits within CARD_CPU_TOL in
+    fp32, within a relative L2 of BF16_REL_L2 in bf16. Returns the max
+    error (the largest relative L2 in bf16)."""
     from repro_torch.core import serve_model
 
     spec = serve_model.ServeSpec(n_slots=4, block_size=16, max_blocks=8,
                                  n_total_blocks=32, m_qslots=4, window=4,
-                                 prefill_rows=2, prefill_len=64)
+                                 prefill_rows=2, prefill_len=64,
+                                 dtype=small.dtype)
     results = {}
     for name, device, params in (("cpu", "cpu", p_cpu), ("card", dev, p_dev)):
         st = serve_model.make_state(small, spec, device)
@@ -629,16 +689,27 @@ def check_logits(torch, dev, small, p_cpu, p_dev, phase, what):
             tok = (tok + 1000 * (i + 1)) % small.vocab_size
         results[name] = [o.cpu() for o in outs]
     errs = []
+    bf16 = small.dtype == "bfloat16"
     for a, b in zip(results["cpu"], results["card"]):
+        if a.dtype != torch.float32 or b.dtype != torch.float32:
+            raise AssertionError(f"{phase}: logits are not fp32")
         err = (a - b).abs()
+        if bf16:
+            rel = float((a - b).double().norm() / a.double().norm())
+            if not rel <= BF16_REL_L2:
+                raise AssertionError(f"{phase}: card vs cpu bf16 logits at "
+                                     f"a relative L2 of {rel:.3e}")
+            errs.append(rel)
+            continue
         if bool((err > CARD_CPU_TOL + CARD_CPU_TOL * a.abs()).any()):
             raise AssertionError(f"{phase}: card vs cpu logits off by "
                                  f"{float(err.max()):.3e}")
         errs.append(float(err.max()))
     worst = max(errs)
-    log(phase, f"{what}, 2 layers: prefill + 6 decode steps, max_abs_err="
-        f"{worst:.3e} (atol=rtol={CARD_CPU_TOL}) ok; per output "
-        f"{', '.join(f'{e:.1e}' for e in errs)}")
+    bar = (f"relative L2 {worst:.3e} (at most {BF16_REL_L2})" if bf16 else
+           f"max_abs_err={worst:.3e} (atol=rtol={CARD_CPU_TOL})")
+    log(phase, f"{what}, 2 layers, {small.dtype}: prefill + 6 decode steps,"
+        f" {bar} ok; per output {', '.join(f'{e:.1e}' for e in errs)}")
     return worst
 
 
@@ -671,6 +742,76 @@ def phase_card_vs_cpu_configs(torch, dev):
             check_streams(torch, dev, small, p_cpu, p_dev, phase)
         del p_cpu, p_dev
         torch.cuda.empty_cache()
+
+
+def phase_card_vs_cpu_bf16(torch, dev, cfg):
+    """Phase 4 at bf16: 2 layers of ``cfg``'s widths with weights drawn at
+    bf16 (norms fp32). Card against CPU: the logits within a relative L2
+    of BF16_REL_L2 (cuBLAS and the CPU sum bf16 products in other orders),
+    the threefry noise bit for bit; on the card a graph-replayed chunk ==
+    the eager chunk bit for bit, greedy and seeded; and streams: the
+    card's K = 8 (graph replays) == its K = 1, tokens and logprobs bit for
+    bit, with compression firing, while the card's streams against the
+    CPU's are measured (where each first parts is logged), not gated.
+    Returns the largest relative L2 of the logits."""
+    from repro_torch.models import lm
+
+    small = dataclasses.replace(cfg, num_layers=2, dtype="bfloat16")
+    p_cpu = lm.init(small, torch.Generator("cpu").manual_seed(SEED), "cpu")
+    if p_cpu["layers"][0]["attn"]["wq"].dtype != torch.bfloat16 or \
+            p_cpu["final_norm"]["scale"].dtype != torch.float32:
+        raise AssertionError("bf16: lm.init did not draw bf16 matrices "
+                             "beside fp32 norms")
+    p_dev = _tree_to(p_cpu, dev)
+    worst = check_logits(torch, dev, small, p_cpu, p_dev, "card-vs-cpu bf16",
+                         f"{cfg.name} widths")
+    check_noise(torch, dev, small.vocab_size)
+    for greedy in (True, False):
+        check_graph_vs_eager(torch, dev, small, p_dev, greedy)
+    check_streams_bf16(torch, dev, small, p_cpu, p_dev)
+    del p_dev
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_streams_bf16(torch, dev, small, p_cpu, p_dev,
+                       phase="card-vs-cpu bf16"):
+    """Two greedy and two seeded streams with logprobs at bf16, compression
+    firing: the card at ``decode_steps`` 1 and 8 equal bit for bit, tokens
+    and logprobs; the CPU's measured against the card's."""
+    import numpy as np
+    from repro_torch.api import SamplingParams, Zipage
+
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [[int(x) for x in rng.integers(0, small.vocab_size, int(n))]
+               for n in (70, 96, 81, 110)]
+    sps = [SamplingParams(max_new_tokens=24, logprobs=True)] * 2 + [
+        SamplingParams(max_new_tokens=24, seed=s, logprobs=True, **THINKING)
+        for s in (SEED + 1, 2**31 + 3)]
+    outs = {}
+    for name, device, params, mode in (
+            ("card K=1", dev, p_dev, {}),
+            ("card K=8", dev, p_dev, dict(decode_steps=8)),
+            ("cpu", "cpu", p_cpu, {})):
+        z = Zipage(small, params, device=device, max_batch=4,
+                   dtype="bfloat16", **mode)
+        if z.engine.state["pools"]["k"].dtype != torch.bfloat16:
+            raise AssertionError(f"{phase}: {name}: the pools are not bf16")
+        outs[name] = [(o.token_ids, o.logprobs)
+                      for o in z.generate(prompts, sps)]
+        if not sum(m["n_compressing"] for m in z.metrics):
+            raise AssertionError(f"{phase}: {name}: no compression")
+        if mode and max(m["decode_horizon"] for m in z.metrics) < 2:
+            raise AssertionError(f"{phase}: {name}: no horizon above 1")
+    for i, (a, b) in enumerate(zip(outs["card K=1"], outs["card K=8"])):
+        if a != b:
+            raise AssertionError(f"{phase}: stream {i}: K = 8 differs from "
+                                 f"K = 1 at {_first_difference(a, b)}")
+    firsts = [_first_difference(a, b)[0]
+              for a, b in zip(outs["card K=1"], outs["cpu"])]
+    log(phase, f"2 greedy and 2 seeded streams of 24 tokens: card K=8 == "
+        f"card K=1, tokens and logprobs bit for bit ok; card vs cpu "
+        f"(measured, not gated): first differing position {firsts}")
 
 
 def check_noise(torch, dev, vocab):
@@ -733,7 +874,8 @@ def check_graph_vs_eager(torch, dev, small, p_dev, greedy):
     from repro_torch.kernels import ops
 
     spec = serve_model.ServeSpec(n_slots=8, block_size=16, max_blocks=8,
-                                 n_total_blocks=40, m_qslots=4, window=4)
+                                 n_total_blocks=40, m_qslots=4, window=4,
+                                 dtype=small.dtype)
     st0 = _graph_state(torch, dev, small, spec, SEED + 9)
     i32 = dict(dtype=torch.int32, device=dev)
     inp = [torch.zeros((), **i32),
@@ -777,8 +919,7 @@ def check_graph_vs_eager(torch, dev, small, p_dev, greedy):
                       replayed["pools"][name][:, :-1]))
     pairs.append(("qwin", eager["qwin"][:, :-1], replayed["qwin"][:, :-1]))
     for name, a, b in pairs:
-        if a.dtype == torch.float32:
-            a, b = a.view(torch.int32), b.view(torch.int32)
+        a, b = _bits(torch, a), _bits(torch, b)
         if not bool(torch.equal(a, b)):
             raise AssertionError(f"graphs: {name} differs between eager and "
                                  f"replay ({int((a != b).sum())} entries)")
@@ -791,7 +932,8 @@ def check_graph_vs_eager(torch, dev, small, p_dev, greedy):
         raise AssertionError(f"graphs: {counted} K1 launches counted, "
                              f"expected {expect}")
     log("graphs", f"{'greedy' if greedy else 'seeded'} chunk of 4 at 2 "
-        f"layers of {small.name} widths, offsets 0 and 4: replay == eager "
+        f"layers of {small.name} widths, {small.dtype}, offsets 0 and 4: "
+        f"replay == eager "
         f"bit for bit (tokens, logprobs, pools, qwin, seq_lens, positions, "
         f"counters, mask); rows decoded {steps}, row 0 halted at its eos; "
         f"captured launches {graphs.launches()}")
@@ -906,7 +1048,13 @@ SWAP_SHAPES = dict(block_size=8, n_total_blocks=10, max_batch=4, m_qslots=4,
 
 
 def _bits(torch, t):
-    return t.view(torch.int32) if t.dtype == torch.float32 else t
+    """A float tensor's bits, as integers of its width (numpy has no
+    bf16, and -0 / NaN compare as bits)."""
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16)
+    return t
 
 
 def check_block_round_trip(torch, dev, small, p_dev):
@@ -1191,7 +1339,7 @@ class DecodeInputs:
         cfg = self.eng.cfg
         gen = torch.Generator(device=kp.device).manual_seed(SEED + 8)
         q = torch.randn(bt.shape[0], cfg.num_heads, cfg.head_dim,
-                        generator=gen, device=kp.device)
+                        generator=gen, device=kp.device).to(kp.dtype)
         return q, kp, vp, bt, sl
 
 
@@ -1330,9 +1478,9 @@ def phase_serve(torch, card):
         f"max_batch={eng.opts.max_batch}")
     prompts = make_prompts(cfg)
     sps = [SamplingParams(max_new_tokens=NEW_TOKENS)] * N_REQUESTS
-    rec, launches, summary, _ = run_serve(torch, card, z, "serve", prompts,
-                                          sps, MAIN_PATH)
-    return z, rec, launches, summary
+    rec, launches, summary, outs = run_serve(torch, card, z, "serve",
+                                             prompts, sps, MAIN_PATH)
+    return z, rec, launches, summary, outs
 
 
 def phase_serve_alg34(torch, card, z_main):
@@ -1372,7 +1520,7 @@ def time_ms(torch, fn, n=50):
     return start.elapsed_time(end) / n
 
 
-def device_ms(torch, fn, n=20, windows=3):
+def device_ms(torch, fn, n=20, windows=5):
     """Per call, the self device time of each CUDA kernel that ``n`` calls
     of ``fn`` ran, under torch.profiler: {kernel name: ms}. Now and then
     the profiler records no kernel at all in a window (seen on the H100
@@ -1425,9 +1573,12 @@ def times(torch, kernel, library):
             "library_host_ms": lib - lib_dev, "device_kernels": by_kernel}
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, bf16=False):
+    """The least time: bytes over HBM bandwidth or operations over the
+    peak of their type (fp32 CUDA cores, or the bf16 tensor cores for
+    products of bf16 inputs), whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / (BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1443,27 +1594,28 @@ def _live_entries(bt, sl, b):
     return sum(_live_lens(bt, sl, b))
 
 
-def score_work(lens, hkv, g, w, d, T, table_el):
-    """Bytes and flops of K2 over requests of ``lens`` live keys: queries,
-    live keys, table and seq_lens read once, the (n, hkv, g, w, T) logits
-    written once; 2 d flops per (query row, live key)."""
+def score_work(lens, hkv, g, w, d, T, table_el, es=4):
+    """Bytes and flops of K2 over requests of ``lens`` live keys: queries
+    and live keys (``es`` bytes an element), table and seq_lens read once,
+    the (n, hkv, g, w, T) fp32 logits written once; 2 d flops per (query
+    row, live key)."""
     n, n_live = len(lens), sum(lens)
-    nbytes = 4 * (n * w * hkv * g * d + n_live * hkv * d + table_el + n
-                  + n * hkv * g * w * T)
+    nbytes = es * (n * w * hkv * g * d + n_live * hkv * d) + 4 * (
+        table_el + n + n * hkv * g * w * T)
     return nbytes, 2 * n_live * hkv * g * w * d
 
 
-def redundancy_work(lens, span, h, d, T, table_el):
+def redundancy_work(lens, span, h, d, T, table_el, es=4):
     """Bytes and flops of K3 (``span`` = the page size: pairs within a
     page) or B5 (``span`` >= T: all pairs) over requests of ``lens`` live
-    keys: live keys, table and seq_lens read once, the (n, T, h) row sums
-    written once. The cosine matrix is symmetric, so a block of m live keys
-    needs m (m - 1) / 2 distinct products of 2 d flops; each key's norm and
-    scaling adds 3 d."""
+    keys: live keys (``es`` bytes an element), table and seq_lens read
+    once, the (n, T, h) fp32 row sums written once. The cosine matrix is
+    symmetric, so a block of m live keys needs m (m - 1) / 2 distinct
+    products of 2 d flops; each key's norm and scaling adds 3 d."""
     n, n_live = len(lens), sum(lens)
     pairs2 = sum((L // span) * span * (span - 1) + (L % span) * (L % span - 1)
                  for L in lens)                   # twice the distinct pairs
-    nbytes = 4 * (n_live * h * d + table_el + n + n * T * h)
+    nbytes = es * n_live * h * d + 4 * (table_el + n + n * T * h)
     return nbytes, pairs2 * h * d + 3 * n_live * h * d
 
 
@@ -1477,24 +1629,29 @@ def _pick(calls, key):
     return best
 
 
-def phase_timing(torch, rec, rec34, launches, launches34, errs):
+def phase_timing(torch, rec, rec34, launches, launches34, errs,
+                 dtype=None):
     """Times every kernel at an input of its serve: K1-K3 from the main
     serve, B4-B6 from the Alg. 3 / Alg. 4 serve, whose launch count is the
     row's ``launches``; ``launches_per_serve`` has both. The compression
     kernels' inputs are recorded calls; the decode kernels' are the
     serve's state at the step with the most live entries
     (``DecodeInputs``), where K1 and B4 are first held against their plain
-    versions, B4 against K1 bit for bit on live rows."""
+    versions, B4 against K1 bit for bit on live rows. ``dtype``: the
+    serves' K/V dtype (fp32 unless given), which names the rows."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ragged_paged_attention as rpa
 
+    dtype = dtype or torch.float32
+    out_tol = kernel_tols(torch, dtype)[1]
     per_serve = {n: {"main": launches[n], "alg34": launches34[n]}
                  for n in launches}
     errs = dict(errs)
     for mod, args in ((rpa, rec.decode_args), (pa, rec34.decode_args)):
+        assert args[0].dtype == args[1].dtype == dtype
         got = getattr(mod, mod.NAME + "_cuda")(*args)
         e = max_err(torch, got, getattr(mod, mod.NAME + "_plain")(*args),
-                    f"{mod.NAME}[serve state]")
+                    f"{mod.NAME}[serve state]", out_tol)
         live = args[4] > 0
         other = (rpa if mod is pa else pa)
         if not bool(torch.equal(got[live], getattr(
@@ -1504,8 +1661,8 @@ def phase_timing(torch, rec, rec34, launches, launches34, errs):
         b = args[1].shape[1]
         idle = int(((args[3] >= 0).sum(1) * b < args[4]).sum())
         log("timing", f"{mod.NAME} at the serve's state: max_abs_err={e:.3e}"
-            f" (atol=rtol={TOL}), {idle} idle rows of {args[0].shape[0]}, "
-            f"seq_lens {args[4].tolist()}")
+            f" (atol=rtol={out_tol}), {idle} idle rows of {args[0].shape[0]}"
+            f", seq_lens {args[4].tolist()}")
         errs[mod.NAME] = max(errs[mod.NAME], e)
 
     def pick(r, op, key):
@@ -1534,6 +1691,12 @@ def phase_timing(torch, rec, rec34, launches, launches34, errs):
     return [_row(torch, spec, per_serve, serve, errs) for serve, spec in specs]
 
 
+def row_name(torch, name, dtype):
+    """A kernel row's name: the kernel's, with ``_bf16`` for its bf16
+    variant."""
+    return name + ("_bf16" if dtype == torch.bfloat16 else "")
+
+
 def decode_spec(torch, name, args):
     """K1 (ragged) or B4 (dense) on ``args``. The bound counts the live
     entries either way: the function's output depends on them alone,
@@ -1551,8 +1714,9 @@ def decode_spec(torch, name, args):
     B, hq, d = q.shape
     hkv = kp.shape[2]
     n_live = _live_entries(bt, sl, kp.shape[1])
-    nbytes = 4 * (2 * q.numel() + 2 * n_live * hkv * d + bt.numel()
-                  + sl.numel())
+    es = kp.element_size()        # q in, out and K, V: the pools' dtype
+    nbytes = es * (2 * q.numel() + 2 * n_live * hkv * d) + 4 * (
+        bt.numel() + sl.numel())
     kg = gather_entries(kp, bt).repeat_interleave(hq // hkv, dim=2)
     vg = gather_entries(vp, bt).repeat_interleave(hq // hkv, dim=2)
     kg, vg = kg.transpose(1, 2).contiguous(), vg.transpose(1, 2).contiguous()
@@ -1561,7 +1725,7 @@ def decode_spec(torch, name, args):
                                                                   None]
     q4 = q[:, :, None]
     return dict(name=mod.NAME, source=f"src/repro_torch/csrc/{mod.NAME}.cu",
-                kernel=lambda: cuda_fn(q, kp, vp, bt, sl),
+                dtype=kp.dtype, kernel=lambda: cuda_fn(q, kp, vp, bt, sl),
                 plain=lambda: plain_fn(q, kp, vp, bt, sl),
                 library=lambda: F.scaled_dot_product_attention(
                     q4, kg, vg, attn_mask=mask),
@@ -1581,11 +1745,13 @@ def score_spec(torch, args):
     hkv = kp.shape[2]
     g = hq // hkv
     nbytes, flops = score_work(_live_lens(bt, sl, kp.shape[1]), hkv, g, w, d,
-                               bt.shape[1] * kp.shape[1], bt.numel())
+                               bt.shape[1] * kp.shape[1], bt.numel(),
+                               kp.element_size())
     qg = q_win.reshape(n, w, hkv, g, d).permute(0, 2, 3, 1, 4) \
         .reshape(n, hkv, g * w, d).contiguous()
     kt = _masked_keys(torch, kp, bt, sl).permute(0, 2, 3, 1).contiguous()
     return dict(name=ps.NAME, source="src/repro_torch/csrc/paged_score.cu",
+                dtype=kp.dtype,
                 kernel=lambda: ps.paged_score_logits_cuda(q_win, kp, bt, sl),
                 plain=lambda: ps.paged_score_logits_plain(q_win, kp, bt, sl),
                 library=lambda: torch.matmul(qg, kt), nbytes=nbytes,
@@ -1594,13 +1760,14 @@ def score_spec(torch, args):
 
 
 def _masked_keys(torch, kp, bt, sl):
-    """The gathered keys (n, T, h, d), zero at positions >= seq_len."""
+    """The gathered keys (n, T, h, d) in the pool's dtype, zero at
+    positions >= seq_len."""
     from repro_torch.core.paged import gather_entries
-    e = gather_entries(kp, bt).float()
+    e = gather_entries(kp, bt)
     T = e.shape[1]
     valid = torch.arange(T, device=e.device)[None] < sl[:, None]
     return torch.where(valid[..., None, None], e,
-                       torch.zeros((), device=e.device))
+                       torch.zeros((), dtype=e.dtype, device=e.device))
 
 
 def redundancy_spec(torch, name, args, kw):
@@ -1619,7 +1786,8 @@ def redundancy_spec(torch, name, args, kw):
     N, b, h, d = kp.shape
     n, mb = bt.shape
     nbytes, flops = redundancy_work(_live_lens(bt, sl, b), mb * b if flash
-                                    else b, h, d, mb * b, bt.numel())
+                                    else b, h, d, mb * b, bt.numel(),
+                                    kp.element_size())
     e = _masked_keys(torch, kp, bt, sl)                     # (n, T, h, d)
     eh = (e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
           .clamp(min=1e-12)).permute(0, 2, 1, 3).contiguous()  # (n,h,T,d)
@@ -1627,6 +1795,7 @@ def redundancy_spec(torch, name, args, kw):
         eh = eh.reshape(n, h, mb, b, d)
     source = "flash_redundancy.cu" if flash else "redundancy.cu"
     return dict(name=name, source="src/repro_torch/csrc/" + source,
+                dtype=kp.dtype,
                 kernel=lambda: cuda_fn(kp, bt, sl, p_thresh=p),
                 plain=lambda: plain_fn(kp, bt, sl, p_thresh=p),
                 library=lambda: torch.matmul(eh, eh.transpose(-1, -2)),
@@ -1653,7 +1822,8 @@ def compaction_spec(torch, args):
     n, kk = dest_flat.shape
     n_rows = _live_rows(args)
     moved = L * n_rows * h * kk
-    nbytes = 4 * (2 * 2 * moved * d + 2 * moved) \
+    es = kp.element_size()        # K and V; F, new_f and indices are 4 B
+    nbytes = es * 2 * 2 * moved * d + 4 * 2 * moved \
         + 4 * n_rows * (src_bt.shape[1] + kk) + 4 * L * n_rows * h * kk
     # flat row indices over (L * slots * h) rows of d (K, V) or 1 (F)
     S = N1 * b
@@ -1678,7 +1848,7 @@ def compaction_spec(torch, args):
         ff.index_copy_(0, dst_idx, nff[nf_idx])
 
     return dict(name=cmp.NAME, source="src/repro_torch/csrc/compaction.cu",
-                kernel=lambda: cmp.compact_cuda(*args),
+                dtype=kp.dtype, kernel=lambda: cmp.compact_cuda(*args),
                 plain=lambda: cmp.compact_plain(*args), library=library,
                 nbytes=nbytes, flops=0,
                 shapes={"layers": L, "n": n, "live_rows": n_rows, "k": kk,
@@ -1687,16 +1857,21 @@ def compaction_spec(torch, args):
 
 def _row(torch, spec, per_serve, serve, errs):
     name = spec["name"]
+    dtype = spec["dtype"]
     t = times(torch, spec["kernel"], spec["library"])
     plain_ms = time_ms(torch, spec["plain"], n=10)
-    bound_ms, bound_by = bound(spec["nbytes"], spec["flops"])
-    log("timing", f"{name}: {t['ms']:.4f} ms = device {t['device_ms']:.4f} "
-        f"+ host {t['host_ms']:.4f} (plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.5f} ms by {bound_by}, library {t['library_ms']:.4f} ms "
+    bound_ms, bound_by = bound(spec["nbytes"], spec["flops"],
+                               dtype == torch.bfloat16)
+    log("timing", f"{row_name(torch, name, dtype)}: {t['ms']:.4f} ms = "
+        f"device {t['device_ms']:.4f} + host {t['host_ms']:.4f} (plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}, "
+        f"library {t['library_ms']:.4f} ms "
         f"= device {t['library_device_ms']:.4f} + host "
         f"{t['library_host_ms']:.4f}) at {spec['shapes']}; launches per "
         f"serve {per_serve[name]}; device by kernel {_split(t)}")
-    return {"name": name, "route": "cuda", "source": spec["source"],
+    return {"name": row_name(torch, name, dtype), "kernel": name,
+            "dtype": str(dtype).replace("torch.", ""), "route": "cuda",
+            "source": spec["source"],
             "replaces": REPLACES[name], "launches": per_serve[name][serve],
             "max_abs_err": errs[name], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, **t,
@@ -1707,11 +1882,13 @@ def _split(t):
     return ", ".join(f"{k} {v:.4f}" for k, v in t["device_kernels"].items())
 
 
-def long_input(torch, dev, cfg, opts, table=LONG_TABLE, lens=LONG_LENS):
+def long_input(torch, dev, cfg, opts, table=LONG_TABLE, lens=LONG_LENS,
+               dtype=None):
     """An input of K2, K3 and B5 at Qwen3-8B heads: ``table`` pages of the
     engine's block size, seq_lens ``lens``, random keys from the seed with
     a NaN page 0 and NaN stale tails; each row's newest page is a
-    near-duplicate of its oldest, so the flash zero-out fires."""
+    near-duplicate of its oldest, so the flash zero-out fires. Queries and
+    keys at ``dtype`` (fp32 unless given)."""
     import numpy as np
     b, hkv, d = opts.block_size, cfg.num_kv_heads, cfg.head_dim
     rng = np.random.default_rng(SEED + 3)
@@ -1729,16 +1906,19 @@ def long_input(torch, dev, cfg, opts, table=LONG_TABLE, lens=LONG_LENS):
     k[0] = np.nan
     q_win = rng.normal(size=(len(lens), opts.window, cfg.num_heads,
                              d)).astype(np.float32)
-    return (torch.from_numpy(q_win).to(dev), torch.from_numpy(k).to(dev),
+    dtype = dtype or torch.float32
+    return (torch.from_numpy(q_win).to(dev, dtype),
+            torch.from_numpy(k).to(dev, dtype),
             torch.from_numpy(bt).to(dev),
             torch.tensor(lens, dtype=torch.int32, device=dev))
 
 
 def decode_input(torch, dev, cfg, opts, table=LONG_TABLE,
-                 lens=LONG_DECODE_LENS):
+                 lens=LONG_DECODE_LENS, dtype=None):
     """A decode input of K1 and B4 at Qwen3-8B heads: one query token per
     slot of ``lens``, ``table`` pages of the engine's block size, random
-    q, K and V from the seed with a NaN page 0 and NaN stale tails."""
+    q, K and V (at ``dtype``, fp32 unless given) from the seed with a NaN
+    page 0 and NaN stale tails."""
     import numpy as np
     b, hkv, d = opts.block_size, cfg.num_kv_heads, cfg.head_dim
     rng = np.random.default_rng(SEED + 4)
@@ -1754,8 +1934,10 @@ def decode_input(torch, dev, cfg, opts, table=LONG_TABLE,
             k[bt[i, s // b], s % b:] = v[bt[i, s // b], s % b:] = np.nan
     k[0] = v[0] = np.nan
     q = rng.normal(size=(len(lens), cfg.num_heads, d)).astype(np.float32)
-    return tuple(torch.from_numpy(a).to(dev) for a in (q, k, v, bt)) + (
-        torch.tensor(lens, dtype=torch.int32, device=dev),)
+    dtype = dtype or torch.float32
+    return tuple(torch.from_numpy(a).to(dev, dtype) for a in (q, k, v)) + (
+        torch.from_numpy(bt).to(dev),
+        torch.tensor(lens, dtype=torch.int32, device=dev))
 
 
 #: kernels with an input for ``time_at``: K2, K3, B5 at ``long_input``,
@@ -1765,22 +1947,26 @@ TIMED_AT = ("paged_score", "lightning_redundancy", "flash_redundancy",
 
 
 def time_at(torch, dev, cfg, opts, names, comp=(LONG_TABLE, LONG_LENS),
-            dec=(LONG_TABLE, LONG_DECODE_LENS), budget=LONG_BUDGET):
+            dec=(LONG_TABLE, LONG_DECODE_LENS), budget=LONG_BUDGET,
+            dtype=None):
     """The kernels ``names`` (of TIMED_AT) at ``long_input(*comp)``,
     ``decode_input(*dec)`` and, for B6, ``comp`` compacted to ``budget``
     blocks (one request in place, the others copy-on-write): each held
-    against its plain version (at TOL; B6 bit for bit; K3, B4, B5 and B6
-    also two launches bit for bit, K3's and B5's zero-outs firing, B4
-    against K1 bit for bit on live rows), then timed like the serve's rows.
+    against its plain version (at ``kernel_tols``; B6 bit for bit; K3, B4,
+    B5 and B6 also two launches bit for bit, K3's and B5's zero-outs
+    firing, B4 against K1 bit for bit on live rows), then timed like the
+    serve's rows. K/V and queries at ``dtype`` (fp32 unless given).
     Returns {kernel name: record}."""
     import numpy as np
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ragged_paged_attention as rpa
     from repro_torch.kernels import redundancy as red
 
+    dtype = dtype or torch.float32
+    tol, out_tol = kernel_tols(torch, dtype)
     specs, errs, extra = {}, {}, {}
     if {"paged_score", red.NAME, red.FLASH_NAME} & set(names):
-        q_win, k, bt, sl = long_input(torch, dev, cfg, opts, *comp)
+        q_win, k, bt, sl = long_input(torch, dev, cfg, opts, *comp, dtype)
         p = opts.compress.p_thresh
         if "paged_score" in names:
             specs["paged_score"] = score_spec(torch, (q_win, k, bt, sl))
@@ -1801,14 +1987,15 @@ def time_at(torch, dev, cfg, opts, names, comp=(LONG_TABLE, LONG_LENS),
             raise AssertionError(f"flash{comp}: the p_thresh zero-out "
                                  "never fired")
     if {rpa.NAME, pa.NAME} & set(names):
-        args = decode_input(torch, dev, cfg, opts, *dec)
+        args = decode_input(torch, dev, cfg, opts, *dec, dtype)
         sl = args[4]
         live = sl > 0
         dense = pa.paged_attention_cuda(*args)
         ragged = rpa.ragged_paged_attention_cuda(*args)
         if not bool(torch.equal(dense[live], ragged[live])):
+            diff = (dense - ragged)[live].float().abs().max()
             raise AssertionError(f"dense vs ragged{dec}: live rows differ by "
-                                 f"{float((dense - ragged)[live].abs().max())}"
+                                 f"{float(diff)}"
                                  " (bit for bit is required)")
         for name in (rpa.NAME, pa.NAME):
             if name in names:
@@ -1819,7 +2006,7 @@ def time_at(torch, dev, cfg, opts, names, comp=(LONG_TABLE, LONG_LENS),
         kinds = ["in_place"] + ["cow"] * (len(lens) - 1)
         args = compaction_case(torch, dev, cfg, opts,
                                np.random.default_rng(SEED + 5), lens, kinds,
-                               table, budget, L=cfg.num_layers)
+                               table, budget, L=cfg.num_layers, dtype=dtype)
         check_compaction_at(torch, args,
                             f"compaction[k={budget * opts.block_size}]")
         errs["compaction"] = 0.0
@@ -1831,18 +2018,21 @@ def time_at(torch, dev, cfg, opts, names, comp=(LONG_TABLE, LONG_LENS),
         if name != "compaction":    # B6 was held bit for bit above
             got = spec["kernel"]()
             errs[name] = max_err(torch, got, spec["plain"](),
-                                 f"{name}[{spec['shapes']['table_width']}]")
+                                 f"{name}[{spec['shapes']['table_width']}]",
+                                 out_tol if got.dtype == dtype else tol)
             if name in (red.NAME, red.FLASH_NAME, pa.NAME) and not bool(
                     torch.equal(got, spec["kernel"]())):
                 raise AssertionError(f"{name}: two launches differ")
             del got
         t = times(torch, spec["kernel"], spec["library"])
-        b_ms, b_by = bound(spec["nbytes"], spec["flops"])
+        b_ms, b_by = bound(spec["nbytes"], spec["flops"],
+                           dtype == torch.bfloat16)
         out[name] = {**t, "bound_ms": b_ms, "bound_by": b_by,
                      "max_abs_err": errs[name], **extra.get(name, {}),
                      **spec["shapes"]}
-        log("timing", f"{name}[{spec['shapes']['table_width']}]: "
-            f"max_abs_err={errs[name]:.3e} (atol=rtol={TOL}); {t['ms']:.4f} "
+        log("timing", f"{row_name(torch, name, dtype)}"
+            f"[{spec['shapes']['table_width']}]: "
+            f"max_abs_err={errs[name]:.3e}; {t['ms']:.4f} "
             f"ms = device {t['device_ms']:.4f} + host {t['host_ms']:.4f} "
             f"(bound {b_ms:.5f} ms by {b_by}, library {t['library_ms']:.4f} "
             f"ms = device {t['library_device_ms']:.4f}) at {spec['shapes']}; "
@@ -1852,11 +2042,12 @@ def time_at(torch, dev, cfg, opts, names, comp=(LONG_TABLE, LONG_LENS),
     return out
 
 
-def phase_long(torch, dev, cfg, opts, rows):
-    """Every kernel at its long input; the records go into their rows as
-    ``long_input``."""
-    by_name = {r["name"]: r for r in rows}
-    for name, rec in time_at(torch, dev, cfg, opts, TIMED_AT).items():
+def phase_long(torch, dev, cfg, opts, rows, dtype=None):
+    """Every kernel at its long input (K/V at ``dtype``, fp32 unless
+    given); the records go into their rows as ``long_input``."""
+    by_name = {r["kernel"]: r for r in rows}
+    for name, rec in time_at(torch, dev, cfg, opts, TIMED_AT,
+                             dtype=dtype).items():
         by_name[name]["long_input"] = rec
 
 
@@ -1997,7 +2188,8 @@ def _group(key):
         return "B5 flash redundancy"
     if "compaction" in k:
         return "B6 compaction"
-    if "gemm" in k or "gemv" in k or "sgemm" in k or "xmma" in k:
+    if "gemm" in k or "gemv" in k or "xmma" in k or "nvjet" in k \
+            or "cutlass" in k:
         return "matmul"
     if "reduce" in k or "softmax" in k or "sort" in k or "scan" in k:
         return "reductions/sort"
@@ -2008,6 +2200,182 @@ def _group(key):
     if "elementwise" in k:
         return "elementwise"
     return "other"
+
+
+# ----------------------------------------------------------------------
+# phase 10: bfloat16 at full width
+
+
+def phase_bf16(torch, dev, card, z_main, fp32_outs, errs):
+    """Phase 10: Qwen3-8B at full width in bf16, on the main serve's fp32
+    weights cast once to bf16 (norms fp32), in this order: (a) the main
+    serve at the engine defaults under ZIPAGE_SANITIZE=1, the phase 5
+    prompts, with where each stream leaves its fp32 twin (measured); (c)
+    dense decode with flash redundancy, so that B4 and B5 run in a bf16
+    serve; (e) the six kernels' bf16 variants timed at those serves'
+    inputs and at the long inputs (before any profiled window of a serve:
+    after one, torch.profiler has been seen to record only some kernels,
+    or none); (b) paired serves at ``decode_steps`` 1 and 8 whose streams
+    and logprobs must be equal; (d) a profiled window of the K = 1 engine
+    (no audits): device idle share and matmul's share of busy time; (f)
+    the memory planner at bf16 against fp32. Returns (the bf16 kernel
+    rows, the phase's record). ``errs``: phase 3's bf16 max errors by
+    kernel."""
+    from repro_torch.api import SamplingParams, Zipage
+    from repro_torch.core import memory_planner
+    from repro_torch.core.compression import CompressOptions
+    from repro_torch.models import lm
+
+    bf16 = torch.bfloat16
+    took, t = {}, time.monotonic()
+
+    def lap(what):
+        nonlocal t
+        took[what] = time.monotonic() - t
+        t = time.monotonic()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(z_main.cfg, dtype="bfloat16")
+    params = lm.cast_params(z_main.engine.params, bf16)
+    n_params = lm.param_count(params)
+    w_bf16 = sum(t_.numel() * t_.element_size()
+                 for t_ in _leaves(params))
+    w_fp32 = sum(t_.numel() * t_.element_size()
+                 for t_ in _leaves(z_main.engine.params))
+    if params["layers"][0]["attn"]["wq"].dtype != bf16 or \
+            params["final_norm"]["scale"].dtype != torch.float32:
+        raise AssertionError("bf16: the cast did not give bf16 matrices "
+                             "beside fp32 norms")
+    z = _sanitized(lambda: Zipage(cfg, params, dtype="bfloat16"))
+    eng = z.engine
+    assert eng.sanitize, "the engine did not read ZIPAGE_SANITIZE"
+    pools = eng.state["pools"]
+    if (pools["k"].dtype, pools["v"].dtype, eng.state["qwin"].dtype,
+            pools["f"].dtype) != (bf16, bf16, bf16, torch.float32):
+        raise AssertionError("bf16: the state is not bf16 K/V/qwin with "
+                             "fp32 F")
+    log("bf16", f"{cfg.name}: {n_params / 1e9:.2f} B params, weights "
+        f"{w_bf16 / 1e9:.2f} GB in bf16 against {w_fp32 / 1e9:.2f} GB in "
+        f"fp32; a KV block {eng._kv_block_bytes()} B against "
+        f"{z_main.engine._kv_block_bytes()} B in fp32")
+    lap("build")
+    prompts = make_prompts(cfg)
+    greedy = [SamplingParams(max_new_tokens=NEW_TOKENS)] * N_REQUESTS
+    with Audits() as audits:
+        rec, launches, summary, outs = sanitized_serve(
+            torch, card, z, "bf16 serve", prompts, greedy, MAIN_PATH, audits)
+    peak = torch.cuda.max_memory_allocated()
+    firsts = [next((j for j, (x, y) in enumerate(zip(a.token_ids,
+                                                     b.token_ids)) if x != y),
+                   len(a.token_ids)) for a, b in zip(fp32_outs, outs)]
+    log("bf16 serve", f"{summary['tok_per_s']:.1f} tok/s, step median "
+        f"{summary['step_median_ms']:.1f} ms over {summary['steps']} steps, "
+        f"{summary['compressions']} compressions, {summary['audits']} "
+        f"audits with 0 violations, peak {(peak - base) / 1e9:.2f} GB "
+        f"allocated above the phase's start ({peak / 1e9:.2f} GB in all, "
+        f"the fp32 weights included) on {card}; each stream leaves its "
+        f"fp32 twin at position {firsts} (measured, not gated)")
+    summary.update(first_difference_from_fp32=firsts, peak_bytes=peak,
+                   peak_bytes_above_start=peak - base)
+    lap("serve")
+
+    half = N_REQUESTS // 2
+    sps = [SamplingParams(max_new_tokens=NEW_TOKENS, logprobs=True)] * half \
+        + [SamplingParams(max_new_tokens=NEW_TOKENS, seed=SEED + i,
+                          logprobs=True, **THINKING)
+           for i in range(N_REQUESTS - half)]
+    z34 = Zipage(cfg, params, dtype="bfloat16", decode_kernel="dense",
+                 compress=CompressOptions(window=4, redundancy="flash"))
+    rec34, launches34, summary34, _ = run_serve(
+        torch, card, z34, "bf16 serve-alg34", prompts, sps, ALG34_PATH)
+    del z34
+    lap("serve-alg34")
+
+    rows = phase_timing(torch, rec, rec34, launches, launches34, errs,
+                        dtype=bf16)
+    del rec, rec34
+    torch.cuda.empty_cache()
+    phase_long(torch, dev, cfg, eng.opts, rows, dtype=bf16)
+    torch.cuda.empty_cache()
+    lap("timing")
+
+    ref, paired = None, []
+    prof = None
+    for k in (1, 8):
+        label = f"bf16 paired[K={k}]"
+        zk = Zipage(cfg, params, dtype="bfloat16", decode_steps=k)
+        s_k, outs_k = run_serve(torch, card, zk, label, prompts, sps,
+                                MAIN_PATH)[2:]
+        if k == 1:         # the profiled window: an engine without audits
+            prof = phase_profile(torch, zk, card, "bf16 profile")
+        streams = [(o.token_ids, o.logprobs) for o in outs_k]
+        ref = ref or streams
+        for i, (a, b) in enumerate(zip(ref, streams)):
+            if a != b:
+                raise AssertionError(f"{label}: request {i} differs from "
+                                     f"K = 1 at {_first_difference(a, b)}")
+        if k > 1 and s_k["horizon_max"] < 2:
+            raise AssertionError(f"{label}: the horizon never passed 1")
+        log(label, f"{s_k['tok_per_s']:.1f} tok/s, step median "
+            f"{s_k['step_median_ms']:.1f} ms, {s_k['graph_replays']} graph "
+            "replays; streams and logprobs == K = 1's")
+        paired.append(s_k)
+        del zk
+        gc.collect()
+        torch.cuda.empty_cache()
+    lap("paired")
+
+    if prof is not None:
+        share = prof["groups_ms"].get("matmul", 0.0) / prof["busy_ms"]
+        prof["matmul_share_of_busy"] = share
+        log("bf16 profile", f"matmul {share:.3f} of device-busy time, "
+            f"device idle {prof['idle']:.3f} of wall")
+
+    opts = eng.opts
+    free, total = torch.cuda.mem_get_info()
+    plans = {dt: memory_planner.plan_memory(
+        cfg, free, opts.n_max, block_size=opts.block_size,
+        window=opts.window, dtype_bytes=memory_planner.dtype_bytes_of(dt))
+        for dt in ("float32", "bfloat16")}
+    real = memory_planner.pool_bytes_per_kv_block(cfg, opts.block_size,
+                                                  dtype_bytes=2)
+    if real != eng._kv_block_bytes():
+        raise AssertionError(f"bf16: the pools' block bytes "
+                             f"{eng._kv_block_bytes()} are not {real}")
+    if plans["float32"].m_kv_block != z_main.engine._kv_block_bytes():
+        raise AssertionError("bf16: the fp32 plan's block bytes are not the "
+                             "fp32 pools'")
+    for dt, plan in plans.items():
+        log("bf16 planner", f"{dt}: for {free / 1e9:.2f} GB free of "
+            f"{total / 1e9:.2f} GB: M = {plan.M} requests, N_total = "
+            f"{plan.N_total} blocks of {plan.m_kv_block} B (the JAX "
+            f"package's accounting), {plan.m_q_req} B of window a request")
+    log("bf16 planner", f"a bf16 block really takes {real} B in the pools: "
+        f"{real - plans['bfloat16'].m_kv_block} B above the accounting "
+        f"(F is fp32 where it counts 2 B); M {plans['bfloat16'].M} against "
+        f"{plans['float32'].M} in fp32")
+    lap("planner")
+    record = {"serve": summary, "paired": paired, "serve_alg34": summary34,
+              "profile": prof, "weights_bytes": {"bfloat16": w_bf16,
+                                                 "float32": w_fp32},
+              "plans": {dt: dataclasses.asdict(p) for dt, p in plans.items()},
+              "pool_block_bytes": real, "took": took}
+    del z, eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("bf16", "passed: " + ", ".join(f"{k} {v:.1f} s"
+                                       for k, v in took.items()))
+    return rows, record
+
+
+def _leaves(t):
+    if isinstance(t, dict):
+        return [x for v in t.values() for x in _leaves(v)]
+    if isinstance(t, list):
+        return [x for v in t for x in _leaves(v)]
+    return [t]
 
 
 # ----------------------------------------------------------------------
@@ -2114,7 +2482,7 @@ def phase_memory(torch, card, z_main, rows):
         out["pressure_s"] = time.monotonic() - t
         out["prefix"] = phase_prefix(torch, card, z_main, audits)
     out["phase_s"] = time.monotonic() - t
-    by_name = {r["name"]: r for r in rows}
+    by_name = {r["kernel"]: r for r in rows}
     for group in ("pressure", "prefix"):
         for label, summary in out[group]["serves"].items():
             for kname, n in summary["launches"].items():
@@ -2387,7 +2755,7 @@ def phase_dense(torch, card, rows):
     """Serve each of DENSE_CONFIGS, smallest to largest, at full width and
     depth (``dense_serve``); their launch counts go into the kernel rows'
     ``launches_per_serve``. Returns {config: summary}."""
-    by_name = {r["name"]: r for r in rows}
+    by_name = {r["kernel"]: r for r in rows}
     out = {}
     for name in DENSE_CONFIGS:
         t = time.monotonic()
@@ -2625,20 +2993,26 @@ def main():
     lap("env+build")
     cfg = dataclasses.replace(get_config("qwen3-8b"), dtype="float32")
     opts = EngineOptions()
-    errs = phase_kernels(torch, dev, cfg, opts)
-    for name in LAYOUT_CONFIGS:
-        lcfg = get_config(name)
-        g = lcfg.num_heads // lcfg.num_kv_heads
-        e = phase_kernels(torch, dev, dataclasses.replace(
-            lcfg, dtype="float32"), opts,
-            phase=f"kernels[{name}: g = {g}, h_kv = {lcfg.num_kv_heads}]")
-        errs = {k: max(v, e[k]) for k, v in errs.items()}
-        torch.cuda.empty_cache()
+    errs, errs_bf16 = {}, {}
+    for dtype, worst in ((torch.float32, errs), (torch.bfloat16, errs_bf16)):
+        tag = "" if dtype == torch.float32 else " bf16"
+        worst.update(phase_kernels(torch, dev, cfg, opts,
+                                   phase=f"kernels{tag}", dtype=dtype))
+        for name in LAYOUT_CONFIGS:
+            lcfg = get_config(name)
+            g = lcfg.num_heads // lcfg.num_kv_heads
+            e = phase_kernels(torch, dev, dataclasses.replace(
+                lcfg, dtype="float32"), opts, phase=f"kernels{tag}[{name}: "
+                f"g = {g}, h_kv = {lcfg.num_kv_heads}]", dtype=dtype)
+            worst.update({k: max(v, e[k]) for k, v in worst.items()})
+            torch.cuda.empty_cache()
     lap("kernels")
     phase_card_vs_cpu(torch, dev, cfg)
     phase_card_vs_cpu_configs(torch, dev)
     lap("card-vs-cpu")
-    z, rec, launches, summary = phase_serve(torch, card)
+    phase_card_vs_cpu_bf16(torch, dev, cfg)
+    lap("card-vs-cpu bf16")
+    z, rec, launches, summary, main_outs = phase_serve(torch, card)
     lap("serve")
     z34, rec34, launches34, summary34 = phase_serve_alg34(torch, card, z)
     lap("serve-alg34")
@@ -2648,6 +3022,8 @@ def main():
     phase_long(torch, dev, cfg, opts, rows)
     torch.cuda.empty_cache()
     lap("timing")
+    rows_bf16, bf16 = phase_bf16(torch, dev, card, z, main_outs, errs_bf16)
+    lap("bf16")
     prof = phase_profile(torch, z, card)
     lap("profile")
     paired = phase_paired(torch, card, z)
@@ -2664,9 +3040,10 @@ def main():
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "serve": summary, "serve_alg34": summary34,
-                   "kernels": rows, "profile": prof, "paired": paired,
-                   "memory": memory, "dense": dense}, f, indent=1)
-    print(json.dumps({"kernels": rows}))
+                   "kernels": rows + rows_bf16, "profile": prof,
+                   "paired": paired, "memory": memory, "bf16": bf16,
+                   "dense": dense, "took_s": took}, f, indent=1)
+    print(json.dumps({"kernels": rows + rows_bf16}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ stacked into scanned units (``head`` / ``main`` / ``tail``, the layout
 ``repro.core.serve_model`` walks). Given that tree as numpy arrays (any
 nesting of dicts and lists), ``params_from_numpy`` returns the port's
 per-layer dict (``repro_torch.models.lm``), so both packages compute on
-the same weights.
+the same weights: at bfloat16 the port's matrices hold the values the
+JAX package casts its fp32 ones to at each use.
 """
 from __future__ import annotations
 
@@ -15,32 +16,38 @@ import torch
 from repro_torch.models import lm
 
 
-def _tensor(a, device):
-    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+def _tensor(a, device, dtype):
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device, dtype)
 
 
-def _layer_tree(t, device, index=None):
+def _layer_tree(t, device, dtype, index=None, key=None):
+    if key in lm.NORM_KEYS:
+        dtype = torch.float32
     if isinstance(t, dict):
-        return {k: _layer_tree(v, device, index) for k, v in t.items()}
+        return {k: _layer_tree(v, device, dtype, index, k)
+                for k, v in t.items()}
     a = np.asarray(t)
-    return _tensor(a if index is None else a[index], device)
+    return _tensor(a if index is None else a[index], device, dtype)
 
 
-def params_from_numpy(cfg, tree, device="cpu") -> dict:
-    """JAX param tree (numpy leaves) -> port params on ``device``."""
+def params_from_numpy(cfg, tree, device="cpu", dtype=torch.float32) -> dict:
+    """JAX param tree (numpy leaves) -> port params on ``device``, the
+    matrices, qkv biases and embeddings at ``dtype`` (cast one leaf at a
+    time) and the norms' parameters in fp32."""
     lm.check_supported(cfg)
     plan = lm.build_plan(cfg)
-    layers = [_layer_tree(p, device) for p in tree.get("head", [])]
+    layers = [_layer_tree(p, device, dtype) for p in tree.get("head", [])]
     for u in range(plan["n_units"]):
         for j in range(len(plan["unit"])):
-            layers.append(_layer_tree(tree["main"][str(j)], device, u))
-    layers += [_layer_tree(p, device) for p in tree.get("tail", [])]
+            layers.append(_layer_tree(tree["main"][str(j)], device, dtype, u))
+    layers += [_layer_tree(p, device, dtype) for p in tree.get("tail", [])]
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config "
                          f"{cfg.name} has {cfg.num_layers}")
-    out = {"embed": _tensor(tree["embed"], device),
-           "final_norm": _layer_tree(tree["final_norm"], device),
+    out = {"embed": _tensor(tree["embed"], device, dtype),
+           "final_norm": _layer_tree(tree["final_norm"], device,
+                                     torch.float32),
            "layers": layers}
     if not cfg.tie_embeddings:
-        out["unembed"] = _tensor(tree["unembed"], device)
+        out["unembed"] = _tensor(tree["unembed"], device, dtype)
     return out

@@ -22,7 +22,10 @@ redundancy, the ragged and the dense decode kernel, recompute, swap and
 auto preemption with the host swap tier (a pinned host pool on the card),
 block-level prefix caching of raw KV and of compressed prefixes, fused and
 unfused decode at any ``decode_steps``, and ``snapshot()`` /
-``restore()``. Other dtypes than float32 raise ``NotImplementedError``.
+``restore()``, in float32 or bfloat16 (``EngineOptions.dtype``: the K/V
+pools, the observation windows and the model's matrices at that dtype, the
+global scores F and the logits in fp32); other dtypes raise
+``NotImplementedError``.
 
 Setting ``n_max=None`` disables compression (plain PagedAttention).
 ``ZIPAGE_SANITIZE=1`` in the environment when an engine is built makes it
@@ -118,7 +121,7 @@ def unported_options(opts: EngineOptions) -> List[str]:
     if opts.kernel_backend != "auto":
         out.append(f"kernel_backend={opts.kernel_backend!r} (kernels follow "
                    "the device)")
-    if opts.dtype != "float32":
+    if opts.dtype not in lm.DTYPES:
         out.append(f"dtype={opts.dtype!r}")
     if opts.compress.backend != "auto":
         out.append(f"compress.backend={opts.compress.backend!r}")
@@ -141,6 +144,12 @@ class ZipageEngine:
                              f"the engine runs on {self.device}")
         self.cfg = cfg
         self.opts = opts
+        # the serve dtype is the engine's, whatever the config's: params
+        # at another dtype are cast once here (the JAX engine casts them
+        # at each use), the norms left in fp32
+        dtype = lm.torch_dtype(opts.dtype)
+        if params["embed"].dtype != dtype:
+            params = lm.cast_params(params, dtype)
         self.params = params
         b = opts.block_size
         assert opts.window == opts.compress.window
@@ -151,7 +160,8 @@ class ZipageEngine:
             n_slots=opts.max_batch, block_size=b, max_blocks=self.max_blocks,
             n_total_blocks=opts.n_total_blocks, m_qslots=opts.m_qslots,
             window=opts.window, prefill_rows=opts.prefill_rows,
-            prefill_len=opts.prefill_len, decode_kernel=opts.decode_kernel)
+            prefill_len=opts.prefill_len, dtype=opts.dtype,
+            decode_kernel=opts.decode_kernel)
         self.prefix_ok = opts.prefix_caching
         self.state = serve_model.make_state(cfg, self.spec, self.device)
         self.scheduler = Scheduler(

@@ -40,6 +40,7 @@ from collections import Counter
 from typing import TYPE_CHECKING, Dict, List
 
 import numpy as np
+import torch
 
 if TYPE_CHECKING:                                   # pragma: no cover
     from repro_torch.core.block_manager import BlockManager
@@ -411,8 +412,10 @@ def _qwin_ownership(engine, out: List[str]) -> None:
     quiet = sorted(q for q in free - dispatched if 0 <= q < sched.p.m_qslots)
     if not quiet:
         return
-    qwin = engine.state["qwin"]
-    rows = qwin[:, quiet].cpu().numpy()           # (L, len(quiet), w, h, d)
+    qwin = engine.state["qwin"][:, quiet].cpu()  # (L, len(quiet), w, h, d)
+    if qwin.dtype == torch.bfloat16:              # numpy has no bf16: bits
+        qwin = qwin.view(torch.int16)
+    rows = qwin.numpy()
     for i, q in enumerate(quiet):
         row = rows[:, i]
         prev = shadow.get(q)

@@ -1,12 +1,16 @@
 """Memory planning for Compressed PagedAttention (paper Eq. 1 / Eq. 2), the
 port's copy of ``repro.core.memory_planner``.
 
-The port's pools hold K, V and the global scores F in fp32, so the byte
-counts default to ``dtype_bytes=4`` (the JAX package's to 2); at a given
-``dtype_bytes`` every figure equals the JAX package's.
-``bytes_per_kv_block`` is then the bytes one block takes in the port's
-K, V and F pools (``repro_torch.core.serve_model.make_state``), over all
-layers; the sink page is not a block.
+The byte counts take the serve dtype's size, ``dtype_bytes``
+(``dtype_bytes_of``): 4 at float32, the port's default, and 2 at
+bfloat16, the JAX package's default; at a given ``dtype_bytes`` every
+figure equals the JAX package's. That accounting counts the global score
+F at ``dtype_bytes`` too, though both packages keep F in fp32: at float32
+``bytes_per_kv_block`` is the bytes one block takes in the port's K, V and
+F pools (``repro_torch.core.serve_model.make_state``), over all layers (the
+sink page is not a block); at bfloat16 it is below them by
+``L * b * h_kv * 2`` bytes, and ``pool_bytes_per_kv_block`` gives the
+pools' real figure.
 
 Closed-form solution of the linear program: the maximum concurrency is
 ``M = floor(m_avail / (m_kv·N_max + m_q))`` with
@@ -28,6 +32,11 @@ class MemoryPlan:
     bytes_q_pool: int
 
 
+def dtype_bytes_of(dtype: str) -> int:
+    """Bytes of one K/V element at a serve dtype."""
+    return {"float32": 4, "bfloat16": 2}[dtype]
+
+
 def bytes_per_kv_block(cfg, block_size, *, dtype_bytes=4, with_global=True):
     """KV bytes of one block across all attention layers (+ F if global)."""
     L = cfg.num_attn_layers
@@ -40,6 +49,13 @@ def bytes_per_kv_block(cfg, block_size, *, dtype_bytes=4, with_global=True):
         else:
             per_tok += cfg.num_kv_heads * dtype_bytes
     return L * block_size * per_tok
+
+
+def pool_bytes_per_kv_block(cfg, block_size, *, dtype_bytes=4):
+    """The bytes one block really takes in the port's pools, over all
+    layers: K and V at ``dtype_bytes``, F in fp32 (dense GQA)."""
+    return cfg.num_attn_layers * block_size * (
+        cfg.kv_entry_dim * dtype_bytes + cfg.num_kv_heads * 4)
 
 
 def bytes_q_per_request(cfg, window, *, dtype_bytes=4):

@@ -5,8 +5,10 @@ State layout (a dict of tensors on one device; the steps update it in
 place where the JAX package returned a new state, and never replace a
 tensor of it, so a captured CUDA graph of a step reads and writes the same
 buffers on every replay):
-  pools:  {"k", "v": (L, N + 1, b, h_kv, d), "f": (L, N + 1, b, h_kv)}
-  qwin:   (L, M + 1, w, h_q, d) ring-ordered observation-window queries
+  pools:  {"k", "v": (L, N + 1, b, h_kv, d) at ``ServeSpec.dtype``,
+           "f": (L, N + 1, b, h_kv) fp32}
+  qwin:   (L, M + 1, w, h_q, d) ring-ordered observation-window queries,
+          at ``ServeSpec.dtype``
 The extra last page of the pools and the extra last query slot are sinks:
 nothing maps them, and writes that must be dropped land there
 (``paged.sink_page``).
@@ -43,6 +45,10 @@ class ServeSpec:
     window: int = 16            # observation window w
     prefill_rows: int = 4       # prefill bucket rows
     prefill_len: int = 256      # padded prefill length
+    # compute dtype of the residual stream, the K/V pools and the windows:
+    # float32 (the port's default and parity baseline; the JAX package
+    # defaults to bfloat16) or bfloat16. The params must be at it.
+    dtype: str = "float32"
     # decode attention: "ragged" reads each slot's live pages only,
     # "dense" every entry of its table (the baseline); live rows agree
     # bit for bit
@@ -60,20 +66,21 @@ def make_state(cfg: ArchConfig, spec: ServeSpec, device) -> dict:
     N, b = spec.n_total_blocks, spec.block_size
     h, d = cfg.num_kv_heads, cfg.head_dim
     f32, i32 = torch.float32, torch.int32
+    dt = lm.torch_dtype(spec.dtype)
     return {
         "block_tables": torch.full((B, spec.max_blocks), -1, dtype=i32,
                                    device=device),
         "seq_lens": torch.zeros(B, dtype=i32, device=device),
         "positions": torch.zeros(B, dtype=i32, device=device),
         "qslot": torch.full((B,), -1, dtype=i32, device=device),
-        "pools": {"k": torch.zeros((L, N + 1, b, h, d), dtype=f32,
+        "pools": {"k": torch.zeros((L, N + 1, b, h, d), dtype=dt,
                                    device=device),
-                  "v": torch.zeros((L, N + 1, b, h, d), dtype=f32,
+                  "v": torch.zeros((L, N + 1, b, h, d), dtype=dt,
                                    device=device),
                   "f": torch.zeros((L, N + 1, b, h), dtype=f32,
                                    device=device)},
         "qwin": torch.zeros((L, spec.m_qslots + 1, spec.window,
-                             cfg.num_heads, d), dtype=f32, device=device),
+                             cfg.num_heads, d), dtype=dt, device=device),
         "tokens_next": torch.zeros(B, dtype=torch.int64, device=device),
         "active_mask": torch.zeros(B, dtype=torch.bool, device=device),
         "sample_counters": torch.zeros(B, dtype=i32, device=device),

@@ -1,6 +1,39 @@
 // Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel is a template on the storage type T of its key, value and
+// query tensors: float, or __nv_bfloat16 (zp_bf16). Tiles are staged in T,
+// by the same 16-byte copies (4 floats or 8 bf16 elements), and widened to
+// fp32 when read into registers: every product, sum and softmax runs in
+// fp32 whatever T is, and a bf16 output is rounded once, when it is
+// written. Scores (window logits, redundancy, F) are fp32 at either T.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+using zp_bf16 = __nv_bfloat16;
+
+// Elements of T in one 16-byte copy; rows of T must hold a whole number of
+// them (d % kVecOf<T> == 0) to be copied by 16-byte cp.async.
+template <typename T>
+constexpr int kVecOf = 16 / (int)sizeof(T);
+
+// Four consecutive elements widened to fp32 (16-byte aligned for float,
+// 8-byte for bf16); the widening is exact.
+__device__ __forceinline__ float4 zp_load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 zp_load4(const zp_bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// An fp32 result stored as T: rounded to nearest even for bf16.
+__device__ __forceinline__ void zp_store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void zp_store(zp_bf16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 #define ZP_NEG_INF (-1e30f)
 
@@ -25,14 +58,15 @@ extern "C" const char* zp_error_string(int code) {
 // ---------------------------------------------------------------------------
 // Tiles of keys in cache order, staged by 16-byte cp.async (flash
 // redundancy and window logits). A tile is kKeyTile (or fewer) consecutive
-// cache positions of one request and one kv head, d floats each, kept in shared
-// memory with a row stride of d + kKeyPad floats: rows stay 16-byte
-// aligned, and 16-byte reads of consecutive rows at one column hit
-// distinct banks.
+// cache positions of one request and one kv head, d elements of T each, kept
+// in shared memory with a row stride of d + kKeyPadOf<T> elements (16 bytes
+// of padding): rows stay 16-byte aligned, and 16-byte reads of consecutive
+// rows at one column hit distinct banks.
 constexpr int kKeyTile = 64;
-constexpr int kKeyPad = 4;
+template <typename T>
+constexpr int kKeyPadOf = kVecOf<T>;
 
-__device__ __forceinline__ void zp_cp_async16(float* smem, const float* gmem, bool valid) {
+__device__ __forceinline__ void zp_cp_async16(void* smem, const void* gmem, bool valid) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
   const int src_bytes = valid ? 16 : 0;  // 0: the 16 bytes are zero-filled, nothing is read
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
@@ -54,13 +88,15 @@ __device__ __forceinline__ void zp_cp_async_wait() {
 // of a request (its table row bt, n_valid live positions), kv head hh of
 // h, into dst. Positions at or past n_valid, and positions on a -1 table
 // entry, are zero-filled without reading the table entry or the pool, so
-// stale or NaN pool data never reaches shared memory. Needs d % 4 == 0.
-// The copies are spread over threads tid of nthr (the whole block unless
-// given: a warp can stage its own tile). The address arithmetic sits on
-// the path that issues the copies, so it is kept short: when the threads
-// divide into the row's 16-byte columns each thread keeps one column and
-// walks rows, and a page size that is a power of two is divided by shifts.
-__device__ __forceinline__ void zp_load_key_tile(float* dst, const float* __restrict__ pool,
+// stale or NaN pool data never reaches shared memory. Needs
+// d % kVecOf<T> == 0. The copies are spread over threads tid of nthr (the
+// whole block unless given: a warp can stage its own tile). The address
+// arithmetic sits on the path that issues the copies, so it is kept short:
+// when the threads divide into the row's 16-byte columns each thread keeps
+// one column and walks rows, and a page size that is a power of two is
+// divided by shifts.
+template <typename T>
+__device__ __forceinline__ void zp_load_key_tile(T* dst, const T* __restrict__ pool,
                                                  const int* __restrict__ bt, int pos0,
                                                  int n_valid, int h, int hh, int d, int b,
                                                  int rows = kKeyTile, int tid = -1,
@@ -69,17 +105,18 @@ __device__ __forceinline__ void zp_load_key_tile(float* dst, const float* __rest
     tid = threadIdx.x;
     nthr = blockDim.x;
   }
-  const int d4 = d >> 2;
-  const int ld = d + kKeyPad;
+  constexpr int V = kVecOf<T>;
+  const int d4 = d / V;  // 16-byte columns a row
+  const int ld = d + kKeyPadOf<T>;
   const int shift = (b & (b - 1)) == 0 ? __ffs(b) - 1 : -1;
   auto copy = [&](int t, int c4) {
     const int pos = pos0 + t;
     const int blk = shift >= 0 ? pos >> shift : pos / b;
     const int slot = pos - blk * b;
     const int page = pos < n_valid ? bt[blk] : -1;
-    const float* src =
-        page >= 0 ? pool + (((size_t)page * b + slot) * h + hh) * d + 4 * c4 : pool;
-    zp_cp_async16(dst + t * ld + 4 * c4, src, page >= 0);
+    const T* src =
+        page >= 0 ? pool + (((size_t)page * b + slot) * h + hh) * d + V * c4 : pool;
+    zp_cp_async16(dst + t * ld + V * c4, src, page >= 0);
   };
   if (nthr % d4 == 0) {
     const int c4 = tid % d4;
@@ -159,18 +196,21 @@ constexpr int kDecodeMaxD = 256;  // head_dim: two float4 columns a lane
 constexpr int kDecodeTargetBlocks = 1024;
 constexpr int kDecodeMaxChunks = 32;
 
+// q, K, V and the output are T; the parts, and all the math, are fp32.
+template <typename T>
 struct ZpDecodeArgs {
-  const float* q;             // (B, hq, d)
-  const float* k_pool;        // (N, b, hkv, d)
-  const float* v_pool;        // (N, b, hkv, d)
+  const T* q;                 // (B, hq, d)
+  const T* k_pool;            // (N, b, hkv, d)
+  const T* v_pool;            // (N, b, hkv, d)
   const int* block_tables;    // (B, mb)
   const int* seq_lens;        // (B,)
-  float* out;                 // (B, hq, d)
+  T* out;                     // (B, hq, d)
   float* part;                // (B, hkv, n_chunks) parts of g (d + 2) floats
   int hkv, g, d, b, mb;
   int chunk_pages, n_chunks;  // zp_decode_chunk_pages, zp_decode_n_chunks
-  int ld;                     // shared-memory row stride: d rounded up to 4
-  int vec;                    // 16-byte copies (d % 4 == 0, aligned pointers), else 4-byte
+  int ld;                     // shared-memory row stride: d rounded up to kVecOf<T>
+  int vec;                    // 16-byte copies (d % kVecOf<T> == 0, aligned pointers);
+                              // else 4-byte ones (float only)
   float scale;
 };
 
@@ -213,22 +253,23 @@ __device__ __forceinline__ void zp_cp_async8(void* smem, const void* gmem) {
 
 // Copy rows 0 .. rows - 1 of two row sets (K and V, or q alone with dst1
 // null) into shared memory with row stride a.ld, by 16-byte copies when
-// a.vec, else 4-byte ones (the columns d .. ld - 1 zero-filled). src(t)
-// gives the element offset of row t in both sources, or -1 for a row of
-// zeros, which reads nothing.
-template <typename Src>
-__device__ __forceinline__ void zp_decode_copy_rows(const ZpDecodeArgs& a, float* dst0,
-                                                    const float* src0, float* dst1,
-                                                    const float* src1, int rows, Src src) {
+// a.vec, else 4-byte ones (float only: the columns d .. ld - 1
+// zero-filled). src(t) gives the element offset of row t in both sources,
+// or -1 for a row of zeros, which reads nothing.
+template <typename T, typename Src>
+__device__ __forceinline__ void zp_decode_copy_rows(const ZpDecodeArgs<T>& a, T* dst0,
+                                                    const T* src0, T* dst1, const T* src1,
+                                                    int rows, Src src) {
+  constexpr int V = kVecOf<T>;
   const int tid = threadIdx.x;
   if (a.vec) {
-    const int d4 = a.d >> 2;
+    const int d4 = a.d / V;  // 16-byte columns a row
     auto copy = [&](int t, int c4) {
       const long long off = src(t);
       const bool ok = off >= 0;
-      zp_cp_async16(dst0 + t * a.ld + 4 * c4, ok ? src0 + off + 4 * c4 : src0, ok);
+      zp_cp_async16(dst0 + t * a.ld + V * c4, ok ? src0 + off + V * c4 : src0, ok);
       if (dst1 != nullptr)
-        zp_cp_async16(dst1 + t * a.ld + 4 * c4, ok ? src1 + off + 4 * c4 : src1, ok);
+        zp_cp_async16(dst1 + t * a.ld + V * c4, ok ? src1 + off + V * c4 : src1, ok);
     };
     if (kDecodeThreads % d4 == 0) {
       const int c4 = tid % d4;
@@ -236,7 +277,7 @@ __device__ __forceinline__ void zp_decode_copy_rows(const ZpDecodeArgs& a, float
     } else {
       for (int idx = tid; idx < rows * d4; idx += kDecodeThreads) copy(idx / d4, idx % d4);
     }
-  } else {
+  } else if constexpr (std::is_same<T, float>::value) {
     for (int idx = tid; idx < rows * a.ld; idx += kDecodeThreads) {
       const int t = idx / a.ld;
       const int c = idx - t * a.ld;
@@ -250,20 +291,22 @@ __device__ __forceinline__ void zp_decode_copy_rows(const ZpDecodeArgs& a, float
 
 // A thread's share of every tile's copies, fixed for the block, so that
 // issuing a tile costs a table read and one multiply-add a row: when the
-// block's threads divide into a row's float4 columns (and the copies are
-// 16-byte ones), the thread copies float4 column c4 of rows t0, t0 + tstep,
+// block's threads divide into a row's 16-byte columns (and the copies are
+// 16-byte ones), the thread copies 16-byte column c4 of rows t0, t0 + tstep,
 // ...; otherwise (tstep == 0) the tile goes through zp_decode_copy_rows.
 struct ZpDecodeCopier {
   int c4, t0, tstep;
   int shift;              // log2(b), or -1 when b is not a power of two
   long long page_stride;  // b * hkv * d
   int row_stride;         // hkv * d
-  int col;                // h * d + 4 * c4: the head and column within a row
+  int col;                // h * d + kVecOf<T> * c4: the head and column within a row
 };
 
-__device__ __forceinline__ ZpDecodeCopier zp_decode_copier(const ZpDecodeArgs& a, int h) {
+template <typename T>
+__device__ __forceinline__ ZpDecodeCopier zp_decode_copier(const ZpDecodeArgs<T>& a, int h) {
+  constexpr int V = kVecOf<T>;
   ZpDecodeCopier c;
-  const int d4 = a.d >> 2;
+  const int d4 = a.d / V;
   const bool fixed = a.vec && kDecodeThreads % d4 == 0;
   c.c4 = fixed ? threadIdx.x % d4 : 0;
   c.t0 = fixed ? threadIdx.x / d4 : 0;
@@ -271,7 +314,7 @@ __device__ __forceinline__ ZpDecodeCopier zp_decode_copier(const ZpDecodeArgs& a
   c.shift = (a.b & (a.b - 1)) == 0 ? __ffs(a.b) - 1 : -1;
   c.page_stride = (long long)a.b * a.hkv * a.d;
   c.row_stride = a.hkv * a.d;
-  c.col = h * a.d + 4 * c.c4;
+  c.col = h * a.d + V * c.c4;
   return c;
 }
 
@@ -281,10 +324,10 @@ __device__ __forceinline__ ZpDecodeCopier zp_decode_copier(const ZpDecodeArgs& a
 // the chunk's table entries (-1 past what the kernel may read). The dense
 // kernel reads every row of the chunk (a -1 entry as page 0); the ragged
 // one reads only valid rows and zero-fills the rest.
-template <bool kDense>
-__device__ __forceinline__ void zp_decode_issue_tile(const ZpDecodeArgs& a,
-                                                     const ZpDecodeCopier& cp, float* k_dst,
-                                                     float* v_dst, int* valid_dst,
+template <bool kDense, typename T>
+__device__ __forceinline__ void zp_decode_issue_tile(const ZpDecodeArgs<T>& a,
+                                                     const ZpDecodeCopier& cp, T* k_dst,
+                                                     T* v_dst, int* valid_dst,
                                                      const int* tbl, int rel0, int n_pos,
                                                      int pos0, int seq_len, int h) {
   const int b = a.b;
@@ -305,8 +348,8 @@ __device__ __forceinline__ void zp_decode_issue_tile(const ZpDecodeArgs& a,
         const int page = e >= 0 ? e : 0;  // a -1 entry reads page 0, as the TPU kernels' clamp
         off = page * cp.page_stride + (rel - j * b) * cp.row_stride + cp.col;
       }
-      zp_cp_async16(k_dst + t * a.ld + 4 * cp.c4, a.k_pool + off, ok);
-      zp_cp_async16(v_dst + t * a.ld + 4 * cp.c4, a.v_pool + off, ok);
+      zp_cp_async16(k_dst + t * a.ld + kVecOf<T> * cp.c4, a.k_pool + off, ok);
+      zp_cp_async16(v_dst + t * a.ld + kVecOf<T> * cp.c4, a.v_pool + off, ok);
     }
     return;
   }
@@ -324,30 +367,30 @@ __device__ __forceinline__ void zp_decode_issue_tile(const ZpDecodeArgs& a,
 // One tile of the online softmax for a warp's kDecodeWarpRows rows (r0 ..)
 // of the tile in k_s / v_s (valid_s: the rows' validity), all G heads, q
 // in q_s (G rows of ld). For the scores, eight lanes share a row, each
-// over float4 columns j, j + 8, ... of d, and three shuffles sum a row's
-// dot products; every lane then holds all G scores of its row, and the
-// max and sum over the warp's rows are two shuffles each. For p.V a lane
-// owns float4 columns lane + 32 j (j < DPL) of acc and V, and reads the
+// over columns 4 j .. 4 j + 3, j = lane % 8, j + 8, ... of d (widened to
+// fp32 as they are read), and three shuffles sum a row's dot products;
+// every lane then holds all G scores of its row, and the max and sum over
+// the warp's rows are two shuffles each. For p.V a lane owns the groups of
+// four columns lane + 32 j (j < DPL) of acc and V, and reads the
 // probabilities from p_w (the warp's 32 floats of scratch). m[gi] and
 // l[gi] are the same in every lane.
-template <int G, int DPL>
-__device__ __forceinline__ void zp_decode_tile(const ZpDecodeArgs& a, const float* k_s,
-                                               const float* v_s, const int* valid_s,
-                                               const float* q_s, float* p_w, float (&m)[G],
+template <int G, int DPL, typename T>
+__device__ __forceinline__ void zp_decode_tile(const ZpDecodeArgs<T>& a, const T* k_s,
+                                               const T* v_s, const int* valid_s,
+                                               const T* q_s, float* p_w, float (&m)[G],
                                                float (&l)[G], float4 (&acc)[G][DPL], int lane,
                                                int r0) {
   const int d4 = a.ld >> 2;
   const int rr = lane >> 3;  // the lane's row of the warp's four
   const int part = lane & 7;
-  const float* krow = k_s + (r0 + rr) * a.ld;
+  const T* krow = k_s + (r0 + rr) * a.ld;
   float s[G];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) s[gi] = 0.f;
   for (int c4 = part; c4 < d4; c4 += 8) {
-    const float4 kv = *reinterpret_cast<const float4*>(krow + 4 * c4);
+    const float4 kv = zp_load4(krow + 4 * c4);
 #pragma unroll
-    for (int gi = 0; gi < G; ++gi)
-      s[gi] = zp_dot4(*reinterpret_cast<const float4*>(q_s + gi * a.ld + 4 * c4), kv, s[gi]);
+    for (int gi = 0; gi < G; ++gi) s[gi] = zp_dot4(zp_load4(q_s + gi * a.ld + 4 * c4), kv, s[gi]);
   }
   const bool valid = valid_s[r0 + rr] != 0;
   float p[G], corr[G];
@@ -389,7 +432,7 @@ __device__ __forceinline__ void zp_decode_tile(const ZpDecodeArgs& a, const floa
       const int c4 = lane + 32 * j;
       if (c4 < d4) {
         float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);  // masked V lanes: 0, never NaN
-        if (ok) vv = *reinterpret_cast<const float4*>(v_s + (r0 + r) * a.ld + 4 * c4);
+        if (ok) vv = zp_load4(v_s + (r0 + r) * a.ld + 4 * c4);
 #pragma unroll
         for (int gi = 0; gi < G; ++gi) {
           const float pr = p_w[r * G + gi];
@@ -471,18 +514,22 @@ __device__ __forceinline__ void zp_decode_merge_parts(const float* parts, int st
 }
 
 // Shared memory of a chunk block: the chunk's table entries, the stages'
-// row validity, the warps' probabilities, q (G rows) and the ring of K and
-// V tiles; every section a multiple of 4 floats, so rows stay 16-byte
-// aligned.
-__host__ __device__ inline size_t zp_decode_smem_bytes(int G, int ld, int chunk_pages) {
+// row validity, the warps' probabilities, q (G rows of T) and the ring of
+// K and V tiles (of T), which then takes the warps' fp32 states (the
+// larger of the two); every section a multiple of 16 bytes, so rows stay
+// 16-byte aligned.
+__host__ __device__ inline size_t zp_decode_smem_bytes(int G, int ld, int chunk_pages,
+                                                       int esize, int g, int d) {
   const size_t tbl = (chunk_pages + 3) & ~3;
-  return sizeof(float) * (tbl + kDecodeStages * kDecodeRows + 32 * kDecodeWarps +
-                          (size_t)G * ld + 2 * (size_t)kDecodeStages * kDecodeRows * ld);
+  const size_t ring = (size_t)esize * 2 * kDecodeStages * kDecodeRows * ld;
+  const size_t states = sizeof(float) * (size_t)kDecodeWarps * g * (d + 2);
+  return sizeof(float) * (tbl + kDecodeStages * kDecodeRows + 32 * kDecodeWarps) +
+         (size_t)esize * G * ld + (ring > states ? ring : states);
 }
 
 // The chunk kernel's body: block (chunk, kv head, slot) = blockIdx (x, y, z).
-template <int G, int DPL, bool kDense>
-__device__ __forceinline__ void zp_decode_chunk(const ZpDecodeArgs& a, float* smem) {
+template <int G, int DPL, bool kDense, typename T>
+__device__ __forceinline__ void zp_decode_chunk(const ZpDecodeArgs<T>& a, float* smem) {
   const int chunk = blockIdx.x;
   const int h = blockIdx.y;
   const int slot = blockIdx.z;
@@ -503,9 +550,9 @@ __device__ __forceinline__ void zp_decode_chunk(const ZpDecodeArgs& a, float* sm
   int* tbl_s = reinterpret_cast<int*>(smem);
   int* valid_s = tbl_s + ((a.chunk_pages + 3) & ~3);
   float* p_s = reinterpret_cast<float*>(valid_s + kDecodeStages * kDecodeRows);
-  float* q_s = p_s + 32 * kDecodeWarps;
-  float* kv_s = q_s + G * a.ld;
-  const int tile_floats = kDecodeRows * a.ld;
+  T* q_s = reinterpret_cast<T*>(p_s + 32 * kDecodeWarps);
+  T* kv_s = q_s + G * a.ld;
+  const int tile_elems = kDecodeRows * a.ld;  // elements of T a tile
 
   // the chunk's table entries; the ragged kernel reads none at or past
   // ceil(seq_len / b)
@@ -515,15 +562,15 @@ __device__ __forceinline__ void zp_decode_chunk(const ZpDecodeArgs& a, float* sm
   __syncthreads();
 
   const int hq = a.hkv * a.g;
-  const float* qp = a.q + ((size_t)slot * hq + (size_t)h * a.g) * a.d;
-  zp_decode_copy_rows(a, q_s, qp, nullptr, nullptr, G,
+  const T* qp = a.q + ((size_t)slot * hq + (size_t)h * a.g) * a.d;
+  zp_decode_copy_rows(a, q_s, qp, (T*)nullptr, (const T*)nullptr, G,
                       [&](int gi) { return gi < a.g ? (long long)gi * a.d : -1LL; });
   const ZpDecodeCopier cp = zp_decode_copier(a, h);
   constexpr int kAhead = kDecodeStages - 1;  // tiles in flight while one is computed
   for (int j = 0; j < kAhead; ++j) {           // q goes with tile 0
     if (j < n_tiles)
-      zp_decode_issue_tile<kDense>(a, cp, kv_s + 2 * j * tile_floats,
-                                   kv_s + (2 * j + 1) * tile_floats, valid_s + j * kDecodeRows,
+      zp_decode_issue_tile<kDense>(a, cp, kv_s + 2 * j * tile_elems,
+                                   kv_s + (2 * j + 1) * tile_elems, valid_s + j * kDecodeRows,
                                    tbl_s, j * kDecodeRows, n_pos, pos0, seq_len, h);
     zp_cp_async_commit();
   }
@@ -543,23 +590,24 @@ __device__ __forceinline__ void zp_decode_chunk(const ZpDecodeArgs& a, float* sm
     const int nxt = t + kAhead;
     if (nxt < n_tiles) {
       const int st = nxt % kDecodeStages;
-      zp_decode_issue_tile<kDense>(a, cp, kv_s + 2 * st * tile_floats,
-                                   kv_s + (2 * st + 1) * tile_floats,
+      zp_decode_issue_tile<kDense>(a, cp, kv_s + 2 * st * tile_elems,
+                                   kv_s + (2 * st + 1) * tile_elems,
                                    valid_s + st * kDecodeRows, tbl_s, nxt * kDecodeRows, n_pos,
                                    pos0, seq_len, h);
     }
     zp_cp_async_commit();
     const int st = t % kDecodeStages;
-    zp_decode_tile<G, DPL>(a, kv_s + 2 * st * tile_floats, kv_s + (2 * st + 1) * tile_floats,
+    zp_decode_tile<G, DPL, T>(a, kv_s + 2 * st * tile_elems, kv_s + (2 * st + 1) * tile_elems,
                            valid_s + st * kDecodeRows, q_s, p_s + 32 * warp, m, l, acc, lane,
                            warp * kDecodeWarpRows);
   }
   zp_cp_async_wait<0>();  // no copy outlives the block
   __syncthreads();        // the ring is free: it takes the warps' states
 
-  // warp w's state at kv_s + w * stride: m[g], l[g], acc[g][d]
+  // warp w's state at states + w * stride: m[g], l[g], acc[g][d]
+  float* states = reinterpret_cast<float*>(kv_s);
   const int stride = a.g * (a.d + 2);
-  float* st = kv_s + warp * stride;
+  float* st = states + warp * stride;
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
     if (gi >= a.g) break;
@@ -581,56 +629,71 @@ __device__ __forceinline__ void zp_decode_chunk(const ZpDecodeArgs& a, float* sm
   // the chunk's part: the four warps' states merged in order
   float* dst = a.part + (((size_t)slot * a.hkv + h) * a.n_chunks + chunk) * stride;
   float* ml_s = p_s + 2 * kDecodeWarps * kDecodeMaxG;
-  zp_decode_merge_parts(kv_s, stride, kDecodeWarps, a.g, a.d, p_s, ml_s,
+  zp_decode_merge_parts(states, stride, kDecodeWarps, a.g, a.d, p_s, ml_s,
                         [&](int idx, int, float acc_v) { dst[2 * a.g + idx] = acc_v; });
   if (tid < 2 * a.g) dst[tid] = ml_s[tid];  // m, then l
 }
 
 // The merge kernel's body: block (kv head, slot) = blockIdx (x, y) merges
-// the parts of chunks 0 .. n_read - 1 and writes acc / max(l, 1e-30).
-__device__ __forceinline__ void zp_decode_merge(const ZpDecodeArgs& a, int n_read) {
+// the parts of chunks 0 .. n_read - 1 and writes acc / max(l, 1e-30),
+// computed in fp32 and rounded once to T.
+template <typename T>
+__device__ __forceinline__ void zp_decode_merge(const ZpDecodeArgs<T>& a, int n_read) {
   __shared__ float scratch[2 * kDecodeMaxChunks * kDecodeMaxG + 2 * kDecodeMaxG];
   const int h = blockIdx.x;
   const int slot = blockIdx.y;
   const int stride = a.g * (a.d + 2);
   const float* parts = a.part + ((size_t)slot * a.hkv + h) * a.n_chunks * stride;
   float* ml_s = scratch + 2 * kDecodeMaxChunks * kDecodeMaxG;
-  float* o = a.out + ((size_t)slot * a.hkv + h) * a.g * a.d;
+  T* o = a.out + ((size_t)slot * a.hkv + h) * a.g * a.d;
   zp_decode_merge_parts(parts, stride, n_read, a.g, a.d, scratch, ml_s,
                         [&](int idx, int gi, float acc_v) {
-                          o[idx] = acc_v / fmaxf(ml_s[a.g + gi], 1e-30f);
+                          zp_store(o + idx, acc_v / fmaxf(ml_s[a.g + gi], 1e-30f));
                         });
 }
 
-using ZpDecodeChunkKernel = void (*)(ZpDecodeArgs);
-using ZpDecodeMergeKernel = void (*)(ZpDecodeArgs);
+template <typename T>
+using ZpDecodeChunkKernel = void (*)(ZpDecodeArgs<T>);
+template <typename T>
+using ZpDecodeMergeKernel = void (*)(ZpDecodeArgs<T>);
 
-// The chunk kernel's instantiations, indexed [log2 G][DPL - 1].
-#define ZP_DECODE_TABLE(kernel)                                                      \
+// The chunk kernel's instantiations for storage type T, indexed
+// [log2 G][DPL - 1].
+#define ZP_DECODE_TABLE(kernel, T)                                                   \
   {                                                                                  \
-    {kernel<1, 1>, kernel<1, 2>}, {kernel<2, 1>, kernel<2, 2>},                      \
-        {kernel<4, 1>, kernel<4, 2>}, {kernel<8, 1>, kernel<8, 2>}                   \
+    {kernel<1, 1, T>, kernel<1, 2, T>}, {kernel<2, 1, T>, kernel<2, 2, T>},          \
+        {kernel<4, 1, T>, kernel<4, 2, T>}, {kernel<8, 1, T>, kernel<8, 2, T>}       \
   }
 
+// Bytes of output at the start of a launch's buffer: B * hq * d elements
+// of T, rounded up to 16 bytes; the fp32 parts (zp_decode_workspace()
+// floats) follow.
+inline long long zp_decode_out_bytes(int batch, int hq, int d, int esize) {
+  return ((long long)batch * hq * d * esize + 15) & ~15LL;
+}
+
 // Launch a decode: the chunk kernel, then the merge kernel, on one stream.
-// `out` holds B * hq * d floats of output, then zp_decode_workspace() floats
-// of parts.
-static int zp_decode_launch(const ZpDecodeChunkKernel (&table)[4][2], ZpDecodeMergeKernel merge,
-                            const void* q, const void* k_pool, const void* v_pool,
-                            const void* block_tables, const void* seq_lens, void* out,
-                            int batch, int hkv, int g, int d, int b, int mb, float scale,
-                            void* stream) {
+// `out` is one buffer: the output (zp_decode_out_bytes()), then the parts.
+// At bf16 the rows must take 16-byte copies (d % 8 == 0, 16-byte aligned
+// q and pools); anything else is refused.
+template <typename T>
+static int zp_decode_launch(const ZpDecodeChunkKernel<T> (&table)[4][2],
+                            ZpDecodeMergeKernel<T> merge, const void* q, const void* k_pool,
+                            const void* v_pool, const void* block_tables, const void* seq_lens,
+                            void* out, int batch, int hkv, int g, int d, int b, int mb,
+                            float scale, void* stream) {
+  constexpr int V = kVecOf<T>;
   if (g < 1 || g > kDecodeMaxG || d < 1 || d > kDecodeMaxD || b < 1 || hkv < 1 || mb < 0)
     return (int)cudaErrorInvalidValue;
   if (batch <= 0) return (int)cudaSuccess;
-  ZpDecodeArgs a;
-  a.q = (const float*)q;
-  a.k_pool = (const float*)k_pool;
-  a.v_pool = (const float*)v_pool;
+  ZpDecodeArgs<T> a;
+  a.q = (const T*)q;
+  a.k_pool = (const T*)k_pool;
+  a.v_pool = (const T*)v_pool;
   a.block_tables = (const int*)block_tables;
   a.seq_lens = (const int*)seq_lens;
-  a.out = (float*)out;
-  a.part = a.out + (size_t)batch * hkv * g * d;
+  a.out = (T*)out;
+  a.part = (float*)((char*)out + zp_decode_out_bytes(batch, hkv * g, d, (int)sizeof(T)));
   a.hkv = hkv;
   a.g = g;
   a.d = d;
@@ -638,15 +701,16 @@ static int zp_decode_launch(const ZpDecodeChunkKernel (&table)[4][2], ZpDecodeMe
   a.mb = mb;
   a.chunk_pages = zp_decode_chunk_pages(batch, hkv, b, mb);
   a.n_chunks = zp_decode_n_chunks(mb, a.chunk_pages);
-  a.ld = (d + 3) & ~3;
+  a.ld = (d + V - 1) & ~(V - 1);
   const unsigned long long ptrs = (unsigned long long)q | (unsigned long long)k_pool |
                                   (unsigned long long)v_pool;
-  a.vec = d % 4 == 0 && (ptrs & 15) == 0;
+  a.vec = d % V == 0 && (ptrs & 15) == 0;
+  if (!a.vec && !std::is_same<T, float>::value) return (int)cudaErrorInvalidValue;
   a.scale = scale;
   const int lg = g <= 1 ? 0 : g <= 2 ? 1 : g <= 4 ? 2 : 3;
   const int dpl = a.ld <= 128 ? 1 : 2;
-  const ZpDecodeChunkKernel kernel = table[lg][dpl - 1];
-  const size_t smem = zp_decode_smem_bytes(1 << lg, a.ld, a.chunk_pages);
+  const ZpDecodeChunkKernel<T> kernel = table[lg][dpl - 1];
+  const size_t smem = zp_decode_smem_bytes(1 << lg, a.ld, a.chunk_pages, (int)sizeof(T), g, d);
   cudaError_t err = zp_allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;

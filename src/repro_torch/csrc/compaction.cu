@@ -67,22 +67,27 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kStages = 4;  // chunks in the ring: kStages - 1 in flight
 
-// ranks a chunk: as many rows of d4 float4s as the block's threads cover
+// ranks a chunk: as many rows of d4 16-byte units as the block's threads
+// cover
 __host__ __device__ inline int zp_rows_per_chunk(int d4) {
   return d4 >= kThreads ? 1 : kThreads / d4;
 }
 
+// E: the storage type of K and V, whose bits are moved as 16-byte units
+// (float4s); F is fp32 at either E.
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-compaction_kernel(float* __restrict__ k_pool,            // (L, S, h, d), S = slots
-                  float* __restrict__ v_pool,            // (L, S, h, d)
+compaction_kernel(E* __restrict__ k_pool,                // (L, S, h, d), S = slots
+                  E* __restrict__ v_pool,                // (L, S, h, d)
                   float* __restrict__ f_pool,            // (L, S, h)
                   const float* __restrict__ new_f,       // (L, n, T, h)
                   const int* __restrict__ src_bt,        // (n, mb), -1 padded
                   const long long* __restrict__ src_cache,  // (L, n, h, k)
                   const long long* __restrict__ dest_flat,  // (n, k)
                   int n, int h, int d, int b, int mb, int k, int S, int T) {
+  constexpr int V = kVecOf<E>;
   extern __shared__ float4 smem4[];
-  const int d4 = d >> 2;
+  const int d4 = d / V;  // 16-byte units a row
   const int rows = zp_rows_per_chunk(d4);
   const int chunk4 = rows * d4;                 // float4s of one tensor a chunk
   // the ring: kStages chunks of K rows, of V rows, of destination slots
@@ -101,8 +106,8 @@ compaction_kernel(float* __restrict__ k_pool,            // (L, S, h, d), S = sl
   const int* bt = src_bt + (size_t)i * mb;
   const float* nf = new_f + ((size_t)l * n + i) * T * h + hh;
   const size_t layer = (size_t)l * S * h * d;
-  float* kl = k_pool + layer;
-  float* vl = v_pool + layer;
+  E* kl = k_pool + layer;
+  E* vl = v_pool + layer;
   float* fl = f_pool + (size_t)l * S * h + hh;
 
   // this thread's row of every chunk, and its first float4 column of it
@@ -112,7 +117,7 @@ compaction_kernel(float* __restrict__ k_pool,            // (L, S, h, d), S = sl
   const bool leader = has_row && c0 == 0;     // moves the row's dest slot and F
   const int n_chunks = (k + rows - 1) / rows;
 
-  // where the row of chunk c comes from: its cache position and the float
+  // where the row of chunk c comes from: its cache position and the element
   // offset of (slot, hh) in a layer's pool; pos < 0 for no row
   struct Src {
     int pos;
@@ -132,11 +137,11 @@ compaction_kernel(float* __restrict__ k_pool,            // (L, S, h, d), S = sl
   auto issue = [&](int c, const Src& s) {
     if (s.pos >= 0) {
       const int st = c % kStages;
-      float* kd = reinterpret_cast<float*>(k_ring + st * chunk4 + t * d4);
-      float* vd = reinterpret_cast<float*>(v_ring + st * chunk4 + t * d4);
+      float4* kd = k_ring + st * chunk4 + t * d4;
+      float4* vd = v_ring + st * chunk4 + t * d4;
       for (int c4 = c0; c4 < d4; c4 += kThreads) {
-        zp_cp_async16(kd + 4 * c4, kl + s.off + 4 * c4, true);
-        zp_cp_async16(vd + 4 * c4, vl + s.off + 4 * c4, true);
+        zp_cp_async16(kd + c4, kl + s.off + V * c4, true);
+        zp_cp_async16(vd + c4, vl + s.off + V * c4, true);
       }
       if (leader) {
         zp_cp_async8(dst_ring + st * rows + t, dest + c * rows + t);
@@ -171,22 +176,42 @@ compaction_kernel(float* __restrict__ k_pool,            // (L, S, h, d), S = sl
   }
   zp_cp_async_wait<0>();  // no copy outlives the block
 }
+
+template <typename E>
+int launch(void* k_pool, void* v_pool, void* f_pool, const void* new_f, const void* src_bt,
+           const void* src_cache, const void* dest_flat, int L, int n, int h, int d, int b,
+           int mb, int k, int S, int T, void* stream) {
+  if (d % kVecOf<E> != 0 || b < 1) return (int)cudaErrorInvalidValue;
+  const int d4 = d / kVecOf<E>;
+  const size_t rows = zp_rows_per_chunk(d4);
+  const size_t smem = kStages * (2 * sizeof(float4) * rows * d4 +
+                                 (sizeof(long long) + sizeof(float)) * rows);
+  cudaError_t err = zp_allow_smem(compaction_kernel<E>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(h, n, L);
+  compaction_kernel<E><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (E*)k_pool, (E*)v_pool, (float*)f_pool, (const float*)new_f, (const int*)src_bt,
+      (const long long*)src_cache, (const long long*)dest_flat, n, h, d, b, mb, k, S, T);
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
+// K and V in float ...
 extern "C" int compaction_launch(void* k_pool, void* v_pool, void* f_pool, const void* new_f,
                                  const void* src_bt, const void* src_cache,
                                  const void* dest_flat, int L, int n, int h, int d, int b,
                                  int mb, int k, int S, int T, void* stream) {
-  if (d % 4 != 0 || b < 1) return (int)cudaErrorInvalidValue;
-  const int d4 = d / 4;
-  const size_t rows = zp_rows_per_chunk(d4);
-  const size_t smem = kStages * (2 * sizeof(float4) * rows * d4 +
-                                 (sizeof(long long) + sizeof(float)) * rows);
-  cudaError_t err = zp_allow_smem(compaction_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(h, n, L);
-  compaction_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (float*)k_pool, (float*)v_pool, (float*)f_pool, (const float*)new_f, (const int*)src_bt,
-      (const long long*)src_cache, (const long long*)dest_flat, n, h, d, b, mb, k, S, T);
-  return (int)cudaGetLastError();
+  return launch<float>(k_pool, v_pool, f_pool, new_f, src_bt, src_cache, dest_flat, L, n, h, d,
+                       b, mb, k, S, T, stream);
+}
+
+// ... or in bf16 (the same moves of 16-byte units, 8 elements each); F is
+// fp32 either way.
+extern "C" int compaction_launch_bf16(void* k_pool, void* v_pool, void* f_pool,
+                                      const void* new_f, const void* src_bt,
+                                      const void* src_cache, const void* dest_flat, int L,
+                                      int n, int h, int d, int b, int mb, int k, int S, int T,
+                                      void* stream) {
+  return launch<zp_bf16>(k_pool, v_pool, f_pool, new_f, src_bt, src_cache, dest_flat, L, n, h,
+                         d, b, mb, k, S, T, stream);
 }

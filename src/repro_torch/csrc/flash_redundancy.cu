@@ -6,7 +6,8 @@
 // the T x T cosine matrix, zeroes the diagonal and every row or column at a
 // position >= seq_len, zeroes per column the last (newest) row whose
 // similarity exceeds p_thresh, and writes the row sums divided by
-// max(seq_len, 1). Output (n, max_blocks * b, h), float32.
+// max(seq_len, 1). Output (n, max_blocks * b, h), float32, from fp32 or bf16
+// keys (staged in their type, widened to fp32 as they are read).
 //
 // What bounds it on the card: operations, on fp32 CUDA cores (TF32 is off
 // by the port's parity rule); the bytes are the live keys once. The cosine
@@ -72,15 +73,16 @@
 namespace {
 constexpr int kThreads = 256;  // 16 x 16 threads, each 4 x 4 entries of a 64 x 64 tile
 
+template <typename E>  // the keys' storage type
 __global__ void __launch_bounds__(kThreads, 2)
-flash_redundancy_strip_kernel(const float* __restrict__ k_pool,      // (N, b, h, d)
+flash_redundancy_strip_kernel(const E* __restrict__ k_pool,          // (N, b, h, d)
                               const int* __restrict__ block_tables,  // (n, mb)
                               const int* __restrict__ seq_lens,      // (n,)
                               float* __restrict__ out,               // (n, T, h)
                               float* __restrict__ part,  // (n, h, n_strips, T), or null
                               int h, int d, int b, int mb, float p_thresh) {
   extern __shared__ __align__(16) float smem[];
-  const int ld = d + kKeyPad;
+  const int ld = d + kKeyPadOf<E>;
   const int T = mb * b;
   const int n_strips = gridDim.x;
   const int J = blockIdx.x;
@@ -94,9 +96,9 @@ flash_redundancy_strip_kernel(const float* __restrict__ k_pool,      // (N, b, h
       for (int t = tid; t < T; t += blockDim.x) out[((size_t)ib * T + t) * h + hh] = 0.f;
     return;
   }
-  float* col_s = smem;                             // kKeyTile x ld: the strip's keys
-  float* row_s = col_s + kKeyTile * ld;            // 2 x kKeyTile x ld: row tiles
-  float* cinv_s = row_s + 2 * kKeyTile * ld;       // kKeyTile: 1 / the strip's key norms
+  E* col_s = reinterpret_cast<E*>(smem);           // kKeyTile x ld: the strip's keys
+  E* row_s = col_s + kKeyTile * ld;                // 2 x kKeyTile x ld: row tiles
+  float* cinv_s = reinterpret_cast<float*>(row_s + 2 * kKeyTile * ld);  // kKeyTile: 1 / norms
   int* win_s = (int*)(cinv_s + kKeyTile);          // 2 x kKeyTile: newest row above p
   int* done_s = win_s + 2 * kKeyTile;              // 2 x kKeyTile: zeroed in a newer tile
   const int* bt = block_tables + (size_t)ib * mb;
@@ -117,10 +119,10 @@ flash_redundancy_strip_kernel(const float* __restrict__ k_pool,      // (N, b, h
   zp_cp_async_wait<1>();  // the strip has landed (the first row tile may not have)
   __syncthreads();
   if (tid < kKeyTile) {  // the strip's inverse key norms: a thread per key
-    const float* x = col_s + tid * ld;
+    const E* x = col_s + tid * ld;
     float ss = 0.f;
     for (int k = 0; k < d; k += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(x + k);
+      const float4 v = zp_load4(x + k);
       ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
     }
     cinv_s[tid] = 1.f / fmaxf(sqrtf(ss), 1e-12f);
@@ -129,7 +131,7 @@ flash_redundancy_strip_kernel(const float* __restrict__ k_pool,      // (N, b, h
   for (int it = 0; it < n_tiles; ++it) {
     const int I = n_tiles - 1 - it;  // newest row tile first
     const int cur = it & 1;
-    const float* rt = I == J ? col_s : row_s + cur * kKeyTile * ld;
+    const E* rt = I == J ? col_s : row_s + cur * kKeyTile * ld;
     zp_cp_async_wait<0>();
     __syncthreads();  // (A) tile I has landed, the norms are in, the other buffer is free
     if (I > 0 && I - 1 != J) {
@@ -145,11 +147,9 @@ flash_redundancy_strip_kernel(const float* __restrict__ k_pool,      // (N, b, h
     for (int k = 0; k < d; k += 4) {
       float4 a[4], q[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        a[r] = *reinterpret_cast<const float4*>(rt + (ty + 16 * r) * ld + k);
+      for (int r = 0; r < 4; ++r) a[r] = zp_load4(rt + (ty + 16 * r) * ld + k);
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        q[c] = *reinterpret_cast<const float4*>(col_s + (tx + 16 * c) * ld + k);
+      for (int c = 0; c < 4; ++c) q[c] = zp_load4(col_s + (tx + 16 * c) * ld + k);
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -166,10 +166,10 @@ flash_redundancy_strip_kernel(const float* __restrict__ k_pool,      // (N, b, h
     float rinv[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const float* x = rt + (ty + 16 * r) * ld;
+      const E* x = rt + (ty + 16 * r) * ld;
       float ss = 0.f;
       for (int k = 4 * tx; k < d; k += 64) {
-        const float4 v = *reinterpret_cast<const float4*>(x + k);
+        const float4 v = zp_load4(x + k);
         ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
       }
 #pragma unroll
@@ -261,20 +261,22 @@ extern "C" long long flash_redundancy_workspace(int n, int h, int b, int mb) {
   return n_strips > 1 ? (long long)n * h * n_strips * T : 0;
 }
 
-extern "C" int flash_redundancy_launch(const void* k_pool, const void* block_tables,
-                                       const void* seq_lens, void* out, int n, int h, int d,
-                                       int b, int mb, float p_thresh, void* stream) {
+namespace {
+template <typename E>
+int launch(const void* k_pool, const void* block_tables, const void* seq_lens, void* out, int n,
+           int h, int d, int b, int mb, float p_thresh, void* stream) {
+  if (d % kVecOf<E> != 0) return (int)cudaErrorInvalidValue;
   const int T = mb * b;
   const int n_strips = (T + kKeyTile - 1) / kKeyTile;
-  const size_t smem = sizeof(float) * (3 * kKeyTile * (size_t)(d + kKeyPad) + kKeyTile) +
-                      sizeof(int) * 4 * kKeyTile;
-  cudaError_t err = zp_allow_smem(flash_redundancy_strip_kernel, smem);
+  const size_t smem = sizeof(E) * 3 * kKeyTile * (size_t)(d + kKeyPadOf<E>) +
+                      sizeof(float) * kKeyTile + sizeof(int) * 4 * kKeyTile;
+  cudaError_t err = zp_allow_smem(flash_redundancy_strip_kernel<E>, smem);
   if (err != cudaSuccess) return (int)err;
   float* o = (float*)out;
   float* part = flash_redundancy_workspace(n, h, b, mb) > 0 ? o + (size_t)n * T * h : nullptr;
   cudaStream_t s = (cudaStream_t)stream;
-  flash_redundancy_strip_kernel<<<dim3(n_strips, h, n), kThreads, smem, s>>>(
-      (const float*)k_pool, (const int*)block_tables, (const int*)seq_lens, o, part, h, d, b, mb,
+  flash_redundancy_strip_kernel<E><<<dim3(n_strips, h, n), kThreads, smem, s>>>(
+      (const E*)k_pool, (const int*)block_tables, (const int*)seq_lens, o, part, h, d, b, mb,
       p_thresh);
   err = cudaGetLastError();
   if (err != cudaSuccess || part == nullptr) return (int)err;
@@ -282,4 +284,20 @@ extern "C" int flash_redundancy_launch(const void* k_pool, const void* block_tab
   flash_redundancy_reduce_kernel<<<(total + 255) / 256, 256, 0, s>>>(
       part, (const int*)seq_lens, o, h, T, n_strips, total);
   return (int)cudaGetLastError();
+}
+}  // namespace
+
+// keys in float ...
+extern "C" int flash_redundancy_launch(const void* k_pool, const void* block_tables,
+                                       const void* seq_lens, void* out, int n, int h, int d,
+                                       int b, int mb, float p_thresh, void* stream) {
+  return launch<float>(k_pool, block_tables, seq_lens, out, n, h, d, b, mb, p_thresh, stream);
+}
+
+// ... or in bf16 (staged in bf16, widened to fp32 as they are read); the
+// output is fp32.
+extern "C" int flash_redundancy_launch_bf16(const void* k_pool, const void* block_tables,
+                                            const void* seq_lens, void* out, int n, int h, int d,
+                                            int b, int mb, float p_thresh, void* stream) {
+  return launch<zp_bf16>(k_pool, block_tables, seq_lens, out, n, h, d, b, mb, p_thresh, stream);
 }

@@ -24,8 +24,8 @@
 // warps' parts in a fixed order.
 //
 // What bounds it on the card: memory. The function needs only the live
-// pages (2 * seq_len * d * 4 bytes per kv head, the bound PERF.md counts);
-// the kernel also rereads page 0 for every dead entry, from L2, and its
+// pages (2 * seq_len * d * 4 bytes per kv head in fp32, half that in bf16:
+// the bound PERF.md counts); the kernel also rereads page 0 for every dead entry, from L2, and its
 // flops (4 * g per K/V element pair) stay far below the H100's ridge
 // point. What holds it back: it runs the math of every dead tile and
 // reads its page, as the baseline does (three quarters of the tiles at
@@ -38,31 +38,48 @@
 
 namespace {
 
-template <int G, int DPL>
-__global__ void __launch_bounds__(kDecodeThreads) paged_attention_chunk_kernel(ZpDecodeArgs a) {
+template <int G, int DPL, typename T>
+__global__ void __launch_bounds__(kDecodeThreads) paged_attention_chunk_kernel(ZpDecodeArgs<T> a) {
   extern __shared__ __align__(16) float smem[];
-  zp_decode_chunk<G, DPL, true>(a, smem);
+  zp_decode_chunk<G, DPL, true, T>(a, smem);
 }
 
 // Every chunk is merged; a chunk with no live entry has only parts with
 // m == -1e30, which the merge skips.
-__global__ void __launch_bounds__(kDecodeThreads) paged_attention_merge_kernel(ZpDecodeArgs a) {
+template <typename T>
+__global__ void __launch_bounds__(kDecodeThreads) paged_attention_merge_kernel(ZpDecodeArgs<T> a) {
   zp_decode_merge(a, a.n_chunks);
 }
 
-const ZpDecodeChunkKernel kChunkKernels[4][2] = ZP_DECODE_TABLE(paged_attention_chunk_kernel);
+const ZpDecodeChunkKernel<float> kChunkKernels[4][2] =
+    ZP_DECODE_TABLE(paged_attention_chunk_kernel, float);
+const ZpDecodeChunkKernel<zp_bf16> kChunkKernelsBf16[4][2] =
+    ZP_DECODE_TABLE(paged_attention_chunk_kernel, zp_bf16);
 }  // namespace
 
-// Floats of workspace a launch needs after its B * hq * d outputs.
+// Floats of workspace (the chunks' fp32 parts) a launch needs after its
+// output (zp_decode_out_bytes()), at either storage type.
 extern "C" long long paged_attention_workspace(int batch, int hkv, int g, int d, int b,
                                                int mb) {
   return zp_decode_workspace(batch, hkv, g, d, b, mb);
 }
 
-extern "C" int paged_attention_launch(const void* q, const void* k_pool, const void* v_pool,
-                                      const void* block_tables, const void* seq_lens,
-                                      void* out, int batch, int hkv, int g, int d, int b,
-                                      int mb, float scale, void* stream) {
-  return zp_decode_launch(kChunkKernels, paged_attention_merge_kernel, q, k_pool, v_pool,
-                          block_tables, seq_lens, out, batch, hkv, g, d, b, mb, scale, stream);
+// q, the pools and the output in float ...
+extern "C" int paged_attention_launch(
+    const void* q, const void* k_pool, const void* v_pool, const void* block_tables,
+    const void* seq_lens, void* out, int batch, int hkv, int g, int d, int b, int mb,
+    float scale, void* stream) {
+  return zp_decode_launch<float>(kChunkKernels, paged_attention_merge_kernel<float>, q, k_pool,
+                                 v_pool, block_tables, seq_lens, out, batch, hkv, g, d, b, mb,
+                                 scale, stream);
+}
+
+// ... or in bf16 (the math in fp32 all the same, the output rounded once).
+extern "C" int paged_attention_launch_bf16(
+    const void* q, const void* k_pool, const void* v_pool, const void* block_tables,
+    const void* seq_lens, void* out, int batch, int hkv, int g, int d, int b, int mb,
+    float scale, void* stream) {
+  return zp_decode_launch<zp_bf16>(kChunkKernelsBf16, paged_attention_merge_kernel<zp_bf16>, q,
+                                   k_pool, v_pool, block_tables, seq_lens, out, batch, hkv, g,
+                                   d, b, mb, scale, stream);
 }

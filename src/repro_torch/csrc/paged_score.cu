@@ -6,7 +6,8 @@
 // of the g*w window queries that share the kv head against every cache
 // position, with the causal mask kpos <= seq_len - w + u and the validity
 // mask kpos < seq_len; masked entries are -1e30. Output layout is the TPU
-// kernel's: (n, h_kv, g, w, max_blocks * b), float32.
+// kernel's: (n, h_kv, g, w, max_blocks * b), float32, from fp32 or bf16
+// queries and keys (common.cuh: staged in their type, multiplied in fp32).
 //
 // What bounds it on the card: memory. Each live key element is read once
 // and each output written once; g*w = 16 query rows give 32 flops per key
@@ -41,21 +42,22 @@ constexpr int kThreads = 128;  // 8 x 16 threads
 // A thread owns a 2 x C micro-tile of a pass of 16 query rows by a tile of
 // 16 * C positions: rows ty + 8 r, positions tx + 16 c, with tx = tid % 16
 // and ty = tid / 16.
-template <int C>
+template <int C, typename E>  // E: the storage type of q_win and the keys
 __global__ void __launch_bounds__(kThreads)
-paged_score_kernel(const float* __restrict__ q_win,         // (n, w, hq, d)
-                   const float* __restrict__ k_pool,        // (N, b, hkv, d)
+paged_score_kernel(const E* __restrict__ q_win,             // (n, w, hq, d)
+                   const E* __restrict__ k_pool,            // (N, b, hkv, d)
                    const int* __restrict__ block_tables,    // (n, mb)
                    const int* __restrict__ seq_lens,        // (n,)
                    float* __restrict__ out,                 // (n, hkv, g*w, mb*b)
                    int hkv, int g, int w, int d, int b, int mb, float scale) {
   constexpr int kTile = 16 * C;
+  constexpr int V = kVecOf<E>;
   extern __shared__ __align__(16) float smem[];
-  const int ld = d + kKeyPad;
+  const int ld = d + kKeyPadOf<E>;
   const int rows = g * w;                    // row r = gi * w + u
   const int rows16 = (rows + 15) & ~15;
-  float* q_s = smem;                         // rows16 x ld
-  float* k_s = q_s + rows16 * ld;            // kTile x ld
+  E* q_s = reinterpret_cast<E*>(smem);       // rows16 x ld
+  E* k_s = q_s + rows16 * ld;                // kTile x ld
 
   const int h = blockIdx.y;
   const int ib = blockIdx.z;
@@ -88,16 +90,16 @@ paged_score_kernel(const float* __restrict__ q_win,         // (n, w, hq, d)
     return;
   }
 
-  const int d4 = d >> 2;
+  const int d4 = d / V;  // 16-byte columns a row
   for (int idx = tid; idx < rows16 * d4; idx += blockDim.x) {
     const int r = idx / d4;
     const int c4 = idx - r * d4;
     const int gi = r / w;
     const bool ok = r < rows;
-    const float* src =
-        ok ? q_win + (((size_t)ib * w + (r - gi * w)) * hq + (size_t)h * g + gi) * d + 4 * c4
+    const E* src =
+        ok ? q_win + (((size_t)ib * w + (r - gi * w)) * hq + (size_t)h * g + gi) * d + V * c4
            : q_win;
-    zp_cp_async16(q_s + r * ld + 4 * c4, src, ok);
+    zp_cp_async16(q_s + r * ld + V * c4, src, ok);
   }
   zp_load_key_tile(k_s, k_pool, bt, t0, live1, hkv, h, d, b, kTile);
   zp_cp_async_commit();
@@ -119,11 +121,9 @@ paged_score_kernel(const float* __restrict__ q_win,         // (n, w, hq, d)
     for (int k = 0; k < d; k += 4) {
       float4 a[2], kv[C];
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-        a[r] = *reinterpret_cast<const float4*>(q_s + (r0 + ty + 8 * r) * ld + k);
+      for (int r = 0; r < 2; ++r) a[r] = zp_load4(q_s + (r0 + ty + 8 * r) * ld + k);
 #pragma unroll
-      for (int c = 0; c < C; ++c)
-        kv[c] = *reinterpret_cast<const float4*>(k_s + (tx + 16 * c) * ld + k);
+      for (int c = 0; c < C; ++c) kv[c] = zp_load4(k_s + (tx + 16 * c) * ld + k);
 #pragma unroll
       for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -154,27 +154,29 @@ paged_score_kernel(const float* __restrict__ q_win,         // (n, w, hq, d)
 
 int g_sm_count = 0;  // the card's SM count, read once
 
-template <int C>
+template <int C, typename T>
 cudaError_t launch(const void* q_win, const void* k_pool, const void* block_tables,
                    const void* seq_lens, void* out, int n, int hkv, int g, int w, int d, int b,
                    int mb, float scale, cudaStream_t stream) {
   constexpr int kTile = 16 * C;
   const int n_tiles = (mb * b + kTile - 1) / kTile;
   const int rows16 = (g * w + 15) & ~15;
-  const size_t smem = sizeof(float) * ((size_t)rows16 + kTile) * (d + kKeyPad);
-  cudaError_t err = zp_allow_smem(paged_score_kernel<C>, smem);
+  const size_t smem = sizeof(T) * ((size_t)rows16 + kTile) * (d + kKeyPadOf<T>);
+  cudaError_t err = zp_allow_smem(paged_score_kernel<C, T>, smem);
   if (err != cudaSuccess) return err;
-  paged_score_kernel<C><<<dim3(n_tiles, hkv, n), kThreads, smem, stream>>>(
-      (const float*)q_win, (const float*)k_pool, (const int*)block_tables,
-      (const int*)seq_lens, (float*)out, hkv, g, w, d, b, mb, scale);
+  paged_score_kernel<C, T><<<dim3(n_tiles, hkv, n), kThreads, smem, stream>>>(
+      (const T*)q_win, (const T*)k_pool, (const int*)block_tables, (const int*)seq_lens,
+      (float*)out, hkv, g, w, d, b, mb, scale);
   return cudaGetLastError();
 }
-}  // namespace
 
-extern "C" int paged_score_launch(const void* q_win, const void* k_pool,
-                                  const void* block_tables, const void* seq_lens, void* out,
-                                  int n, int hkv, int g, int w, int d, int b, int mb,
-                                  float scale, void* stream) {
+// q_win and the pool in T; the logits in fp32. Rows of d elements must
+// take 16-byte copies.
+template <typename T>
+int launch_any(const void* q_win, const void* k_pool, const void* block_tables,
+               const void* seq_lens, void* out, int n, int hkv, int g, int w, int d, int b,
+               int mb, float scale, void* stream) {
+  if (d % kVecOf<T> != 0) return (int)cudaErrorInvalidValue;
   if (g_sm_count == 0) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -187,8 +189,25 @@ extern "C" int paged_score_launch(const void* q_win, const void* k_pool,
   // otherwise a block per tile of 64 positions.
   cudaStream_t s = (cudaStream_t)stream;
   if ((long long)n * hkv * ((mb * b + 15) / 16) <= 4LL * g_sm_count)
-    return (int)launch<1>(q_win, k_pool, block_tables, seq_lens, out, n, hkv, g, w, d, b, mb,
-                          scale, s);
-  return (int)launch<4>(q_win, k_pool, block_tables, seq_lens, out, n, hkv, g, w, d, b, mb,
-                        scale, s);
+    return (int)launch<1, T>(q_win, k_pool, block_tables, seq_lens, out, n, hkv, g, w, d, b, mb,
+                             scale, s);
+  return (int)launch<4, T>(q_win, k_pool, block_tables, seq_lens, out, n, hkv, g, w, d, b, mb,
+                           scale, s);
+}
+}  // namespace
+
+extern "C" int paged_score_launch(const void* q_win, const void* k_pool,
+                                  const void* block_tables, const void* seq_lens, void* out,
+                                  int n, int hkv, int g, int w, int d, int b, int mb,
+                                  float scale, void* stream) {
+  return launch_any<float>(q_win, k_pool, block_tables, seq_lens, out, n, hkv, g, w, d, b, mb,
+                           scale, stream);
+}
+
+extern "C" int paged_score_launch_bf16(const void* q_win, const void* k_pool,
+                                       const void* block_tables, const void* seq_lens,
+                                       void* out, int n, int hkv, int g, int w, int d, int b,
+                                       int mb, float scale, void* stream) {
+  return launch_any<zp_bf16>(q_win, k_pool, block_tables, seq_lens, out, n, hkv, g, w, d, b,
+                             mb, scale, stream);
 }

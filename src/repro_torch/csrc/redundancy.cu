@@ -6,7 +6,8 @@
 // (k / max(||k||, 1e-12)), forms the b x b cosine matrix, zeroes the
 // diagonal and every row or column at a position >= seq_len, then zeroes
 // per column the last (newest) row whose similarity exceeds p_thresh, and
-// writes the row sums divided by b. Output (n, max_blocks * b, h), float32.
+// writes the row sums divided by b. Output (n, max_blocks * b, h), float32,
+// from fp32 or bf16 keys (widened to fp32 before they are normalised).
 //
 // Pages at or past seq_len are written as zeros without reading their
 // table entry, so -1 padding is never dereferenced; key rows past seq_len
@@ -51,16 +52,32 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kNormLanes = 8;  // lanes that share a key's norm
 constexpr int kPad = 8;        // floats of padding a key row: rows 8 banks apart
 
+// Shared memory: the page's keys normalised in fp32 (b x ld floats), the
+// cosines (b x (b + 1) floats, rounded up to 16 bytes), and, for bf16
+// keys, the page as copied (b x ld elements); fp32 keys are copied into
+// the first section and normalised in place.
+template <typename T>
+__host__ __device__ inline size_t smem_bytes(int b, int d) {
+  const size_t ld = (size_t)d + kPad;
+  const size_t floats = (size_t)b * ld + (((size_t)b * (b + 1) + 3) & ~(size_t)3);
+  return sizeof(float) * floats + (std::is_same<T, float>::value ? 0 : sizeof(T) * b * ld);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-lightning_redundancy_kernel(const float* __restrict__ k_pool,      // (N, b, h, d)
+lightning_redundancy_kernel(const T* __restrict__ k_pool,          // (N, b, h, d)
                             const int* __restrict__ block_tables,  // (n, mb)
                             const int* __restrict__ seq_lens,      // (n,)
                             float* __restrict__ out,               // (n, mb*b, h)
                             int h, int d, int b, int mb, float p_thresh) {
+  constexpr int V = kVecOf<T>;
   extern __shared__ __align__(16) float smem[];
   const int ld = d + kPad;
-  float* k_s = smem;                  // b x ld keys, normalised in place
+  float* k_s = smem;                  // b x ld keys, normalised
   float* c_s = k_s + (size_t)b * ld;  // b x (b + 1) cosines
+  T* raw_s = std::is_same<T, float>::value  // b x ld keys as copied
+                 ? reinterpret_cast<T*>(k_s)
+                 : reinterpret_cast<T*>(c_s + (((size_t)b * (b + 1) + 3) & ~(size_t)3));
   const int i = blockIdx.x;
   const int hh = blockIdx.y;
   const int ib = blockIdx.z;
@@ -76,29 +93,32 @@ lightning_redundancy_kernel(const float* __restrict__ k_pool,      // (N, b, h, 
   }
   const int page = block_tables[(size_t)ib * mb + i];
   const int n_valid = page >= 0 ? min(b, seq_len - i * b) : 0;
-  const int d4 = d >> 2;
-  const float* src0 = k_pool + ((size_t)max(page, 0) * b * h + hh) * d;
-  auto copy = [&](int t, int c4) {
+  const int dv = d / V;  // 16-byte columns a row
+  const T* src0 = k_pool + ((size_t)max(page, 0) * b * h + hh) * d;
+  auto copy = [&](int t, int cv) {
     const bool ok = t < n_valid;
-    zp_cp_async16(k_s + t * ld + 4 * c4, ok ? src0 + (size_t)t * h * d + 4 * c4 : k_pool, ok);
+    zp_cp_async16(raw_s + t * ld + V * cv, ok ? src0 + (size_t)t * h * d + V * cv : k_pool, ok);
   };
-  if (kThreads % d4 == 0) {
-    const int c4 = tid % d4;
-    for (int t = tid / d4; t < b; t += kThreads / d4) copy(t, c4);
+  if (kThreads % dv == 0) {
+    const int cv = tid % dv;
+    for (int t = tid / dv; t < b; t += kThreads / dv) copy(t, cv);
   } else {
-    for (int idx = tid; idx < b * d4; idx += kThreads) copy(idx / d4, idx % d4);
+    for (int idx = tid; idx < b * dv; idx += kThreads) copy(idx / dv, idx % dv);
   }
+  const int d4 = d >> 2;
   zp_cp_async_commit();
   zp_cp_async_wait<0>();
   __syncthreads();
 
-  // norms: kNormLanes lanes a key, kThreads / kNormLanes keys at a time
+  // norms: kNormLanes lanes a key, kThreads / kNormLanes keys at a time;
+  // each lane widens its own columns and writes them normalised
   for (int t0 = 0; t0 < b; t0 += kThreads / kNormLanes) {
     const int t = t0 + tid / kNormLanes;
+    const T* xr = raw_s + min(t, b - 1) * ld;
     float* x = k_s + min(t, b - 1) * ld;
     float ss = 0.f;
     for (int c4 = tid % kNormLanes; c4 < d4; c4 += kNormLanes) {
-      const float4 v = *reinterpret_cast<const float4*>(x + 4 * c4);
+      const float4 v = zp_load4(xr + 4 * c4);
       ss = zp_dot4(v, v, ss);
     }
 #pragma unroll
@@ -107,7 +127,7 @@ lightning_redundancy_kernel(const float* __restrict__ k_pool,      // (N, b, h, 
     const float nrm = fmaxf(sqrtf(ss), 1e-12f);
     if (t < b) {
       for (int c4 = tid % kNormLanes; c4 < d4; c4 += kNormLanes) {
-        float4 v = *reinterpret_cast<const float4*>(x + 4 * c4);
+        float4 v = zp_load4(xr + 4 * c4);
         v.x = v.x / nrm;
         v.y = v.y / nrm;
         v.z = v.z / nrm;
@@ -192,19 +212,34 @@ lightning_redundancy_kernel(const float* __restrict__ k_pool,      // (N, b, h, 
     if (lane % lpr == 0 && r < b) o[(size_t)r * h] = sum / (float)b;
   }
 }
+
+template <typename T>
+int launch(const void* k_pool, const void* block_tables, const void* seq_lens, void* out, int n,
+           int h, int d, int b, int mb, float p_thresh, void* stream) {
+  if (d % kVecOf<T> != 0 || b < 1) return (int)cudaErrorInvalidValue;
+  if ((long long)n * h * mb == 0) return (int)cudaSuccess;
+  const size_t smem = smem_bytes<T>(b, d);
+  cudaError_t err = zp_allow_smem(lightning_redundancy_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  lightning_redundancy_kernel<T><<<dim3(mb, h, n), kThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)k_pool, (const int*)block_tables, (const int*)seq_lens, (float*)out, h, d, b,
+      mb, p_thresh);
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
+// keys in float ...
 extern "C" int lightning_redundancy_launch(const void* k_pool, const void* block_tables,
                                            const void* seq_lens, void* out, int n, int h,
                                            int d, int b, int mb, float p_thresh,
                                            void* stream) {
-  if (d % 4 != 0 || b < 1) return (int)cudaErrorInvalidValue;
-  if ((long long)n * h * mb == 0) return (int)cudaSuccess;
-  const size_t smem = sizeof(float) * ((size_t)b * (d + kPad) + (size_t)b * (b + 1));
-  cudaError_t err = zp_allow_smem(lightning_redundancy_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  lightning_redundancy_kernel<<<dim3(mb, h, n), kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)k_pool, (const int*)block_tables, (const int*)seq_lens, (float*)out, h, d, b,
-      mb, p_thresh);
-  return (int)cudaGetLastError();
+  return launch<float>(k_pool, block_tables, seq_lens, out, n, h, d, b, mb, p_thresh, stream);
+}
+
+// ... or in bf16 (widened to fp32 as they are normalised); the output is fp32.
+extern "C" int lightning_redundancy_launch_bf16(const void* k_pool, const void* block_tables,
+                                                const void* seq_lens, void* out, int n, int h,
+                                                int d, int b, int mb, float p_thresh,
+                                                void* stream) {
+  return launch<zp_bf16>(k_pool, block_tables, seq_lens, out, n, h, d, b, mb, p_thresh, stream);
 }

@@ -9,12 +9,37 @@ def require(cond: bool, name: str, msg: str) -> None:
         raise ValueError(f"{name}: {msg}")
 
 
+#: storage types of the K/V pools, queries and decode outputs that the
+#: kernels take (each has its own entry point, ``native.launcher``)
+KV_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def cuda_tensor(name: str, arg: str, t: torch.Tensor, dtype, device) -> None:
     require(t.is_cuda, name, f"{arg} must be a CUDA tensor, got {t.device}")
     require(t.device == device, name,
             f"{arg} is on {t.device}, expected {device}")
     require(t.dtype == dtype, name, f"{arg} must be {dtype}, got {t.dtype}")
     require(t.is_contiguous(), name, f"{arg} must be contiguous")
+
+
+def kv_tensors(name: str, device, **tensors) -> torch.dtype:
+    """Check the K/V-typed arguments of a kernel: CUDA, contiguous, one
+    dtype among KV_DTYPES across all of them; at bf16 the rows take
+    16-byte copies only, so head_dim (the last dim) must be a multiple of
+    8 and every tensor 16-byte aligned. Returns the dtype."""
+    dtype = next(iter(tensors.values())).dtype
+    require(dtype in KV_DTYPES, name,
+            f"K/V tensors must be one of {KV_DTYPES}, got {dtype}")
+    for arg, t in tensors.items():
+        cuda_tensor(name, arg, t, dtype, device)
+    if dtype == torch.bfloat16:
+        d = next(iter(tensors.values())).shape[-1]
+        require(d % 8 == 0, name,
+                f"head_dim {d}: bf16 rows need a multiple of 8")
+        for arg, t in tensors.items():
+            require(t.data_ptr() % 16 == 0, name,
+                    f"{arg} must be 16-byte aligned at bf16")
+    return dtype
 
 
 #: the decode kernels' limits (csrc/common.cuh: kDecodeMaxG,
@@ -26,8 +51,7 @@ def decode_args(name, q, k_pages, v_pages, block_tables, seq_lens):
     """Check the arguments of a decode kernel (ragged or dense); returns
     (B, h_kv, g, d, b, mb)."""
     dev = q.device
-    for arg, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        cuda_tensor(name, arg, t, torch.float32, dev)
+    kv_tensors(name, dev, q=q, k_pages=k_pages, v_pages=v_pages)
     for arg, t in (("block_tables", block_tables), ("seq_lens", seq_lens)):
         cuda_tensor(name, arg, t, torch.int32, dev)
     B, hq, d = q.shape

@@ -12,6 +12,8 @@ sink page last; new_f (L, n, T, h) the post-global scores in cache order;
 src_bt (n, mb) int32 source tables (-1 padded); src_cache (L, n, h, k)
 survivor cache positions per head, in destination order; dest_flat (n, k)
 destination flat slots (sink-page slots where nothing is to be written).
+K and V are float32 or bfloat16 (one dtype: their bits are moved); F and
+new_f are float32.
 
 Precondition, which the engine's compression planning guarantees
 (``core/scheduler.py``, ``plan_compression``: ``dest = r.blocks[:nb]``, or
@@ -29,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import native
-from repro_torch.kernels._checks import cuda_tensor, require
+from repro_torch.kernels._checks import cuda_tensor, kv_tensors, require
 
 NAME = "compaction"
 
@@ -69,11 +71,11 @@ def compact_cuda(k_pool, v_pool, f_pool, new_f, src_bt, src_cache,
                  dest_flat):
     """Launch ``csrc/compaction.cu`` on the current stream (one launch for
     all layers). Any budget k is taken; the kernel moves rows by 16-byte
-    copies, so head_dim must be a multiple of 4 and the pools 16-byte
-    aligned."""
+    copies, so head_dim must be a multiple of 4 (8 at bf16) and the pools
+    16-byte aligned."""
     dev = k_pool.device
-    for arg, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                   ("f_pool", f_pool), ("new_f", new_f)):
+    dtype = kv_tensors(NAME, dev, k_pool=k_pool, v_pool=v_pool)
+    for arg, t in (("f_pool", f_pool), ("new_f", new_f)):
         cuda_tensor(NAME, arg, t, torch.float32, dev)
     cuda_tensor(NAME, "src_bt", src_bt, torch.int32, dev)
     require(src_cache.is_cuda and dest_flat.is_cuda, NAME,
@@ -99,7 +101,7 @@ def compact_cuda(k_pool, v_pool, f_pool, new_f, src_bt, src_cache,
     lib = native.library(NAME)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.compaction_launch(
+        code = native.launcher(lib, "compaction_launch", dtype)(
             k_pool.data_ptr(), v_pool.data_ptr(), f_pool.data_ptr(),
             new_f.data_ptr(), src_bt.data_ptr(), src_cache.data_ptr(),
             dest_flat.data_ptr(), L, n, h, d, b, mb, k, N1 * b, T, stream)

@@ -9,6 +9,11 @@ its sources and flags, so an edited kernel is rebuilt and an unchanged one
 is reused. Nothing here runs at import time: modules that import this one
 also run on machines without ``nvcc`` or a card.
 
+Each kernel has an entry point for each storage type of its K/V (and
+query) tensors: ``<name>_launch`` for float32 and ``<name>_launch_bf16``
+for bfloat16, with the same arguments; ``launcher`` picks one by a
+tensor's dtype. Scores and the other fp32 tensors are fp32 at either.
+
 The launch counters live here too: each kernel wrapper adds one to its
 kernel's count right after a successful launch, and a replay of a captured
 CUDA graph adds the launches captured in it (``core/decode_graphs.py``).
@@ -65,9 +70,21 @@ _ARGTYPES = {
     "compaction_launch":
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
+_ARGTYPES.update({f"{fn}_bf16": argtypes for fn, argtypes in _ARGTYPES.items()
+                  if fn.endswith("_launch")})
 _RESTYPES = {name: ctypes.c_longlong for name in (
     "flash_redundancy_workspace", "ragged_paged_attention_workspace",
     "paged_attention_workspace")}
+
+
+#: the storage types the kernels read: the suffix of each one's entry point
+DTYPE_SUFFIX = {"torch.float32": "", "torch.bfloat16": "_bf16"}
+
+
+def launcher(lib: ctypes.CDLL, fn: str, dtype):
+    """The entry point ``fn`` of ``lib`` for tensors of ``dtype``
+    (``<fn>`` at float32, ``<fn>_bf16`` at bfloat16)."""
+    return getattr(lib, fn + DTYPE_SUFFIX[str(dtype)])
 
 
 def count_launch(name: str) -> None:

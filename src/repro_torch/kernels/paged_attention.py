@@ -8,7 +8,9 @@ attention over each slot's first seq_len cache entries, computed over every
 entry of the table (a -1 entry reads page 0: masked past seq_len, read as
 page 0 below it, as the TPU kernel's clamp does), as the baseline the
 ragged kernel is measured against. Live rows equal the ragged kernel's bit
-for bit; rows with seq_len == 0 are zeros.
+for bit; rows with seq_len == 0 are zeros. q and the pools are float32 or
+bfloat16 (one dtype); the math is fp32 and the output, in q's dtype, is
+rounded once.
 """
 from __future__ import annotations
 
@@ -35,15 +37,19 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, seq_lens):
     B, hkv, g, d, b, mb = decode_args(NAME, q, k_pages, v_pages,
                                       block_tables, seq_lens)
     lib = native.library(NAME)
-    # one buffer: the output, then the chunks' parts that the merge reads
-    size = q.numel()
+    # one buffer: the output in q's dtype, rounded up to 16 bytes, then the
+    # chunks' fp32 parts that the merge reads (common.cuh,
+    # zp_decode_out_bytes)
+    size = q.numel() * q.element_size()
+    out_bytes = -(-size // 16) * 16
     extra = lib.paged_attention_workspace(B, hkv, g, d, b, mb)
-    buf = torch.empty(size + extra, dtype=q.dtype, device=q.device)
+    buf = torch.empty(out_bytes + 4 * extra, dtype=torch.uint8,
+                      device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.paged_attention_launch(
+        code = native.launcher(lib, "paged_attention_launch", q.dtype)(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), seq_lens.data_ptr(), buf.data_ptr(),
             B, hkv, g, d, b, mb, 1.0 / math.sqrt(d), stream)
     native.check(NAME, lib, code)
-    return buf[:size].view(q.shape)
+    return buf[:size].view(q.dtype).view(q.shape)

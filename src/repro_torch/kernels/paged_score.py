@@ -5,7 +5,9 @@ Replaces ``src/repro/kernels/paged_score.py`` (``paged_score_logits``).
 Contract: q_win (n, w, h_q, d) chronological window queries; pool
 (N, b, h_kv, d); block_tables (n, mb) int32; seq_lens (n,) int32. Returns
 logits (n, h_kv, g, w, mb*b) float32, Q_win·Kᵀ/√d where
-kpos <= seq_len - w + u and kpos < seq_len, and -1e30 elsewhere.
+kpos <= seq_len - w + u and kpos < seq_len, and -1e30 elsewhere. q_win and
+the pool are float32 or bfloat16 (one dtype); the logits are fp32 either
+way.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 
 from repro_torch.core.paged import NEG_INF, gather_entries
 from repro_torch.kernels import native
-from repro_torch.kernels._checks import cuda_tensor, require
+from repro_torch.kernels._checks import cuda_tensor, kv_tensors, require
 
 NAME = "paged_score"
 
@@ -37,10 +39,9 @@ def paged_score_logits_plain(q_win, k_pages, block_tables, seq_lens):
 
 def paged_score_logits_cuda(q_win, k_pages, block_tables, seq_lens):
     """Launch ``csrc/paged_score.cu`` on the current stream. Needs
-    ``d % 4 == 0`` (16-byte copies)."""
+    ``d % 4 == 0`` at fp32 and ``d % 8 == 0`` at bf16 (16-byte copies)."""
     dev = q_win.device
-    for arg, t in (("q_win", q_win), ("k_pages", k_pages)):
-        cuda_tensor(NAME, arg, t, torch.float32, dev)
+    dtype = kv_tensors(NAME, dev, q_win=q_win, k_pages=k_pages)
     for arg, t in (("block_tables", block_tables), ("seq_lens", seq_lens)):
         cuda_tensor(NAME, arg, t, torch.int32, dev)
     n, w, hq, d = q_win.shape
@@ -58,7 +59,7 @@ def paged_score_logits_cuda(q_win, k_pages, block_tables, seq_lens):
     lib = native.library(NAME)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.paged_score_launch(
+        code = native.launcher(lib, "paged_score_launch", dtype)(
             q_win.data_ptr(), k_pages.data_ptr(), block_tables.data_ptr(),
             seq_lens.data_ptr(), out.data_ptr(), n, hkv, g, w, d, b, mb,
             1.0 / math.sqrt(d), stream)

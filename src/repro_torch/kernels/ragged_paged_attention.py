@@ -7,7 +7,9 @@ block_tables (B, mb) int32 padded with -1; seq_lens (B,) int32. Returns
 (B, h_q, d): one-token GQA attention over each slot's first seq_len cache
 entries, a -1 table entry among them reading page 0 (the TPU kernel's
 clamp: a slot that decodes nothing attends seq_len + 1 entries over an
-empty table); rows with seq_len == 0 are exact zeros.
+empty table); rows with seq_len == 0 are exact zeros. q and the pools are
+float32 or bfloat16 (one dtype); the math is fp32 and the output, in q's
+dtype, is rounded once.
 """
 from __future__ import annotations
 
@@ -38,15 +40,19 @@ def ragged_paged_attention_cuda(q, k_pages, v_pages, block_tables,
     B, hkv, g, d, b, mb = decode_args(NAME, q, k_pages, v_pages,
                                       block_tables, seq_lens)
     lib = native.library(NAME)
-    # one buffer: the output, then the chunks' parts that the merge reads
-    size = q.numel()
+    # one buffer: the output in q's dtype, rounded up to 16 bytes, then the
+    # chunks' fp32 parts that the merge reads (common.cuh,
+    # zp_decode_out_bytes)
+    size = q.numel() * q.element_size()
+    out_bytes = -(-size // 16) * 16
     extra = lib.ragged_paged_attention_workspace(B, hkv, g, d, b, mb)
-    buf = torch.empty(size + extra, dtype=q.dtype, device=q.device)
+    buf = torch.empty(out_bytes + 4 * extra, dtype=torch.uint8,
+                      device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.ragged_paged_attention_launch(
+        code = native.launcher(lib, "ragged_paged_attention_launch", q.dtype)(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), seq_lens.data_ptr(), buf.data_ptr(),
             B, hkv, g, d, b, mb, 1.0 / math.sqrt(d), stream)
     native.check(NAME, lib, code)
-    return buf[:size].view(q.shape)
+    return buf[:size].view(q.dtype).view(q.shape)

@@ -12,6 +12,8 @@ Flash redundancy (paper Alg. 3) replaces ``flash_redundancy`` of the same
 file: the same over the whole sequence instead of page by page, with row
 sums divided by ``max(seq_len, 1)`` (``scoring.redundancy_full`` of the JAX
 package, batched over requests).
+
+Both take float32 or bfloat16 keys and return float32.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 
 from repro_torch.core.paged import gather_entries
 from repro_torch.kernels import native
-from repro_torch.kernels._checks import cuda_tensor, require
+from repro_torch.kernels._checks import cuda_tensor, kv_tensors, require
 
 NAME = "lightning_redundancy"
 FLASH_NAME = "flash_redundancy"
@@ -59,7 +61,7 @@ def _launch(name, launch, k_pages, block_tables, seq_lens, p_thresh,
     gets one buffer: the (n, mb*b, h) output, then as many floats of
     scratch as the library's ``workspace`` function asks for, if named."""
     dev = k_pages.device
-    cuda_tensor(name, "k_pages", k_pages, torch.float32, dev)
+    dtype = kv_tensors(name, dev, k_pages=k_pages)
     for arg, t in (("block_tables", block_tables), ("seq_lens", seq_lens)):
         cuda_tensor(name, arg, t, torch.int32, dev)
     N, b, h, d = k_pages.shape
@@ -72,7 +74,7 @@ def _launch(name, launch, k_pages, block_tables, seq_lens, p_thresh,
     buf = torch.empty(size + extra, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = getattr(lib, launch)(
+        code = native.launcher(lib, launch, dtype)(
             k_pages.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
             buf.data_ptr(), n, h, d, b, mb, float(p_thresh), stream)
     native.check(name, lib, code)
@@ -82,7 +84,7 @@ def _launch(name, launch, k_pages, block_tables, seq_lens, p_thresh,
 def lightning_redundancy_cuda(k_pages, block_tables, seq_lens, *,
                               p_thresh=0.8):
     """Launch ``csrc/redundancy.cu`` on the current stream. Needs
-    ``d % 4 == 0`` (16-byte copies)."""
+    ``d % 4 == 0`` (16-byte copies; ``d % 8 == 0`` at bf16)."""
     d = k_pages.shape[-1]
     require(d % 4 == 0, NAME, f"head_dim {d}: needs a multiple of 4")
     return _launch(NAME, "lightning_redundancy_launch", k_pages,
@@ -123,7 +125,8 @@ def flash_redundancy_plain(k_pages, block_tables, seq_lens, *,
 
 def flash_redundancy_cuda(k_pages, block_tables, seq_lens, *, p_thresh=0.8):
     """Launch ``csrc/flash_redundancy.cu`` on the current stream. Needs
-    ``d % 4 == 0`` (16-byte copies) and ``d <= 256`` (shared memory)."""
+    ``d % 4 == 0`` (16-byte copies; ``d % 8 == 0`` at bf16) and
+    ``d <= 256`` (shared memory)."""
     d = k_pages.shape[-1]
     require(d % 4 == 0 and d <= FLASH_MAX_D, FLASH_NAME,
             f"head_dim {d}: needs a multiple of 4, at most {FLASH_MAX_D}")

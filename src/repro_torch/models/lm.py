@@ -14,6 +14,12 @@ where a norm is {"scale": (d,)} (rmsnorm), {"scale", "bias": (d,)}
 ``repro_torch.convert.params_from_numpy`` maps the JAX package's stacked
 tree onto this layout. Only the dense GQA family is ported so far;
 ``check_supported`` names what is not.
+
+Dtypes (``cfg.dtype``, float32 or bfloat16): the JAX package keeps fp32
+parameters and casts the matrices, qkv biases and embeddings to the
+compute dtype at each use; the port stores those at the dtype once, which
+gives the same values (``cast_params``). Norm scales and biases, and the
+q/k norm scales, stay fp32 in both, and norms compute in fp32.
 """
 from __future__ import annotations
 
@@ -24,6 +30,20 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.common import apply_norm, is_gated
+
+#: compute dtypes the port serves (``cfg.dtype``, ``EngineOptions.dtype``)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: parameters that stay fp32 whatever the dtype: the norms' scales and biases
+NORM_KEYS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a compute dtype the port serves."""
+    if name not in DTYPES:
+        raise NotImplementedError(
+            f"dtype={name!r} is not ported to repro_torch yet (it serves "
+            f"{', '.join(DTYPES)})")
+    return DTYPES[name]
 
 
 # ----------------------------------------------------------------------
@@ -70,6 +90,8 @@ def check_supported(cfg: ArchConfig) -> None:
         unported.append("encoder-decoder")
     if cfg.frontend != "none" or cfg.num_prefix_embeds:
         unported.append(f"frontend={cfg.frontend!r}")
+    if cfg.dtype not in DTYPES:
+        unported.append(f"dtype={cfg.dtype!r}")
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: not ported to repro_torch yet: "
@@ -79,10 +101,12 @@ def check_supported(cfg: ArchConfig) -> None:
 # ----------------------------------------------------------------------
 # init
 
-def _dense(shape, fan_in, generator, device):
+def _dense(shape, fan_in, generator, device, dtype=torch.float32):
+    """Drawn in fp32 and cast at once, so a bf16 model never holds its
+    fp32 tree and equals the fp32 one of the same seed, rounded."""
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
-    return w.mul_(1.0 / math.sqrt(fan_in))
+    return w.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
 
 
 def _init_norm(cfg, d, device):
@@ -99,23 +123,27 @@ def _init_norm(cfg, d, device):
 def _init_layer(cfg, generator, device):
     d, hq, hkv, dh, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim, cfg.d_ff)
+    dt = torch_dtype(cfg.dtype)
+
     def ones(n):
         return torch.ones(n, dtype=torch.float32, device=device)
 
-    attn = {"wq": _dense((d, hq * dh), d, generator, device),
-            "wk": _dense((d, hkv * dh), d, generator, device),
-            "wv": _dense((d, hkv * dh), d, generator, device),
-            "wo": _dense((hq * dh, d), hq * dh, generator, device)}
+    def dense(shape, fan_in):
+        return _dense(shape, fan_in, generator, device, dt)
+
+    attn = {"wq": dense((d, hq * dh), d),
+            "wk": dense((d, hkv * dh), d),
+            "wv": dense((d, hkv * dh), d),
+            "wo": dense((hq * dh, d), hq * dh)}
     if cfg.qkv_bias:
         for name, n in (("bq", hq * dh), ("bk", hkv * dh), ("bv", hkv * dh)):
-            attn[name] = torch.zeros(n, dtype=torch.float32, device=device)
+            attn[name] = torch.zeros(n, dtype=dt, device=device)
     if cfg.qk_norm:
         attn["q_norm"] = ones(dh)
         attn["k_norm"] = ones(dh)
-    ffn = {"w1": _dense((d, f), d, generator, device),
-           "w2": _dense((f, d), f, generator, device)}
+    ffn = {"w1": dense((d, f), d), "w2": dense((f, d), f)}
     if is_gated(cfg.ffn_act):
-        ffn["w3"] = _dense((d, f), d, generator, device)
+        ffn["w3"] = dense((d, f), d)
     return {"ln1": _init_norm(cfg, d, device),
             "ln2": _init_norm(cfg, d, device), "attn": attn, "ffn": ffn}
 
@@ -124,18 +152,46 @@ def init(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
     """Random parameters in the port's layout, drawn from ``generator``
     directly on ``device`` (the same scales as the JAX package's
     ``dense_init``: std 1/sqrt(fan_in), unit norm scales, zero norm
-    biases). The two packages' generators differ, so tests carry weights
+    biases), at ``cfg.dtype`` apart from the fp32 norms: the same draws at
+    any dtype. The two packages' generators differ, so tests carry weights
     across with ``convert.params_from_numpy`` instead."""
     check_supported(cfg)
+    dt = torch_dtype(cfg.dtype)
     params = {"embed": _dense((cfg.vocab_size, cfg.d_model), cfg.d_model,
-                              generator, device),
+                              generator, device, dt),
               "final_norm": _init_norm(cfg, cfg.d_model, device)}
     if not cfg.tie_embeddings:
         params["unembed"] = _dense((cfg.d_model, cfg.vocab_size),
-                                   cfg.d_model, generator, device)
+                                   cfg.d_model, generator, device, dt)
     params["layers"] = [_init_layer(cfg, generator, device)
                         for _ in range(cfg.num_layers)]
     return params
+
+
+def cast_params(params, dtype) -> dict:
+    """A copy of ``params`` with every matrix, qkv bias and embedding at
+    ``dtype`` and the norms' parameters left fp32 (the JAX package's casts
+    at use, done once). Leaves already at their dtype are shared, not
+    copied."""
+    def walk(t, key=None):
+        if key in NORM_KEYS:
+            return t
+        if isinstance(t, torch.Tensor):
+            return t.to(dtype)
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        return [walk(v) for v in t]
+    return walk(params)
+
+
+def check_params_dtype(cfg, params) -> None:
+    """Raise unless the matrices of ``params`` are at ``cfg.dtype`` (the
+    port stores them at the compute dtype; ``cast_params`` converts)."""
+    want = torch_dtype(cfg.dtype)
+    got = params["embed"].dtype
+    if got != want:
+        raise ValueError(f"{cfg.name}: params are {got}, the model computes "
+                         f"in {want}; convert them with lm.cast_params")
 
 
 def param_count(params) -> int:
@@ -159,16 +215,11 @@ def apply_layer(cfg, p, x, positions):
 
 
 def forward_hidden(cfg: ArchConfig, params, tokens, *, positions=None):
-    """Token ids (B, S) -> final hidden states (B, S, d), in fp32.
-
-    The JAX package computes at ``cfg.dtype`` (bfloat16 by default); the
-    port computes in fp32 only, so any other dtype raises instead of
-    returning fp32 numbers under a bf16 config."""
+    """Token ids (B, S) -> final hidden states (B, S, d) at ``cfg.dtype``,
+    as the JAX package's: the residual stream, matrices and products at
+    the dtype, norms, RoPE and attention in fp32, cast back."""
     check_supported(cfg)
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"{cfg.name}: dtype={cfg.dtype!r} is not ported to repro_torch "
-            "yet (the forward computes in float32 only)")
+    check_params_dtype(cfg, params)
     x = params["embed"][tokens]
     B, S, _ = x.shape
     if positions is None:

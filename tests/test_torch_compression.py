@@ -9,7 +9,8 @@ head) streams whose k-th vs (k+1)-th final-score margin is above 1e-4: a
 near-tie flips under a ~1e-7 rounding change (the JAX engine's
 ``_compress_fn`` docstring records margins of ~1e-5), so equality there
 would test rounding, not the algorithm. Tolerance elsewhere: atol = rtol =
-1e-5 (fp32).
+1e-5 (fp32). The same holds at bfloat16 pools and windows (F in fp32),
+with the compacted K and V compared as bf16 bits.
 """
 import dataclasses
 
@@ -168,3 +169,62 @@ def test_topk_tag_breaks_ties_to_lower_index():
     want = np.asarray(js.topk_tag(jnp.asarray(s), 3))
     got = ts.topk_tag(torch.from_numpy(s)[None], 3)[0].numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_compress_matches_jax_at_bf16():
+    """Compression on identical bf16 pools and windows (the JAX package's
+    values carried into the port), F in fp32: both score in fp32 from the
+    same bf16 keys and queries, so the statistics agree to 1e-5, and
+    wherever the k-th vs (k+1)-th margin is above 1e-4 the compacted K and
+    V are the same bf16 bits and F within 1e-5."""
+    jcfg, tcfg = (dataclasses.replace(c, dtype="bfloat16") for c in cfgs())
+    pools, qwin, req = make_inputs(seed=2)
+    jpools = {k: jnp.asarray(v, jnp.bfloat16 if k != "f" else jnp.float32)
+              for k, v in pools.items()}
+    jqwin = jnp.asarray(qwin, jnp.bfloat16)
+    bf16 = {k: np.asarray(v, np.float32) for k, v in jpools.items()}
+    jfn = jax.jit(jbuild(jcfg, block_size=B_SZ, max_blocks=WIDTH,
+                         budget_blocks=BUDGET,
+                         opts=JOpts(window=W, backend="pallas-interpret")))
+    jout, jseq, jstats = jfn(jpools, jqwin,
+                             tuple(jnp.asarray(a) for a in req))
+    assert jout["k"].dtype == jnp.bfloat16
+    jout = {k: np.asarray(v, np.float32) for k, v in jout.items()}
+
+    topts = tc.CompressOptions(window=W)
+    treq = tuple(torch.from_numpy(a.copy()) for a in req)
+    tpools = port_pools(bf16)
+    for key in ("k", "v"):
+        tpools[key] = tpools[key].to(torch.bfloat16)
+    tqwin = torch.from_numpy(np.asarray(jqwin, np.float32)).to(
+        torch.bfloat16)
+    final = port_final_scores(tcfg, topts, tpools, tqwin, treq)
+    fn = tc.build_compress_fn(tcfg, block_size=B_SZ, max_blocks=WIDTH,
+                              budget_blocks=BUDGET, opts=topts)
+    tseq, tstats = fn(tpools, tqwin, treq)
+    assert tpools["k"].dtype == torch.bfloat16
+    assert tpools["f"].dtype == torch.float32
+
+    np.testing.assert_array_equal(tseq.numpy(), np.asarray(jseq))
+    live = req[2] >= 0
+    np.testing.assert_allclose(tstats.numpy()[live], np.asarray(jstats)[live],
+                               rtol=RTOL, atol=ATOL)
+    k_keep = BUDGET * B_SZ
+    compared = total = 0
+    for l in range(L):
+        for i in np.flatnonzero(live):
+            dest = req[1][i]
+            for h in range(HKV):
+                total += 1
+                s = torch.sort(final[l, i, :, h], descending=True)[0]
+                if not float(s[k_keep - 1] - s[k_keep]) > MARGIN:
+                    continue
+                compared += 1
+                for key in ("k", "v"):
+                    got = tpools[key][l, dest, :, h].float().numpy()
+                    np.testing.assert_array_equal(got,
+                                                  jout[key][l, dest, :, h])
+                np.testing.assert_allclose(
+                    tpools["f"].numpy()[l, dest, :, h],
+                    jout["f"][l, dest, :, h], rtol=RTOL, atol=ATOL)
+    assert compared >= 0.75 * total, (compared, total)

@@ -6,7 +6,9 @@ same engine on the CPU. They skip without a card and nvcc (decided in the
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerance: atol = rtol = 1e-4 (fp32; the kernels sum in another order
-than PyTorch's reductions). Card-vs-CPU logits: 1e-3.
+than PyTorch's reductions). Card-vs-CPU logits: 1e-3. At bf16 inputs
+(chip_smoke.kernel_tols): fp32 outputs 1e-5, bf16 outputs one ulp
+(2**-7); card-vs-CPU bf16 logits a relative L2 of 2e-2.
 
 The head layouts of the other dense configs (g = 1 at h_kv 16, g = 6 at
 h_kv 8, g = 8 at h_kv 2, d = 128) have kernel checks of their own, and each
@@ -630,3 +632,77 @@ def test_memory_checks_on_card(cuda, tiny, check):
             "swap_snapshot": (cfg, p_dev),
             "adoption": (cfg, p_cpu, p_dev)}[check]
     getattr(cs, f"check_{check}")(torch, cuda, *args)
+
+
+# ----------------------------------------------------------------------
+# bfloat16: the kernels' bf16 variants and the bf16 serve
+
+
+@pytest.mark.parametrize("name", ["qwen3-8b", "olmo-1b", "nemotron-4-15b",
+                                  "qwen2.5-3b"])
+def test_kernels_match_plain_at_bf16(cuda, name):
+    """chip_smoke.py's phase 3 at bf16 inputs, at the config's head layout
+    (g = 4, 1, 6, 8): all six kernels against their plain versions (fp32
+    outputs to 1e-5, bf16 outputs to one ulp, B6 bit for bit), B4 == K1 bit
+    for bit on live rows, the idle-slot case, B6 at k = 48 and 1024."""
+    import dataclasses
+
+    from repro_torch.core.engine import EngineOptions
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_config(name), dtype="float32")
+    before = dict(ops.launch_counts)
+    cs.phase_kernels(torch, cuda, cfg, EngineOptions(), phase=f"bf16 {name}",
+                     dtype=torch.bfloat16)
+    assert all(ops.launch_counts[k] > before[k] for k in ops.KERNELS)
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+def test_graph_replay_equals_eager_at_bf16(cuda, greedy):
+    """The fused chunk's graph replay against the eager chunk, bit for bit,
+    at 2 layers of Qwen3-8B widths with bf16 weights, pools and windows."""
+    import dataclasses
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=2,
+                              dtype="bfloat16")
+    params = lm.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    assert params["layers"][0]["ffn"]["w1"].dtype == torch.bfloat16
+    cs.check_graph_vs_eager(torch, cuda, cfg, params, greedy)
+
+
+def test_card_matches_cpu_at_bf16(cuda):
+    """2 layers of Qwen3-8B widths at bf16 (vocabulary capped at 65536 for
+    the CPU side): logits card against CPU within a relative L2 of 2e-2;
+    the card's K = 8 streams equal its K = 1 streams bit for bit."""
+    import dataclasses
+    cs = _chip_smoke()
+    cfg = get_config("qwen3-8b")
+    small = dataclasses.replace(cfg, num_layers=2, dtype="bfloat16",
+                                vocab_size=min(cfg.vocab_size, 65536))
+    p_cpu = lm.init(small, torch.Generator().manual_seed(0), "cpu")
+    p_dev = _to(p_cpu, cuda)
+    worst = cs.check_logits(torch, cuda, small, p_cpu, p_dev, "bf16",
+                            "qwen3-8b widths")
+    assert worst <= cs.BF16_REL_L2
+    cs.check_streams_bf16(torch, cuda, small, p_cpu, p_dev)
+
+
+def test_ties_go_to_the_lowest_id_on_card(cuda):
+    """On tied bf16 logits the card's greedy argmax, its stable descending
+    sort and a top-k = 1 draw give the CPU's answers: the lowest id
+    first."""
+    from repro_torch.core.sampling import sample_batch
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(4, 4096)).astype(np.float32))
+    x = x.to(torch.bfloat16).float()
+    for i in range(4):
+        x[i, torch.from_numpy(rng.choice(4096, 3 + i, replace=False))] = 5.0
+    want = torch.argmax(x, -1)
+    assert torch.equal(torch.argmax(x.to(cuda), -1).cpu(), want)
+    order = torch.sort(x, dim=-1, descending=True, stable=True)[1]
+    got = torch.sort(x.to(cuda), dim=-1, descending=True, stable=True)[1]
+    assert torch.equal(got.cpu(), order)
+    ones = torch.ones(4, device=cuda)
+    uniforms = torch.full((4, 4096), 0.5, device=cuda)
+    tok, _ = sample_batch(x.to(cuda), uniforms, ones,
+                          torch.ones(4, dtype=torch.int32, device=cuda), ones)
+    assert torch.equal(tok.cpu(), want)

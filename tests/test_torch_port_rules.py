@@ -81,11 +81,31 @@ def test_cpu_when_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(dtype="bfloat16"),
+    dict(dtype="float16"),
 ])
 def test_unported_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="not ported"):
         Zipage.from_config("tiny-lm", device="cpu", **knob)
+
+
+def test_dtype_knob_is_accepted():
+    """bfloat16 serves on the CPU: the K/V pools, the observation windows
+    and the model's matrices at bf16, the global scores F and the norms'
+    scales in fp32 (tests/test_torch_bf16.py holds it against the JAX
+    package)."""
+    z = Zipage.from_config("tiny-lm", device="cpu", block_size=8,
+                           n_total_blocks=16, max_batch=2, max_model_len=64,
+                           prefill_rows=1, prefill_len=32, dtype="bfloat16")
+    outs = z.generate([[1, 2, 3], [4, 5]], SamplingParams(max_new_tokens=12))
+    assert [len(o.token_ids) for o in outs] == [12, 12]
+    st, params = z.engine.state, z.engine.params
+    assert st["pools"]["k"].dtype == st["pools"]["v"].dtype == torch.bfloat16
+    assert st["qwin"].dtype == torch.bfloat16
+    assert st["pools"]["f"].dtype == torch.float32
+    assert params["embed"].dtype == torch.bfloat16
+    assert params["layers"][0]["attn"]["wq"].dtype == torch.bfloat16
+    assert params["final_norm"]["scale"].dtype == torch.float32
+    assert z.num_free_blocks == 16
 
 
 @pytest.mark.parametrize("knob", [

@@ -7,6 +7,8 @@ turns.
         --kernels lightning_redundancy paged_attention ragged_paged_attention
     python3 tools/torch_kernel_ab.py --before <dir>/src --kernels compaction
     python3 tools/torch_kernel_ab.py --before <dir>/src --idle-slots
+    python3 tools/torch_kernel_ab.py --before <dir>/src --dtype bfloat16 \
+        --kernels ragged_paged_attention paged_score
 
 Runs four worker processes one after another -- before, after, after,
 before -- each importing ``repro_torch`` from its own copy of a source
@@ -26,9 +28,12 @@ refused in a "before" turn; in an "after" turn it fails the run.
 ``--idle-slots`` also runs ``chip_smoke.check_idle_slots`` (K1 and B4
 against their plain versions on slots that attend seq_len >= 1 over an
 empty table, as the serve passes them) at g = 1 (h_kv 16) and g = 4
-(h_kv 8), recording a disagreement instead of failing. Prints one line
-per kernel and turn and writes ``chiprun_out/kernel_ab.json``. Needs a
-card; imports no JAX.
+(h_kv 8), recording a disagreement instead of failing. ``--dtype
+bfloat16`` runs all of it on bf16 queries, keys and values (the kernels'
+bf16 variants, held to ``chip_smoke.kernel_tols``); a tree whose kernels
+take no bf16 is recorded as refused in its turns. Prints one line per
+kernel and turn and writes ``chiprun_out/kernel_ab.json``. Needs a card;
+imports no JAX.
 """
 from __future__ import annotations
 
@@ -58,8 +63,9 @@ INPUTS = {"serve": ((4, [64, 64]),
 IDLE_LAYOUTS = {"g = 1, h_kv 16": (16, 16), "g = 4, h_kv 8": (32, 8)}
 
 
-def worker(src, names, allow_refused, idle_slots=False):
+def worker(src, names, allow_refused, idle_slots=False, dtype="float32"):
     import torch
+    dtype = getattr(torch, dtype)
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: no CUDA device")
     tmp = Path(tempfile.mkdtemp(prefix="kernel_ab_"))
@@ -85,7 +91,8 @@ def worker(src, names, allow_refused, idle_slots=False):
                 try:
                     rec = {"max_abs_err": chip_smoke.check_idle_slots(
                         torch, dev, cfg, EngineOptions(),
-                        np.random.default_rng(0), f"idle[{label}]")}
+                        np.random.default_rng(0), f"idle[{label}]",
+                        dtype)}
                 except AssertionError as e:
                     rec = {"differs": str(e)}
                 out["idle_slots"][label] = rec
@@ -97,9 +104,12 @@ def worker(src, names, allow_refused, idle_slots=False):
                 try:
                     out[label].update(chip_smoke.time_at(
                         torch, dev, get_config("qwen3-8b"), EngineOptions(),
-                        [name], comp, dec, budget))
-                except RuntimeError as e:
-                    if not (allow_refused and "at launch" in str(e)):
+                        [name], comp, dec, budget, dtype))
+                except (RuntimeError, ValueError) as e:
+                    # an older launch refused, or an older wrapper that
+                    # takes no bf16
+                    if not (allow_refused and ("at launch" in str(e) or
+                                               "must be" in str(e))):
                         raise
                     out[label][name] = {"refused": str(e)}
         return out
@@ -115,13 +125,17 @@ def main(argv=None):
                     choices=chip_smoke.TIMED_AT, help="kernels to time")
     ap.add_argument("--idle-slots", action="store_true",
                     help="check K1 and B4 on idle slots in each turn")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="the dtype of the kernels' K/V and query inputs")
     ap.add_argument("--worker", metavar="SRC", help=argparse.SUPPRESS)
     ap.add_argument("--allow-refused", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
         print(json.dumps(worker(args.worker, args.kernels,
-                                args.allow_refused, args.idle_slots)))
+                                args.allow_refused, args.idle_slots,
+                                args.dtype)))
         return 0
     card = chip_smoke.card_line()
     turns = [("before", args.before), ("after", str(ROOT / "src")),
@@ -133,7 +147,8 @@ def main(argv=None):
             flags.append("--idle-slots")
         out = subprocess.run([sys.executable, __file__, "--before",
                               args.before, "--kernels", *args.kernels,
-                              "--worker", src, *flags],
+                              "--dtype", args.dtype, "--worker", src,
+                              *flags],
                              capture_output=True, text=True,
                              timeout=900, env={**os.environ,
                                                "PYTHONPATH": ""})
@@ -163,7 +178,8 @@ def main(argv=None):
     print(card)
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "kernel_ab.json", "w") as f:
-        json.dump({"card": card, "turns": results}, f, indent=1)
+        json.dump({"card": card, "dtype": args.dtype, "turns": results}, f,
+                  indent=1)
     return 0
 
 
