@@ -111,6 +111,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
      as in phase 6 at the serves' inputs and the long inputs (bounds at
      bf16 bytes, products at the bf16 tensor-core peak), and the memory
      planner's M and N_total at bf16 against fp32.
+  11. (run after 7b, before 9, on the main serve's engine and its phase 5
+     prompts and outputs) the async surface and the OpenAI-compatible
+     server: generate() again (timed), the 8 requests through
+     ``generate_async`` at once (bit for bit), 4 streams through
+     ``stream()`` with logprobs while a request whose eos ids widen the
+     pad from 1 to 4 makes the step on the loop's worker thread capture
+     the decode graphs anew (streams and the widened request bit for
+     bit); then the port's app on its stdlib HTTP server at a loopback
+     port: 8 SSE streams at once equal to phase 5's, with a profiled
+     window of 8 steps taken on the worker thread between steps, a unary
+     request equal to its SSE twin, a client that hangs up after 3 events
+     (aborted, blocks reclaimed), a drain with 2 requests in flight (they
+     finish, a new one gets 503, the pool is full, the sanitizer clean);
+     tok/s beside generate()'s, time to first token and inter-chunk
+     latency as the client measures them, the gap between steps, launch
+     counts (no plain version runs); then ``python -m repro_torch.serve
+     --model tiny-lm`` on the card in a subprocess (a unary and an SSE
+     request, SIGTERM: "draining..." then "drained, bye", exit 0) and
+     ``python -m repro_torch.launch.serve --arch qwen3-8b --workload
+     mix`` with compression and under ``--full-kv``.
 
 The last two lines of standard output are the card's name and power
 limit, and ``{"ok": true, "device": {...}}``; the line before them is the
@@ -118,9 +138,11 @@ limit, and ``{"ok": true, "device": {...}}``; the line before them is the
 """
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2081,21 +2103,7 @@ def phase_profile(torch, z, card, label="profile", new_tokens=40):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.monotonic() - t)
     n_tok = sum(m["tokens"] for m in z.metrics) - tokens0
-    groups = {}
-    calls = {}                # device time and count of the port's kernels
-    busy = 0.0
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if not dev_us or not str(ev.device_type).endswith("CUDA"):
-            continue          # host-side ops; their kernels are listed too
-        g = _group(ev.key)
-        groups[g] = groups.get(g, 0.0) + dev_us / 1e3
-        busy += dev_us / 1e3
-        if g[0] in "KB" and g[1].isdigit():
-            ms, n = calls.get(g, (0.0, 0))
-            calls[g] = (ms + dev_us / 1e3, n + ev.count)
+    busy, groups, calls = device_busy(prof)
     while z.has_unfinished():
         z.step()
     if busy <= 0:
@@ -2112,6 +2120,27 @@ def phase_profile(torch, z, card, label="profile", new_tokens=40):
     return {"steps": n_steps, "tokens": n_tok, "wall_ms": wall_ms,
             "busy_ms": busy, "idle": 1 - busy / wall_ms,
             "groups_ms": groups, "kernel_calls": calls}
+
+
+def device_busy(prof):
+    """A finished profile's device time in ms: in all, by kernel group, and
+    (ms, count) for each of the port's kernels."""
+    groups = {}
+    calls = {}                # device time and count of the port's kernels
+    busy = 0.0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if not dev_us or not str(ev.device_type).endswith("CUDA"):
+            continue          # host-side ops; their kernels are listed too
+        g = _group(ev.key)
+        groups[g] = groups.get(g, 0.0) + dev_us / 1e3
+        busy += dev_us / 1e3
+        if g[0] in "KB" and g[1].isdigit():
+            ms, n = calls.get(g, (0.0, 0))
+            calls[g] = (ms + dev_us / 1e3, n + ev.count)
+    return busy, groups, calls
 
 
 #: decode_steps of the paired serves, in order
@@ -2200,6 +2229,663 @@ def _group(key):
     if "elementwise" in k:
         return "elementwise"
     return "other"
+
+
+# ----------------------------------------------------------------------
+# phase 11: the async surface and the HTTP tier at full width
+
+
+#: phase 11's eos ids of its recapture request: three ids its greedy twin
+#: never emits widen the eos pad from 1 to 4
+RECAPTURE_EOS = 3
+#: phase 11's SSE events a client reads before it hangs up
+HANGUP_AFTER = 3
+#: phase 11's drain: requests in flight when intake closes, and their
+#: new tokens
+DRAIN_REQUESTS, DRAIN_TOKENS = 2, 64
+
+
+def free_port():
+    """A free loopback port: bind port 0 and read the one given."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def port_cmd(module, *args):
+    """The command line that runs one of the port's modules with this
+    interpreter; the entry points serve on the card by default."""
+    return [sys.executable, "-m", module, *args]
+
+
+def _port_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [env.get("PYTHONPATH")] if p])
+    return env
+
+
+def _same_output(label, got, want):
+    """``got`` (tokens, finish reason, usage) equals ``want``'s."""
+    if got.token_ids != want.token_ids:
+        j = next((j for j, (a, b) in enumerate(zip(got.token_ids,
+                                                   want.token_ids))
+                  if a != b), min(len(got.token_ids), len(want.token_ids)))
+        raise AssertionError(f"{label}: tokens differ from generate()'s at "
+                             f"position {j}")
+    assert got.finish_reason == want.finish_reason, label
+    assert dataclasses.astuple(got.usage) == dataclasses.astuple(
+        want.usage), label
+
+
+async def async_burst(z, prompts, sps, refs):
+    """Gate 1: every request through ``generate_async`` at once. All ops
+    are queued before the loop's first step, so admission order is
+    ``generate()``'s; tokens, finish reasons and usage equal ``refs``."""
+    hook = StepGaps(z.engine)
+    outs = await asyncio.gather(*[z.generate_async(p, s)
+                                  for p, s in zip(prompts, sps)])
+    split = hook.close()
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        _same_output(f"async burst request {i}", o, r)
+    split["tokens"] = sum(len(o.token_ids) for o in outs)
+    return split
+
+
+async def stream_with_recapture(z, prompts, refs, n_streams, new_tokens):
+    """Gates 2 and 3: ``n_streams`` requests stream through ``stream()``
+    with logprobs; once each has its first chunk, request ``n_streams``
+    goes through ``generate_async`` with eos ids its greedy twin never
+    emits, which widens the eos pad from 1 to 4 inside a step on the
+    loop's worker thread and captures every decode graph anew there.
+    Chunk indices are contiguous, each stream's chunks concatenate to its
+    final output, whose tokens equal ``refs``, and the last chunk carries
+    the finish reason and usage. Returns the threads that captured."""
+    import threading
+
+    from repro_torch.api import SamplingParams
+
+    eng = z.engine
+    assert eng._eos_width == 1, f"eos pad already {eng._eos_width} wide"
+    graphs = eng._graphs
+    captured = []
+    capture = graphs.capture
+
+    def recorded(k, greedy, width):
+        captured.append((threading.current_thread().name, k, greedy, width))
+        return capture(k, greedy, width)
+
+    graphs.capture = recorded
+    firsts = [asyncio.Event() for _ in range(n_streams)]
+
+    async def collect(i):
+        toks, lps, last = [], [], None
+        async for chunk in z.stream(prompts[i], SamplingParams(
+                max_new_tokens=new_tokens, logprobs=True)):
+            assert chunk.index == len(toks), \
+                f"stream {i}: chunk index {chunk.index} after {len(toks)}"
+            toks.extend(chunk.token_ids)
+            lps.extend(chunk.logprobs)
+            last = chunk
+            firsts[i].set()
+        return toks, lps, last
+
+    try:
+        tasks = [asyncio.create_task(collect(i)) for i in range(n_streams)]
+        for f in firsts:
+            await f.wait()
+        twin = refs[n_streams]
+        eos = tuple(t for t in range(z.cfg.vocab_size)
+                    if t not in twin.token_ids)[:RECAPTURE_EOS]
+        widened = await z.generate_async(prompts[n_streams], SamplingParams(
+            max_new_tokens=new_tokens, eos_ids=eos))
+        streams = await asyncio.gather(*tasks)
+    finally:
+        graphs.capture = capture
+    for i, (toks, lps, last) in enumerate(streams):
+        final = z.output(last.request_id)
+        assert toks == final.token_ids == refs[i].token_ids, \
+            f"stream {i} differs from generate()'s"
+        assert lps == final.logprobs and len(lps) == new_tokens
+        assert all(math.isfinite(x) for x in lps)
+        assert last.finish_reason == "length"
+        assert dataclasses.astuple(last.usage) == dataclasses.astuple(
+            refs[i].usage)
+    _same_output("recapture request", widened, twin)
+    assert eng._eos_width == 4
+    keys = sorted(graphs.graphs)
+    assert keys and all(w == 4 for _k, _g, w in keys), keys
+    assert captured and all(name.startswith("zipage-step")
+                            for name, *_ in captured), captured
+    return captured, keys
+
+
+async def _http(port, body=None, *, path="/v1/completions",
+                hangup_after=None):
+    """POST ``body`` to ``path`` (GET without one) over a socket. Returns
+    the status, the decoded SSE payloads (or the JSON body) and, for a
+    stream, the arrival time of each event, and the time the request
+    started; ``hangup_after`` events closes the socket there."""
+    t0 = time.monotonic()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        return await _exchange(reader, writer, path, body, hangup_after, t0)
+    finally:
+        writer.close()
+
+
+async def _exchange(reader, writer, path, body, hangup_after, t0):
+    data = b"" if body is None else json.dumps(body).encode()
+    method = b"GET " if body is None else b"POST "
+    writer.write(method + path.encode() + b" HTTP/1.1\r\nhost: 127.0.0.1"
+                 b"\r\ncontent-type: application/json\r\ncontent-length: "
+                 + str(len(data)).encode() + b"\r\nconnection: close\r\n"
+                 b"\r\n" + data)
+    await writer.drain()
+    head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1")
+    status = int(head.split(" ", 2)[1])
+    headers = {k.strip().lower(): v.strip() for k, _, v in
+               (line.partition(":") for line in head.split("\r\n")[1:])
+               if k}
+    if "content-length" in headers:
+        payload = json.loads(await reader.readexactly(
+            int(headers["content-length"])))
+        return status, payload, [], t0
+    events, times, buf = [], [], b""
+    while True:                          # chunked transfer
+        size = int((await reader.readuntil(b"\r\n")).strip(), 16)
+        if size == 0:
+            break
+        buf += await reader.readexactly(size)
+        await reader.readexactly(2)
+        while b"\n\n" in buf:
+            frame, buf = buf.split(b"\n\n", 1)
+            assert frame.startswith(b"data: "), frame
+            events.append("[DONE]" if frame == b"data: [DONE]"
+                          else json.loads(frame[6:]))
+            times.append(time.monotonic())
+        if hangup_after is not None and len(events) >= hangup_after:
+            break
+    return status, events, times, t0
+
+
+def _sse_tokens(events):
+    return [t for e in events if e != "[DONE]" and e["choices"]
+            for t in e["choices"][0]["token_ids"]]
+
+
+class StepGaps:
+    """A step hook that splits a serve's wall time: the steps themselves
+    (each one's ``t_total``), the host time between one step's end and the
+    next one's start (the loop's gap between steps), the time before the
+    first step starts and the time after the last one ends. Called on the
+    worker thread under the async loop, on the caller's under
+    ``generate()``."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.ends, self.totals = [], []
+        self.t0 = time.monotonic()
+        eng.step_hooks.append(self)
+
+    def __call__(self, entry):
+        self.ends.append(time.monotonic())
+        self.totals.append(entry["t_total"])
+
+    def close(self):
+        t1 = time.monotonic()
+        self.eng.step_hooks.remove(self)
+        gaps = [e1 - t1_ - e0 for e0, e1, t1_ in zip(
+            self.ends, self.ends[1:], self.totals[1:])]
+        return {"wall_s": t1 - self.t0, "steps": len(self.totals),
+                "step_s": sum(self.totals),
+                "step_median_ms": 1e3 * statistics.median(self.totals),
+                "first5_s": sum(self.totals[:5]),
+                "step_max_ms": 1e3 * max(self.totals),
+                "gap_s": sum(gaps), "gap": _quantiles(gaps),
+                "head_s": self.ends[0] - self.totals[0] - self.t0,
+                "tail_s": t1 - self.ends[-1]}
+
+
+def _wall_split(label, b):
+    """One line of a serve's wall time, split as ``StepGaps`` splits it."""
+    return (f"{label}: {b['wall_s']:.2f} s = {b['steps']} steps "
+            f"{b['step_s']:.2f} s (median {b['step_median_ms']:.1f} ms, max "
+            f"{b['step_max_ms']:.1f}, the first 5 {b['first5_s']:.3f} s) + "
+            f"gaps {b['gap_s']:.3f} s (median {b['gap']['median_ms']:.3f} "
+            f"ms, p99 {b['gap']['p99_ms']:.3f}) + before the first step "
+            f"{b['head_s']:.3f} s + after the last {b['tail_s']:.3f} s")
+
+
+def _quantiles(xs):
+    xs = sorted(xs)
+    return {"median_ms": 1e3 * statistics.median(xs),
+            "p99_ms": 1e3 * xs[min(len(xs) - 1, int(0.99 * len(xs)))],
+            "n": len(xs)}
+
+
+async def http_serve(torch, z, prompts, refs, new_tokens, prof_steps=8):
+    """Gates 4 and 5 over a real socket: the port's app on its stdlib HTTP
+    server at a free loopback port. Every prompt streams at once (SSE with
+    usage); each stream ends in [DONE], its tokens equal ``refs`` and its
+    usage is right; tok/s, time to first token, inter-chunk latency and
+    the split of the wall time are read there. Then every prompt streams
+    again, and once no prompt is left to prefill ``prof_steps`` decode
+    steps are profiled on the loop's worker thread, between steps; then
+    every client hangs up, and every request is aborted. Then a unary
+    completion equals its SSE twin; a client that hangs up after
+    HANGUP_AFTER events has its request aborted and its blocks reclaimed;
+    and a drain with DRAIN_REQUESTS requests in flight finishes them,
+    answers a new one 503 and leaves the pool full and the sanitizer
+    clean."""
+    from repro_torch.core import invariants
+    from repro_torch.serve import ServeConfig, create_app
+    from repro_torch.serve.http import run_server
+
+    eng = z.engine
+    n_blocks = eng.opts.n_total_blocks
+    app = create_app(ServeConfig(model=z.cfg.name,
+                                 max_tokens_limit=new_tokens,
+                                 device=str(eng.device)), zipage=z)
+    port = free_port()
+    ready = asyncio.Event()
+    server = asyncio.create_task(run_server(app, "127.0.0.1", port, ready))
+    await ready.wait()
+    aio = app.state.loop
+    out = {"port": port}
+
+    def body(i, n=new_tokens, stream=True):
+        return {"model": z.cfg.name, "prompt": prompts[i], "max_tokens": n,
+                "stream": stream, "stream_options": {"include_usage": True}}
+
+    async def reclaimed(label):
+        for _ in range(3000):
+            if not z.has_unfinished():
+                break
+            await asyncio.sleep(0.01)
+        assert not z.has_unfinished(), f"{label}: requests still run"
+        assert z.num_free_blocks == n_blocks, f"{label}: blocks leaked"
+
+    try:
+        # gate 4: every prompt at once
+        hook = StepGaps(eng)
+        results = await asyncio.gather(*[_http(port, body(i))
+                                         for i in range(len(prompts))])
+        split = hook.close()
+        ttft, gaps = [], []
+        for i, (status, events, times, t0) in enumerate(results):
+            assert status == 200, f"HTTP stream {i}: status {status}"
+            assert events[-1] == "[DONE]", f"HTTP stream {i} has no [DONE]"
+            assert _sse_tokens(events) == refs[i].token_ids, \
+                f"HTTP stream {i} differs from generate()'s"
+            assert events[-2]["usage"] == {
+                "prompt_tokens": len(prompts[i]),
+                "completion_tokens": new_tokens,
+                "total_tokens": len(prompts[i]) + new_tokens}
+            data = [(e, tt) for e, tt in zip(events, times)
+                    if e != "[DONE]" and e["choices"]]
+            assert data[-1][0]["choices"][0]["finish_reason"] == "length"
+            arrived = [tt for e, tt in data if e["choices"][0]["token_ids"]]
+            ttft.append(arrived[0] - t0)
+            gaps += [b - a for a, b in zip(arrived, arrived[1:])]
+        n_tok = sum(len(_sse_tokens(r[1])) for r in results)
+        out.update(tokens=n_tok, tok_per_s=n_tok / split["wall_s"],
+                   ttft=_quantiles(ttft), inter_chunk=_quantiles(gaps),
+                   split=split)
+
+        # every prompt again, a profiled window of decode steps, hang-ups;
+        # the profiler's first start in a process registers it with CUPTI
+        # on that thread, and Kineto wants its later starts there too
+        # ("External init callback must run in same thread as
+        # registerClient"): start it once here first
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            pass
+        clients = [asyncio.create_task(_http(port, body(i)))
+                   for i in range(len(prompts))]
+        await decoding_only(eng, len(prompts))
+        win = await profile_window(torch, aio, eng, prof_steps)
+        for c in clients:
+            c.cancel()
+        await asyncio.gather(*clients, return_exceptions=True)
+        out["profile"] = win.result()
+        await reclaimed("hang-up of every client")
+        last = [eng.finished[r] for r in sorted(eng.finished)[-len(prompts):]]
+        # where steps are short (a few layers), the event loop lags the
+        # engine, and a request may finish before its client hangs up
+        assert all(r.finish_reason == "abort" or (
+            r.finish_reason == "length" and len(r.output) == new_tokens)
+            for r in last), [(r.finish_reason, len(r.output)) for r in last]
+        out["hangups_aborted"] = sum(r.finish_reason == "abort"
+                                     for r in last)
+
+        # a unary completion equals its SSE twin
+        status, unary, _, t0 = await _http(port, body(0, stream=False))
+        assert status == 200
+        choice = unary["choices"][0]
+        assert choice["token_ids"] == _sse_tokens(results[0][1])
+        assert choice["finish_reason"] == "length"
+        assert unary["usage"] == results[0][1][-2]["usage"]
+        out["unary_s"] = time.monotonic() - t0
+
+        # a client hangs up mid-stream: abort, blocks back to the pool
+        status, events, _, _ = await _http(port, body(1),
+                                           hangup_after=HANGUP_AFTER)
+        assert status == 200 and len(events) >= HANGUP_AFTER
+        rid = int(events[0]["id"].split("-")[1])
+        await reclaimed("hang-up")
+        r = eng.finished[rid]
+        assert r.finish_reason == "abort", r.finish_reason
+        assert len(r.output) < new_tokens
+        out["hangup_tokens"] = len(r.output)
+
+        # gate 5: drain with requests in flight
+        inflight = [asyncio.create_task(_http(port, body(i, DRAIN_TOKENS)))
+                    for i in range(DRAIN_REQUESTS)]
+        for _ in range(3000):
+            if len(eng.running) == DRAIN_REQUESTS:
+                break
+            await asyncio.sleep(0.005)
+        assert len(eng.running) == DRAIN_REQUESTS, "no requests in flight"
+        drainer = asyncio.create_task(app.state.drain())
+        await asyncio.sleep(0)
+        status, refused, _, _ = await _http(port, body(2, stream=False))
+        assert status == 503 and refused["error"]["code"] == "draining"
+        for i, (status, events, _, _) in enumerate(
+                await asyncio.gather(*inflight)):
+            assert status == 200 and events[-1] == "[DONE]"
+            assert _sse_tokens(events) == refs[i].token_ids[:DRAIN_TOKENS], \
+                f"drained stream {i} differs from generate()'s"
+        await drainer
+    finally:
+        server.cancel()
+        try:
+            await server
+        except asyncio.CancelledError:
+            pass
+    assert not aio.started
+    assert z.num_free_blocks == n_blocks, "blocks leaked after the drain"
+    eng._qwin_shadow.clear()          # a between-steps check: reset
+    invariants.check_engine(eng)
+    return out
+
+
+def _decodes_all(eng, m0, n):
+    """Whether a step since metrics entry ``m0`` ran ``n`` requests and
+    prefilled none: from there on the steps decode (and compress)."""
+    return any(m["n_running"] == n and m["n_prefill_tokens"] == 0
+               for m in eng.metrics[m0:])
+
+
+async def decoding_only(eng, n):
+    """Wait until a step of the running loop decodes all ``n`` requests
+    without prefill."""
+    m0 = len(eng.metrics)
+    for _ in range(60000):
+        if _decodes_all(eng, m0, n):
+            return
+        await asyncio.sleep(0.002)
+    raise AssertionError(f"no step decoded {n} requests without prefill")
+
+
+class Window:
+    """A profiled window of steps: ``start`` and ``stop`` run on the thread
+    that steps the engine, between two steps, so the profiler sees the
+    steps' host work as well as their kernels. ``result`` is the
+    device-busy share of wall time (``phase_profile``'s reading), or None
+    without device time."""
+
+    def __init__(self, torch, eng):
+        from torch.profiler import ProfilerActivity, profile
+        self.torch, self.eng = torch, eng
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+
+    def start(self):
+        self.torch.cuda.synchronize()
+        self.prof.__enter__()
+        self.t, self.step = time.monotonic(), self.eng.step_count
+
+    def stop(self):
+        self.torch.cuda.synchronize()
+        self.wall_ms = 1e3 * (time.monotonic() - self.t)
+        self.steps = self.eng.step_count - self.step
+        self.prof.__exit__(None, None, None)
+
+    def result(self):
+        busy, groups, _calls = device_busy(self.prof)
+        if busy <= 0:
+            return None
+        return {"steps": self.steps, "wall_ms": self.wall_ms,
+                "busy_ms": busy, "idle": 1 - busy / self.wall_ms,
+                "groups_ms": groups}
+
+
+async def profile_window(torch, aio, eng, n_steps):
+    """Profile ``n_steps`` steps of a running async loop, the window
+    opened and closed on the loop's worker thread. Returns the closed
+    ``Window``: reading it takes seconds, while the loop steps on."""
+    loop = asyncio.get_running_loop()
+    win = Window(torch, eng)
+    await loop.run_in_executor(aio._executor, win.start)
+    while eng.step_count < win.step + n_steps and eng.running:
+        await asyncio.sleep(0.002)
+    await loop.run_in_executor(aio._executor, win.stop)
+    return win
+
+
+def threaded_generate(z, prompts, sps, refs):
+    """generate() on one worker thread while this thread only waits: the
+    async loop's threading without its event loop, to tell a cost of the
+    thread from one of the loop. Outputs equal ``refs``."""
+    import concurrent.futures
+
+    hook = StepGaps(z.engine)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        outs = pool.submit(z.generate, prompts, sps).result()
+    split = hook.close()
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        _same_output(f"threaded generate() request {i}", o, r)
+    split["tokens"] = sum(len(o.token_ids) for o in outs)
+    return split
+
+
+def generate_window(torch, z, prompts, sps, n_steps=8):
+    """The synchronous facade's counterpart of the HTTP tier's profiled
+    window: the same requests submitted at once and stepped on this thread
+    until a step decodes them all without prefill, then ``n_steps`` steps
+    profiled; then every request is aborted."""
+    eng = z.engine
+    rids = [z.add_request(p, s) for p, s in zip(prompts, sps)]
+    m0 = len(eng.metrics)
+    for _ in range(200):
+        z.step()
+        if _decodes_all(eng, m0, len(prompts)):
+            break
+    assert _decodes_all(eng, m0, len(prompts))
+    win = Window(torch, eng)
+    win.start()
+    for _ in range(n_steps):
+        z.step()
+    win.stop()
+    for rid in rids:
+        z.abort(rid)
+    assert z.num_free_blocks == eng.opts.n_total_blocks
+    return win.result()
+
+
+def cli_serve(label, device="cuda"):
+    """Gate 6: ``python -m repro_torch.serve --model tiny-lm`` on the card
+    (reduced, as its default) at a free port answers a unary and an SSE
+    request, equal in tokens, and on SIGTERM prints "draining..." then
+    "drained, bye" and exits 0; meanwhile the launcher serves the paper's
+    mix at Qwen3-8B's reduced widths with compression and, under
+    ``--full-kv``, without."""
+    import signal
+
+    env = _port_env()
+    launchers = {kv: subprocess.Popen(
+        port_cmd("repro_torch.launch.serve", "--arch", "qwen3-8b",
+                 "--workload", "mix", "--n-requests", "8",
+                 *(["--full-kv"] if kv else [])),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT) for kv in (False, True)}
+    port = free_port()
+    t = time.monotonic()
+    proc = subprocess.Popen(
+        port_cmd("repro_torch.serve", "--model", "tiny-lm", "--port",
+                 str(port)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=ROOT)
+    out = {}
+    try:
+        while True:
+            try:
+                status, health, _, _ = asyncio.run(_http(port,
+                                                         path="/health"))
+                break
+            except OSError:
+                if proc.poll() is not None:
+                    raise AssertionError(f"{label}: the server exited: "
+                                         f"{proc.stdout.read()}")
+                if time.monotonic() - t > 180:
+                    raise AssertionError(f"{label}: no server after 180 s")
+                time.sleep(0.2)
+        assert status == 200 and not health["draining"]
+        out["ready_s"] = time.monotonic() - t
+        status, data, _, _ = asyncio.run(_http(port, {
+            "prompt": "1 2 3 4 5", "max_tokens": 16}))
+        assert status == 200, data
+        unary = data["choices"][0]["token_ids"]
+        status, events, _, _ = asyncio.run(_http(port, {
+            "prompt": [1, 2, 3, 4, 5], "max_tokens": 16, "stream": True}))
+        assert status == 200 and events[-1] == "[DONE]"
+        streamed = _sse_tokens(events)
+        assert streamed == unary and len(unary) == 16, (streamed, unary)
+        proc.send_signal(signal.SIGTERM)
+        text, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    for line in text.splitlines():
+        log(label, f"server: {line}")
+    assert proc.returncode == 0, f"{label}: server exit {proc.returncode}"
+    assert f"device={device}" in text, f"the CLI did not serve on {device}"
+    assert "draining..." in text and "drained, bye" in text
+    assert text.index("draining...") < text.index("drained, bye")
+    out["server_tokens"] = unary
+    for kv, p in launchers.items():
+        stdout, stderr = p.communicate(timeout=300)
+        assert p.returncode == 0, f"{label}: launcher failed:\n{stderr}"
+        res = json.loads(stdout[stdout.index("{"):])
+        tag = "full_kv" if kv else "compressed"
+        log(label, f"launcher --arch qwen3-8b --workload mix "
+            f"--n-requests 8{' --full-kv' if kv else ''}: {res}")
+        assert res["device"].startswith(device)
+        assert (res["compressions"] == 0) if kv else \
+            (res["compressions"] > 0), res
+        out[f"launcher_{tag}"] = res
+    return out
+
+
+def phase_http(torch, card, z, main_outs, prof7):
+    """Phase 11: the async surface and the OpenAI-compatible server on the
+    main serve's engine (Qwen3-8B at full width, engine defaults), its
+    phase 5 prompts and outputs as the reference. Launch counts are set to
+    0 before and read after, with every plain version refused
+    (``PlainGuard``): generate() again (timed; then a profiled window of
+    the same requests), then gates 1-5 in one event loop, then the CLI and
+    the launcher in subprocesses."""
+    from repro_torch.api import SamplingParams
+    from repro_torch.kernels import ops
+
+    eng = z.engine
+    prompts = make_prompts(z.cfg)
+    sps = [SamplingParams(max_new_tokens=NEW_TOKENS)] * N_REQUESTS
+    ops.reset_launch_counts()
+    with PlainGuard():
+        torch.cuda.synchronize()
+        hook = StepGaps(eng)
+        again = z.generate(prompts, sps)
+        gen = hook.close()
+        for i, (o, r) in enumerate(zip(again, main_outs)):
+            _same_output(f"http: generate() request {i}", o, r)
+        gen["tokens"] = sum(len(o.token_ids) for o in again)
+        threaded = threaded_generate(z, prompts, sps, main_outs)
+        gen_prof = generate_window(torch, z, prompts, sps)
+
+        async def gates():
+            burst = await async_burst(z, prompts, sps, main_outs)
+            captured, keys = await stream_with_recapture(
+                z, prompts, main_outs, N_REQUESTS // 2, NEW_TOKENS)
+            await z._aio.drain()
+            served = await http_serve(torch, z, prompts, main_outs,
+                                      NEW_TOKENS)
+            return burst, captured, keys, served
+
+        burst, captured, keys, served = asyncio.run(gates())
+        launches = dict(ops.launch_counts)
+    rate = {k: b["tokens"] / b["wall_s"] for k, b in
+            (("generate", gen), ("threaded", threaded), ("burst", burst))}
+    log("http", f"generate(): {rate['generate']:.1f} tok/s; async burst of "
+        f"{N_REQUESTS}: {rate['burst']:.1f} tok/s, streams == phase 5's bit "
+        "for bit")
+    log("http", _wall_split("generate()", gen))
+    log("http", _wall_split(f"generate() on a worker thread, "
+                       f"{rate['threaded']:.1f} tok/s", threaded))
+    log("http", _wall_split("async burst", burst))
+    log("http", f"recapture on the worker thread: {len(captured)} captures "
+        f"({sorted({c[0] for c in captured})}), graphs now {keys}; "
+        "streams, logprobs and the widened request == phase 5's")
+    ttft, gaps, split = served["ttft"], served["inter_chunk"], \
+        served["split"]
+    log("http", f"HTTP on 127.0.0.1:{served['port']}: {N_REQUESTS} SSE "
+        f"streams == phase 5's, {served['tokens']} tokens = "
+        f"{served['tok_per_s']:.1f} tok/s (generate() "
+        f"{rate['generate']:.1f}); TTFT median {ttft['median_ms']:.1f} ms "
+        f"p99 {ttft['p99_ms']:.1f} ms; inter-chunk median "
+        f"{gaps['median_ms']:.2f} ms p99 {gaps['p99_ms']:.2f} ms over "
+        f"{gaps['n']} gaps; on {card}")
+    log("http", _wall_split("HTTP", split))
+    idle = {k: "not measured" if p is None else f"{p['idle']:.3f}"
+            for k, p in (("http", served["profile"]), ("generate", gen_prof),
+                         ("phase 7", prof7))}
+    log("http", f"device idle {idle['http']} of a profiled window of decode "
+        f"steps while the server streams; generate() on the same engine "
+        f"and requests {idle['generate']}; phase 7's window "
+        f"{idle['phase 7']}")
+    for label, p in (("http", served["profile"]), ("generate", gen_prof)):
+        if p is not None:
+            log("http", f"  {label}: {p['steps']} steps in "
+                f"{p['wall_ms']:.1f} ms, busy {p['busy_ms']:.1f} ms: "
+                + ", ".join(f"{g} {ms:.1f}" for g, ms in sorted(
+                    p["groups_ms"].items(), key=lambda kv: -kv[1])))
+    log("http", f"unary == its SSE twin ({served['unary_s']:.2f} s); every "
+        f"client hung up after the profiled window: "
+        f"{served['hangups_aborted']} of {N_REQUESTS} aborted, the rest "
+        f"finished, blocks reclaimed; a client hung up after {HANGUP_AFTER} events: aborted "
+        f"at {served['hangup_tokens']} tokens, blocks reclaimed; drain with "
+        f"{DRAIN_REQUESTS} in flight: finished, new request 503, pool full, "
+        "sanitizer clean")
+    log("http", f"kernel launches in the phase {launches}")
+    for name in MAIN_PATH:
+        assert launches[name] > 0, f"kernel {name} never launched (http)"
+    for name, n in launches.items():
+        assert name in MAIN_PATH or n == 0, f"{name} launched off its path"
+    cli = cli_serve("http-cli")
+    log("http", f"CLI on the card: ready in {cli['ready_s']:.1f} s, unary "
+        "== SSE, drained on SIGTERM, exit 0; launcher compressions "
+        f"{cli['launcher_compressed']['compressions']} (--full-kv "
+        f"{cli['launcher_full_kv']['compressions']})")
+    return {"generate": gen, "generate_tok_per_s": rate["generate"],
+            "generate_profile": gen_prof, "threaded_generate": threaded,
+            "threaded_tok_per_s": rate["threaded"], "async_burst": burst,
+            "async_burst_tok_per_s": rate["burst"],
+            "recaptures": len(captured), "graph_keys": [list(k) for k in keys],
+            "launches": launches, **served, "cli": cli}
 
 
 # ----------------------------------------------------------------------
@@ -3028,6 +3714,8 @@ def main():
     lap("profile")
     paired = phase_paired(torch, card, z)
     lap("paired")
+    served = phase_http(torch, card, z, main_outs, prof)
+    lap("http")
     memory = phase_memory(torch, card, z, rows)
     lap("memory")
     del z                     # Qwen3-8B's weights make room for phase 8's
@@ -3041,7 +3729,8 @@ def main():
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "serve": summary, "serve_alg34": summary34,
                    "kernels": rows + rows_bf16, "profile": prof,
-                   "paired": paired, "memory": memory, "bf16": bf16,
+                   "paired": paired, "http": served, "memory": memory,
+                   "bf16": bf16,
                    "dense": dense, "took_s": took}, f, indent=1)
     print(json.dumps({"kernels": rows + rows_bf16}))
     print(card)

@@ -1,8 +1,7 @@
 """``Zipage`` — the serving facade (the port's ``repro.api.engine``).
 
 The public face of ``repro_torch.core.engine.ZipageEngine``, with the same
-names and knobs as the JAX package's facade for what the port supports
-(the async surface is not ported yet). It runs on the card unless
+names and knobs as the JAX package's facade. It runs on the card unless
 ``device="cpu"`` is passed. The facade adds the request-scoped contract
 production engines expose:
 
@@ -13,7 +12,9 @@ production engines expose:
   * blocking batch ``generate(prompts, params)``,
   * mid-flight ``abort(request_id)`` that returns blocks to the pool,
   * ``Zipage.from_config("tiny-lm", block_size=8, ...)`` one-line bring-up
-    with the CacheConfig / SchedulerConfig / ModelRunnerConfig split.
+    with the CacheConfig / SchedulerConfig / ModelRunnerConfig split,
+  * the async surface, ``generate_async()`` and ``stream()``, over the
+    background loop the HTTP tier also uses (``repro_torch.api.aio``).
 """
 from __future__ import annotations
 
@@ -59,6 +60,7 @@ class Zipage:
         self._queued: List[RequestOutput] = []   # outputs consumed by an
         #                                          interleaved generate()
         self._listeners: List[Callable[[List[RequestOutput]], None]] = []
+        self._aio = None          # lazily-started AsyncEngineLoop
 
     # ------------------------------------------------------------------
     @classmethod
@@ -127,7 +129,9 @@ class Zipage:
         """Register a step listener: called with every non-empty output
         batch ``step()`` produces (including steps driven by an
         interleaved ``generate()``). Listeners must not call back into the
-        facade."""
+        facade. The async surface (``repro_torch.api.aio``) fans its
+        streams out through one; under it ``step()`` runs on the loop's
+        worker thread, so a listener runs there too."""
         self._listeners.append(fn)
 
     def remove_listener(self, fn) -> None:
@@ -171,6 +175,49 @@ class Zipage:
                 f"generate() exceeded {max_steps} steps; aborted unfinished "
                 f"requests {sorted(pending)}")
         return [self.output(rid) for rid in rids]
+
+    # ------------------------------------------------------------------
+    # async surface — same background loop the HTTP tier uses, so sync
+    # and async callers share one scheduler
+
+    async def _ensure_aio(self):
+        import asyncio
+
+        from repro_torch.api.aio import AsyncEngineLoop
+        loop = asyncio.get_running_loop()
+        if self._aio is not None and (self._aio._loop is not loop
+                                      or not self._aio.started):
+            self._aio._teardown()     # stale: bound to a finished loop
+            self._aio = None
+        if self._aio is None:
+            self._aio = await AsyncEngineLoop(self).start()
+        return self._aio
+
+    async def generate_async(self, prompt: Sequence[int],
+                             params: Optional[SamplingParams] = None,
+                             priority: int = 0) -> RequestOutput:
+        """Async ``generate`` for one prompt: admit on the background
+        continuous-batching loop and await the final RequestOutput.
+        Concurrent callers batch together on the same loop."""
+        aio = await self._ensure_aio()
+        return await aio.generate(prompt, params, priority)
+
+    async def stream(self, prompt: Sequence[int],
+                     params: Optional[SamplingParams] = None,
+                     priority: int = 0):
+        """``async for chunk in zipage.stream(prompt, params)``: yields a
+        :class:`CompletionChunk` per engine step that grew the request;
+        the terminal chunk carries ``finish_reason`` + ``usage``."""
+        aio = await self._ensure_aio()
+        rid = await aio.add_request(prompt, params, priority)
+        async for out in aio.stream_outputs(rid):
+            chunk = out.chunk
+            if chunk is None:         # abort-path terminal snapshot
+                chunk = CompletionChunk(
+                    request_id=out.request_id, index=len(out.token_ids),
+                    token_ids=[], logprobs=None,
+                    finish_reason=out.finish_reason, usage=out.usage)
+            yield chunk
 
     def abort(self, request_id: int) -> Optional[RequestOutput]:
         """Cancel a waiting or running request mid-flight. Its blocks are

@@ -8,7 +8,7 @@ request-level view (batch ``generate()`` and per-step streaming state) and
 Both carry the fields an OpenAI-protocol layer needs verbatim
 (docs/SERVING.md): ``finish_reason`` in ``{"stop", "length", "abort"}``
 and a ``UsageInfo`` record (prompt/completion/total token counts), so
-an HTTP layer maps responses 1:1 without recomputing anything.
+``repro_torch.serve`` maps responses 1:1 without recomputing anything.
 """
 from __future__ import annotations
 

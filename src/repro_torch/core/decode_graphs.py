@@ -35,6 +35,13 @@ graph's destruction is a CUDA call that a capturing stream does not
 permit, and it invalidates the capture in progress (seen on the H100 when
 an earlier test's engines were collected during a capture).
 
+A capture is confined to the thread that captures
+(``capture_error_mode="thread_local"``): the async surface
+(``repro_torch.api.aio``) steps the engine, and so captures anew when a
+request widens the eos pad, on a worker thread, while the event loop's
+thread goes on serving; under the default global mode a CUDA call that
+another thread made during the capture would invalidate it.
+
 Nothing here falls back: a failed capture or replay raises. Only an engine
 on a CUDA device uses this module; on the CPU the engine calls the chunk
 function eagerly.
@@ -85,7 +92,8 @@ class DecodeGraphs:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
                 out = self.run(k, greedy)
         finally:
             if collecting:

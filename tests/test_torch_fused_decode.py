@@ -336,11 +336,14 @@ class _FakeGraph:
 
 
 class _FakeGraphContext:
-    def __init__(self, graph, pool=None):
+    def __init__(self, graph, pool=None, capture_error_mode="global"):
         self.graph = graph
+        self.mode = capture_error_mode
 
     def __enter__(self):
         _FakeGraph.capturing = self.graph
+        if self.graph is not None:
+            self.graph.mode = self.mode
 
     def __exit__(self, *exc):
         _FakeGraph.capturing = None
@@ -382,6 +385,9 @@ def test_graph_replays_count_the_captured_launches(monkeypatch):
     native.reset_launch_counts()
     graphs = decode_graphs.DecodeGraphs(run, caps)
     graphs.capture(4, True, 1)
+    # the async loop's worker thread captures while the event loop's
+    # thread serves: a capture is confined to its thread
+    assert graphs.graphs[(4, True, 1)][0].mode == "thread_local"
     assert all(n == 0 for n in native.launch_counts.values())
     assert seen_caps == [[0, 0]] * (decode_graphs.WARMUP_CALLS + 1)
     assert caps.tolist() == [3, 1]

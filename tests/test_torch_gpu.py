@@ -706,3 +706,72 @@ def test_ties_go_to_the_lowest_id_on_card(cuda):
     tok, _ = sample_batch(x.to(cuda), uniforms, ones,
                           torch.ones(4, dtype=torch.int32, device=cuda), ones)
     assert torch.equal(tok.cpu(), want)
+
+
+# ----------------------------------------------------------------------
+# the async surface and the HTTP tier on the card (chip_smoke.py phase 11)
+
+
+@pytest.fixture(scope="module")
+def qwen_2l(cuda):
+    """A 2-layer Qwen3-8B-width engine at the engine defaults, its phase 5
+    prompts, and their generate() outputs (256 greedy tokens, compression
+    firing)."""
+    import dataclasses
+
+    from repro_torch.api import SamplingParams, Zipage
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=2,
+                              dtype="float32")
+    params = lm.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    z = Zipage(cfg, params)
+    prompts = cs.make_prompts(cfg)
+    sps = [SamplingParams(max_new_tokens=256)] * len(prompts)
+    refs = z.generate(prompts, sps)
+    assert min(o.metrics.compression.n_compressions for o in refs) > 0
+    return cs, z, prompts, sps, refs
+
+
+def test_async_burst_equals_generate_on_card(qwen_2l):
+    """Every request through generate_async at once: the decode graphs
+    replay on the loop's worker thread, and tokens, finish reasons and
+    usage equal generate()'s bit for bit."""
+    import asyncio
+    cs, z, prompts, sps, refs = qwen_2l
+    replays = z.engine._graphs.replays
+
+    async def main():
+        await cs.async_burst(z, prompts, sps, refs)
+        await z._aio.drain()
+
+    asyncio.run(main())
+    assert z.engine._graphs.replays > replays
+    assert z.num_free_blocks == z.engine.opts.n_total_blocks
+
+
+def test_recapture_on_the_worker_thread_mid_serve(qwen_2l):
+    """While four requests stream, a fifth whose eos ids widen the pad from
+    1 to 4 makes the step on the loop's worker thread capture every decode
+    graph anew; all five streams equal generate()'s."""
+    import asyncio
+    cs, z, prompts, _sps, refs = qwen_2l
+
+    async def main():
+        got = await cs.stream_with_recapture(z, prompts, refs, 4, 256)
+        await z._aio.drain()
+        return got
+
+    captured, keys = asyncio.run(main())
+    assert {name for name, *_ in captured} == {"zipage-step_0"}
+    assert keys == [(1, False, 4), (1, True, 4)]
+
+
+def test_http_streams_equal_generate_on_card(qwen_2l):
+    """The port's app on its stdlib server at a loopback port: eight SSE
+    streams equal generate()'s, a unary request its SSE twin, a hang-up
+    aborts and reclaims, a drain finishes in-flight requests and leaves
+    the pool full and the sanitizer clean."""
+    import asyncio
+    cs, z, prompts, _sps, refs = qwen_2l
+    served = asyncio.run(cs.http_serve(torch, z, prompts, refs, 256))
+    assert served["tokens"] == 256 * len(prompts)

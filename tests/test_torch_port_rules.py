@@ -18,6 +18,10 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+#: the serving tier is standard library only: the card's machine has none
+#: of these
+HTTP_PACKAGES = ("aiohttp", "httpx", "uvicorn", "starlette", "fastapi",
+                 "flask", "requests", "urllib3", "websockets")
 
 
 def _imported_modules(path):
@@ -40,7 +44,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert len(PORT_FILES) > 20
     bad = [f"{p.relative_to(REPO)}:{line}: {mod}"
            for p in PORT_FILES for line, mod in _imported_modules(p)
-           if mod.split(".")[0] in FORBIDDEN]
+           if mod.split(".")[0] in FORBIDDEN + HTTP_PACKAGES]
     assert bad == []
 
 
@@ -76,6 +80,50 @@ def test_cpu_when_asked(monkeypatch):
     z = Zipage.from_config("tiny-lm", device="cpu", block_size=8,
                            n_total_blocks=16, max_batch=2, max_model_len=64,
                            prefill_rows=1, prefill_len=32)
+    assert z.engine.device.type == "cpu"
+    assert z.engine.state["pools"]["k"].device.type == "cpu"
+
+
+def _serving_entry_points(device):
+    """The serving tier's entry points, each built with ``device`` (None
+    leaves the choice to the entry point)."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import ServeConfig, ServerState, create_app
+    from repro_torch.serve import cli
+
+    small = dict(block_size=8, n_total_blocks=16, max_batch=2,
+                 max_model_len=64, prefill_rows=1, prefill_len=32)
+    dev = [] if device is None else ["--device", device]
+    return {
+        "state": lambda: ServerState(ServeConfig(
+            device=device, engine_overrides=small)).zipage,
+        "app": lambda: create_app(ServeConfig(
+            device=device, engine_overrides=small)).state.zipage,
+        "cli": lambda: cli.create_app(cli.config_from_args(
+            cli.build_parser().parse_args(dev))).state.zipage,
+        "launcher": lambda: launch.run_engine(
+            "tiny-lm", [([1, 2, 3], 4)], device=device, **small)["engine"],
+    }
+
+
+@pytest.mark.parametrize("entry", ["state", "app", "cli", "launcher"])
+def test_serving_entry_points_need_a_card_by_default(monkeypatch, entry):
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _serving_entry_points(None)[entry]()
+
+
+def test_serve_cli_main_needs_a_card_by_default(monkeypatch):
+    from repro_torch.serve import cli
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--model", "tiny-lm", "--port", "0"])
+
+
+@pytest.mark.parametrize("entry", ["state", "app", "cli", "launcher"])
+def test_serving_entry_points_on_the_cpu_when_asked(monkeypatch, entry):
+    _no_card(monkeypatch)
+    z = _serving_entry_points("cpu")[entry]()
     assert z.engine.device.type == "cpu"
     assert z.engine.state["pools"]["k"].device.type == "cpu"
 
