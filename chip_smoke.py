@@ -92,7 +92,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
   9. (run between 7b and 8, on the Qwen3-8B weights) memory pressure and
      shared prefixes at full width, every engine under ZIPAGE_SANITIZE=1:
      16 requests (8 greedy, 8 seeded, logprobs) on an ample pool, then
-     recompute, swap and auto on a tight pool that starts at 40 blocks
+     recompute, swap and auto on a tight pool that starts at 36 blocks
      and shrinks until each run preempts at least 8 times; swap's streams
      and logprobs must equal the ample run's bit for bit, auto's for
      every request it never recomputed, recompute's are measured; swap
@@ -131,6 +131,28 @@ Phases, each fatal on failure (exit code != 0, no result line):
      request, SIGTERM: "draining..." then "drained, bye", exit 0) and
      ``python -m repro_torch.launch.serve --arch qwen3-8b --workload
      mix`` with compression and under ``--full-kv``.
+  12. (run last, after 8) training and the seeded eval: (a) 5 steps of
+     ``build_train_step`` at ``accum_steps=2`` from one init at
+     Qwen2.5-3B's widths, 2 layers, vocabulary capped at CPU_VOCAB,
+     fp32, on the card and on the CPU (loss and gradient norm each step
+     within 1e-3 relative, final params within 1e-3); (b) ``python -m
+     repro_torch.launch.train --arch qwen2.5-3b`` at full width and depth
+     in its registered bf16 (fp32 master params cast at each use, as the
+     JAX package; batch 8 x 512 at ``--accum 2``, 20 steps, a checkpoint
+     every 10), killed while it saves step 20 (the machine lets a run
+     write 45 GiB to its disk, one 37 GB checkpoint), then restarted from
+     the step-10 checkpoint: the restored params and optimizer state
+     equal the saved ones (digests), step 11's loss equals the first
+     run's bit for bit, steps 12-20 within 1e-2; s/step, tokens/s, peak
+     memory and the share of the bf16 peak that 6 N tokens/s makes;
+     (c) tiny-lm trained 300 steps on the card through
+     ``repro_torch.eval``, its five rows served on the card under
+     PlainGuard (K1, K2, K3 and B6 counted), ``python -m repro_torch.eval
+     --smoke`` in a cold process (the same bytes), and the card's weights
+     served on the CPU: each row equal to the card's unless a stream
+     parts at a near-tie the CPU serve recorded (``TieRecorder``). The
+     evals and the CPU halves run beside 12b's first run
+     (phase_train_eval).
 
 The last two lines of standard output are the card's name and power
 limit, and ``{"ok": true, "device": {...}}``; the line before them is the
@@ -202,11 +224,11 @@ CPU_VOCAB = 65536
 WARMUP_TOKENS = 16
 #: phase 9's pressure serves: requests, query slots (one a decode slot, so
 #: that when a request compresses does not depend on how many run beside
-#: it), the tight pool's first size (about 2.5 blocks a request, the ratio
-#: of tests/test_swap.py), its step and floor, the host swap pool, and the
-#: preemptions each tight run must reach
+#: it), the tight pool's first size (36 blocks: 40, about 2.5 blocks a
+#: request, preempted 6 times in every run, 36 at least 8), its step and
+#: floor, the host swap pool, and the preemptions each tight run must reach
 PRESSURE_REQUESTS, PRESSURE_QSLOTS = 16, 16
-TIGHT_POOL, TIGHT_STEP, MIN_POOL = 40, 4, 20
+TIGHT_POOL, TIGHT_STEP, MIN_POOL = 36, 4, 20
 SWAP_BLOCKS = 64
 MIN_PREEMPTIONS = 8
 #: the host link's nominal rate a direction (PCIe Gen5 x16)
@@ -964,6 +986,8 @@ def check_graph_vs_eager(torch, dev, small, p_dev, greedy):
 def _tree_clone(t):
     if isinstance(t, dict):
         return {k: _tree_clone(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_tree_clone(v) for v in t]
     return t.clone()
 
 
@@ -3653,6 +3677,693 @@ def dense_warmup(torch, z, phase):
 # ----------------------------------------------------------------------
 
 
+# ----------------------------------------------------------------------
+# phase 12: training and the seeded eval
+
+TRAIN_ARCH = "qwen2.5-3b"
+#: 12a: card vs CPU at 2 layers (vocabulary capped at CPU_VOCAB)
+TRAIN_SMALL = dict(steps=5, seq_len=32, global_batch=4, accum=2)
+TRAIN_TOL = 1e-3      # rtol for loss and gnorm, atol = rtol for params
+#: 12b: the launcher at full width and depth, at its registered bf16
+TRAIN_FULL = dict(steps=20, seq_len=512, global_batch=8, accum=2,
+                  ckpt_every=10, lr=3e-4)
+RESTART_TOL = 1e-2    # relative, the restarted run's steps after the first
+BF16_PEAK_FLOPS = 989e12   # H100 SXM dense bf16, NVIDIA data sheet
+#: the eval's launches that must be counted (phase 12c)
+EVAL_PATH = ("ragged_paged_attention", "paged_score", "lightning_redundancy",
+             "compaction")
+#: the eval's smoke size (``python -m repro_torch.eval --smoke``)
+EVAL_STEPS, EVAL_REQUESTS = 300, 18
+#: seconds a training launcher or an eval CLI may run before it is killed
+SUBPROCESS_DEADLINE = 600
+#: a top-2 logit gap or a survivor margin below this is a near-tie
+TIE_TOL = 1e-4
+#: torch's CPU threads while 12's CPU halves run beside its subprocesses
+CPU_THREADS = 3
+
+
+class Background:
+    """``fn(*args)`` on a thread of its own; ``result()`` joins it and
+    returns its value or raises its error. Torch's operators release the
+    GIL, so CPU work runs while the main thread waits on the card."""
+
+    def __init__(self, fn, *args):
+        import threading
+        self.out, self.err = None, None
+
+        def run():
+            try:
+                self.out = fn(*args)
+            except BaseException as e:      # re-raised by result()
+                self.err = e
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def result(self):
+        self.thread.join()
+        if self.err is not None:
+            raise self.err
+        return self.out
+
+
+class Launched:
+    """One of the port's entry points in a subprocess, its standard error
+    merged into its output, which a thread reads line by line (a full pipe
+    never stalls the process). ``lines()`` yields them until the process
+    closes its output; past ``deadline`` seconds the process is killed and
+    the phase fails. ``kill_on`` (a regular expression) has the reading
+    thread kill the process, as a crash would, at the first line that
+    matches it, whatever the main thread is doing."""
+
+    def __init__(self, module, args, label, deadline=SUBPROCESS_DEADLINE,
+                 kill_on=None):
+        import queue
+        import re
+        import threading
+        self.label, self.queue = label, queue.Queue()
+        self.kill_on = None if kill_on is None else re.compile(kill_on)
+        self.killed = False
+        self.t0 = time.monotonic()
+        self.deadline = self.t0 + deadline
+        self.proc = subprocess.Popen(port_cmd(module, *args),
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True,
+                                     env=_port_env(), cwd=ROOT)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            if self.kill_on is not None and not self.killed \
+                    and self.kill_on.match(line):
+                self.proc.kill()
+                self.killed = True
+            self.queue.put(line.rstrip("\n"))
+        self.queue.put(None)
+
+    def lines(self):
+        import queue
+        while True:
+            left = self.deadline - time.monotonic()
+            if left <= 0:
+                self.kill()
+                raise AssertionError(f"{self.label}: still running after "
+                                     f"{SUBPROCESS_DEADLINE} s")
+            try:
+                line = self.queue.get(timeout=min(left, 5.0))
+            except queue.Empty:
+                continue
+            if line is None:
+                return
+            yield line
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.reader.join(timeout=10)
+        self.proc.stdout.close()
+
+    def finish(self, lines):
+        """Wait for the exit; fail unless it is 0."""
+        rc = self.proc.wait(timeout=max(1.0, self.deadline
+                                        - time.monotonic()))
+        self.kill()
+        if rc != 0:
+            raise AssertionError(f"{self.label}: exit {rc}: "
+                                 + "\n".join(lines[-40:]))
+        return time.monotonic() - self.t0
+
+
+def _last_json(lines, label):
+    for i in range(len(lines) - 1, -1, -1):
+        if lines[i].startswith("{"):
+            return json.loads(lines.pop(i))
+    raise AssertionError(f"{label}: no JSON summary: {lines[-20:]}")
+
+
+def _train_small_cfg():
+    from repro_torch.configs import get_config
+    full = get_config(TRAIN_ARCH)
+    return dataclasses.replace(full, num_layers=2, dtype="float32",
+                               vocab_size=min(full.vocab_size, CPU_VOCAB))
+
+
+def train_small(torch, device):
+    """12a's run on one device: TRAIN_SMALL steps of ``build_train_step``
+    at ``accum_steps=2`` from the init drawn on the CPU. Returns each
+    step's (loss, gradient norm) and the final params on the CPU."""
+    from repro_torch.models import lm
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import DataConfig, batch_at
+    from repro_torch.training.train_loop import build_train_step
+
+    cfg, s = _train_small_cfg(), TRAIN_SMALL
+    adamw = opt.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=s["steps"])
+    dc = DataConfig(seq_len=s["seq_len"], global_batch=s["global_batch"],
+                    vocab_size=cfg.vocab_size, seed=SEED)
+    step = build_train_step(cfg, adamw, accum_steps=s["accum"],
+                            vocab_chunk=128)
+    p = _tree_to(lm.init(cfg, torch.Generator("cpu").manual_seed(SEED),
+                         "cpu"), device)
+    st = opt.init_opt_state(p)
+    out = []
+    for i in range(s["steps"]):
+        p, st, _, m = step(p, st, None, batch_at(dc, i))
+        assert m["loss"].device.type == torch.device(device).type, \
+            f"train[card-vs-cpu]: step {i + 1} left {device}"
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out, _tree_to(p, "cpu")
+
+
+def check_train_vs_cpu(torch, card, cpu, seconds):
+    """12a's gates: loss and gradient norm each step within TRAIN_TOL
+    relative, the final params within TRAIN_TOL."""
+    from repro_torch.training.checkpoint import _flatten_with_paths
+
+    cfg, s = _train_small_cfg(), TRAIN_SMALL
+    (card_steps, p_card), (cpu_steps, p_cpu) = card, cpu
+    worst = {"loss": 0.0, "gnorm": 0.0}
+    for i, (a, c) in enumerate(zip(card_steps, cpu_steps)):
+        for j, name in enumerate(("loss", "gnorm")):
+            assert math.isfinite(a[j]) and math.isfinite(c[j]), (i, a, c)
+            rel = abs(a[j] - c[j]) / abs(c[j])
+            worst[name] = max(worst[name], rel)
+            assert rel <= TRAIN_TOL, \
+                f"train[card-vs-cpu]: step {i + 1} {name}: {a[j]} vs {c[j]}"
+    cpu_leaves = _flatten_with_paths(p_cpu)
+    errs = {}
+    for key, a in _flatten_with_paths(p_card).items():
+        c = cpu_leaves[key]
+        assert torch.allclose(a, c, rtol=TRAIN_TOL, atol=TRAIN_TOL), key
+        errs[key] = float((a - c).abs().max())
+    leaf = max(errs, key=errs.get)
+    losses = [(a[0], c[0]) for a, c in zip(card_steps, cpu_steps)]
+    log("train[card-vs-cpu]", f"{cfg.name} widths at 2 layers, vocabulary "
+        f"{cfg.vocab_size}, fp32, {s['steps']} steps of batch "
+        f"{s['global_batch']} x {s['seq_len']} at accum_steps="
+        f"{s['accum']}: losses (card, CPU) {losses}; worst relative loss "
+        f"{worst['loss']:.3e}, gnorm {worst['gnorm']:.3e} (tolerance "
+        f"{TRAIN_TOL}); final params within atol = rtol = {TRAIN_TOL}, "
+        f"largest difference {errs[leaf]:.3e} at {leaf}; card "
+        f"{seconds['card']:.1f} s, CPU {seconds['cpu']:.1f} s (beside "
+        f"12b's first run)")
+    return {"worst_rel_loss": worst["loss"], "worst_rel_gnorm": worst["gnorm"],
+            "losses": losses, "worst_param_abs": errs[leaf],
+            "worst_param_leaf": leaf}
+
+
+def _train_args(device):
+    f = TRAIN_FULL
+    return ["--arch", TRAIN_ARCH, "--steps", str(f["steps"]), "--seq-len",
+            str(f["seq_len"]), "--global-batch", str(f["global_batch"]),
+            "--accum", str(f["accum"]), "--lr", str(f["lr"]),
+            "--log-every", "1", "--seed", str(SEED), "--device", device]
+
+
+def train_run(args, label, stop_after=None):
+    """The training launcher in a subprocess; with ``stop_after`` it is
+    killed, as by a crash, as soon as it logs that step."""
+    return Launched("repro_torch.launch.train", args, label,
+                    kill_on=None if stop_after is None
+                    else rf"\[train\] step {stop_after} loss ")
+
+
+def collect_train(run):
+    """The lines of a training launcher ``run`` and the exact losses it
+    logged; its JSON summary (its last JSON line) unless it was killed
+    (``train_run(stop_after=)``)."""
+    import re
+
+    lines, losses = [], {}
+    for line in run.lines():
+        lines.append(line)
+        m = re.match(r"\[train\] step (\d+) loss (\S+) ", line)
+        if m:
+            losses[m.group(1)] = float(m.group(2))
+    if run.killed:
+        run.kill()
+        summary = {"wall_s": time.monotonic() - run.t0}
+    else:
+        wall = run.finish(lines)
+        summary = _last_json(lines, run.label)
+        summary["wall_s"] = wall
+    for line in lines:
+        log(run.label, line)
+    summary.update(logged=losses, lines=lines)
+    return summary
+
+
+def check_train_full(torch, card, first, second, device="cuda"):
+    """12b's gates on the two launcher runs: the first, killed while it
+    saved its last step (which never publishes: a save is atomic), and
+    the second, restarted from the first checkpoint to the end. The
+    restored params and optimizer state equal the saved ones bit for bit
+    (their digests), the restarted run's first loss equals the first
+    run's bit for bit (same weights, same batch), and its later steps are
+    within RESTART_TOL of the first run's (a backward that accumulates in
+    another order may round another way). The timings are the restarted
+    run's, which ran alone on the card."""
+    from repro_torch.configs import get_config
+
+    f = TRAIN_FULL
+    cfg = get_config(TRAIN_ARCH)
+    mid, last = f["ckpt_every"], f["steps"]
+    k = str(mid + 1)
+    n = second["params"]
+    first_losses = first["logged"]
+    assert sorted(first_losses, key=int) == [
+        str(i) for i in range(1, last + 1)]
+    assert second["device"].startswith(device), second["device"]
+    assert second["dtype"] == "bfloat16" and second["arch"] == TRAIN_ARCH
+    assert second["param_dtype"] == "float32", second["param_dtype"]
+    assert second["logged"] == second["losses"]
+    assert all(math.isfinite(v) for v in first_losses.values())
+    assert all(math.isfinite(v) for v in second["losses"].values())
+    assert second["start_step"] == mid and not second["saves"]
+    saved = [ln for ln in first["lines"] if f"saved step {mid} " in ln]
+    restored = [ln for ln in second["lines"]
+                if f"restored step {mid} " in ln]
+    assert len(saved) == 1 and len(restored) == 1, (saved, restored)
+    want = saved[0].split("(digest ")[1].split(")")[0]
+    assert f"(digest {want})" in restored[0], \
+        f"restored {restored} against the saved digest {want}"
+    assert second["losses"][k] == first_losses[k], \
+        f"step {k}: {second['losses'][k]!r} != {first_losses[k]!r}"
+    diffs = {s: abs(second["losses"][s] - v) / abs(v)
+             for s, v in first_losses.items() if int(s) > mid}
+    worst = max(diffs, key=diffs.get)
+    assert diffs[worst] <= RESTART_TOL, (worst, diffs[worst])
+    tokens = second["tokens_per_s"]
+    share = 6 * n * tokens / BF16_PEAK_FLOPS
+    reckoned = _train_state_bytes(n, f["accum"])
+    peak = second["peak_memory_bytes"] or 0
+    save_s = float(saved[0].split(" in ")[-1].split(" s")[0])
+    log("train[full]", f"{cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, vocabulary {cfg.vocab_size}, {n / 1e9:.3f} B "
+        f"params as fp32 masters cast to bf16 at each use, fp32 gradients, "
+        f"m and v; batch {f['global_batch']} x {f['seq_len']} at accum "
+        f"{f['accum']}; loss {first_losses['1']:.4f} -> "
+        f"{first_losses[str(last)]:.4f} in {last} steps; restarted run: "
+        f"{second['s_per_step']:.3f} s/step, {tokens:.0f} tokens/s after "
+        f"its first step ({second['first_step_s']:.2f} s); 6 N tokens/s = "
+        f"{6 * n * tokens / 1e12:.1f} TFLOP/s = {share:.4f} of the bf16 "
+        f"tensor-core peak; peak device memory {peak / 1e9:.2f} GB against "
+        f"{reckoned / 1e9:.2f} GB of params, gradients, the accumulator "
+        f"and m, v; on {card}")
+    n8 = _param_count(get_config("qwen3-8b"))
+    log("train[restart]", f"checkpoint of step {mid} saved in {save_s:.1f} "
+        f"s; the first run killed while it saved step {last} (not "
+        f"published); restored with digest {want} equal to the saved one; "
+        f"step {k} loss {second['losses'][k]!r} equal bit for bit; "
+        f"largest relative difference over steps {k}-{last} "
+        f"{diffs[worst]:.3e} at step {worst} (tolerance {RESTART_TOL}); "
+        f"runs {first['wall_s']:.1f} s (beside 12c and 12a's CPU half) and "
+        f"{second['wall_s']:.1f} s (alone); Qwen3-8B would "
+        f"need {_train_state_bytes(n8, f['accum']) / 1e9:.1f} GB for the "
+        f"same state, beyond one 80 GB card")
+    for run in (first, second):
+        del run["lines"]
+    return {"first": first, "restart": second, "bf16_peak_share": share,
+            "reckoned_bytes": reckoned, "save_s": save_s,
+            "worst_restart_rel": diffs[worst],
+            "worst_restart_step": int(worst)}
+
+
+def _param_count(cfg):
+    d, f, hq, hkv, dh = (cfg.d_model, cfg.d_ff, cfg.num_heads,
+                         cfg.num_kv_heads, cfg.head_dim)
+    layer = d * (hq + 2 * hkv) * dh + hq * dh * d + 3 * d * f
+    return cfg.num_layers * layer + cfg.vocab_size * d * (
+        1 if cfg.tie_embeddings else 2)
+
+
+def _train_state_bytes(n, accum):
+    """Bytes of ``n`` fp32 master params, their fp32 gradients, m and v,
+    and the fp32 sum the micro-batches' gradients go into."""
+    return n * (4 + 4 + 4 + 4 + (4 if accum > 1 else 0))
+
+
+# -- near-ties: why two serves' greedy streams may part (12c)
+
+def _gap(torch, logits):
+    """Top-1 minus top-2 logit of each row."""
+    top = torch.topk(logits.float(), 2, dim=-1)[0]
+    return top[..., 0] - top[..., 1]
+
+
+def _margins(torch, final, seq_lens, k):
+    """Per row of a compression, the least margin over heads between the
+    k-th and (k+1)-th keep score (inf where nothing is cut)."""
+    v = torch.sort(final.float(), dim=1, descending=True)[0]
+    out = []
+    for i in range(final.shape[0]):
+        if int(seq_lens[i]) <= k:
+            out.append(math.inf)
+            continue
+        m = v[i, k - 1] - v[i, k]
+        m = torch.where(torch.isfinite(m), m, torch.full_like(m, math.inf))
+        out.append(float(m.min()))
+    return out
+
+
+class TieRecorder:
+    """While on, every engine that serves records its near-ties:
+    ``gaps[e][(rid, pos)]``, the top-2 logit gap of the token at output
+    position ``pos`` of request ``rid`` in the ``e``-th engine seen, and
+    ``margins[e][rid][pos]``, the least margin over layers and heads of
+    the request's compression launched at output length ``pos``. It reads
+    each decode iteration's logits as it runs, so it works on engines that
+    decode eagerly (the CPU); on the card the fused chunks are graph
+    replays, which it cannot see."""
+
+    def __init__(self):
+        self.gaps, self.margins = [], []
+        self._iters, self._chunks = [], {}
+        self._compressing = None
+        self._saved = []
+
+    def _index(self, eng):
+        """The engine's place in the order seen, kept on the engine: an
+        ``id`` is reused once an engine is freed."""
+        seen = eng.__dict__.setdefault("_tie_recorders", {})
+        if id(self) not in seen:
+            seen[id(self)] = len(self.gaps)
+            self.gaps.append({})
+            self.margins.append({})
+        return seen[id(self)]
+
+    def _patch(self, owner, name, make):
+        orig = getattr(owner, name)
+        self._saved.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.core import compression, serve_model
+        from repro_torch.core.engine import ZipageEngine
+        rec = self
+
+        def decode_step(orig):
+            def build(cfg, spec):
+                step = orig(cfg, spec)
+
+                def recorded(params, state, tokens, active):
+                    logits = step(params, state, tokens, active)
+                    rec._iters.append(_gap(torch, logits))
+                    return logits
+                return recorded
+            return build
+
+        def run_chunk(orig):
+            def wrapped(self, k, greedy):
+                rec._iters = []
+                out = orig(self, k, greedy)
+                rec._chunks.setdefault(id(self), []).append(
+                    torch.stack(rec._iters))
+                return out
+            return wrapped
+
+        def record_block(orig):
+            def wrapped(self, active, off, k, tok, lp, caps, halted):
+                gaps = rec._chunks[id(self)].pop(0)
+                n0 = {r.rid: len(r.output) for r in active}
+                out = orig(self, active, off, k, tok, lp, caps, halted)
+                table = rec.gaps[rec._index(self)]
+                for r in active:
+                    for j in range(len(r.output) - n0[r.rid]):
+                        table[(r.rid, n0[r.rid] + j)] = float(gaps[j, r.slot])
+                return out
+            return wrapped
+
+        def sample_rows(orig):
+            def wrapped(self, logits, reqs):
+                gaps = _gap(torch, logits)
+                table = rec.gaps[rec._index(self)]
+                for i, r in enumerate(reqs):
+                    if r is not None:
+                        table[(r.rid, len(r.output))] = float(gaps[i])
+                return orig(self, logits, reqs)
+            return wrapped
+
+        def launch_compression(orig):
+            def wrapped(self, outs):
+                rec._compressing = (rec._index(self), [
+                    (c.request.rid, len(c.request.output))
+                    for c in outs.compress])
+                try:
+                    return orig(self, outs)
+                finally:
+                    rec._compressing = None
+            return wrapped
+
+        def select_survivors(orig):
+            def wrapped(cfg, opts, k_keep, pre_s, pre_r, fscore, seq_lens,
+                        hist_lens, T):
+                out = orig(cfg, opts, k_keep, pre_s, pre_r, fscore,
+                           seq_lens, hist_lens, T)
+                if rec._compressing is not None:
+                    e, rows = rec._compressing
+                    margins = _margins(torch, out[3], seq_lens, k_keep)
+                    for (rid, pos), m in zip(rows, margins):
+                        seen = rec.margins[e].setdefault(rid, {})
+                        seen[pos] = min(m, seen.get(pos, math.inf))
+                return out
+            return wrapped
+
+        self._patch(serve_model, "build_decode_step", decode_step)
+        self._patch(ZipageEngine, "_run_chunk", run_chunk)
+        self._patch(ZipageEngine, "_record_decode_block", record_block)
+        self._patch(ZipageEngine, "_sample_rows", sample_rows)
+        self._patch(ZipageEngine, "_launch_compression", launch_compression)
+        self._patch(compression, "_select_survivors", select_survivors)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        self._saved = []
+
+    def explain(self, engine, rid, pos, tol=TIE_TOL):
+        """The near-tie of request ``rid`` in the ``engine``-th engine that
+        explains its stream parting at output position ``pos``, or
+        None."""
+        gap = self.gaps[engine].get((rid, pos))
+        if gap is not None and gap < tol:
+            return f"top-2 logit gap {gap:.3e} at token {pos}"
+        for at, m in self.margins[engine].get(rid, {}).items():
+            if at <= pos and m < tol:
+                return (f"survivor margin {m:.3e} at the compression "
+                        f"after {at} tokens")
+        return None
+
+
+def first_difference(a, b):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def compare_rows(rows_a, rows_b, recorder=None, tol=TIE_TOL):
+    """Hold two ``runner.serve_rows`` results (with ``_preds``) equal, row
+    by row, every field and every stream. ``recorder`` watched the serves
+    of ``rows_b``. Returns ``(unexplained, explained)``: lists of ``(row
+    name, what differs)``; a differing stream is explained when the
+    recorder saw a near-tie below ``tol`` where it parts."""
+    unexplained, explained = [], []
+    for e, (a, b) in enumerate(zip(rows_a, rows_b)):
+        fields = sorted(k for k in a if k != "_preds" and a[k] != b.get(k))
+        parted = [(rid, first_difference(pa, pb)) for rid, (pa, pb)
+                  in enumerate(zip(a["_preds"], b["_preds"])) if pa != pb]
+        if not fields and not parted:
+            continue
+        if not parted:
+            unexplained.append((a["name"], f"fields {fields}, equal streams"))
+            continue
+        for rid, pos in parted:
+            why = None if recorder is None else \
+                recorder.explain(e, rid, pos, tol)
+            note = f"request {rid} parts at token {pos}" + (
+                f" ({why})" if why else "") + f"; fields {fields}"
+            (explained if why else unexplained).append((a["name"], note))
+    if len(rows_a) != len(rows_b):
+        unexplained.append(("*", f"{len(rows_a)} rows against "
+                                 f"{len(rows_b)}"))
+    return unexplained, explained
+
+
+def eval_on_card(torch, rows, device="cuda"):
+    """12c's card run: tiny-lm trained EVAL_STEPS steps on the card
+    through ``repro_torch.eval``, its five rows served under PlainGuard
+    (K1, K2, K3 and B6 counted). Returns the weights, the rows with their
+    streams, the rendered report and the launches."""
+    import copy
+
+    from repro_torch.eval import runner, tasks
+    from repro_torch.kernels import ops
+
+    t = time.monotonic()
+    params = runner.trained_params(EVAL_STEPS, SEED, device)
+    torch.cuda.synchronize()
+    t_train = time.monotonic() - t
+    examples = tasks.eval_set(EVAL_REQUESTS, SEED)
+    t = time.monotonic()
+    ops.reset_launch_counts()
+    with PlainGuard():
+        card_rows = runner.serve_rows(params, examples, runner.BUDGETS_SMOKE,
+                                      device)
+        torch.cuda.synchronize()
+    launches = dict(ops.launch_counts)
+    t_serve = time.monotonic() - t
+    for name in EVAL_PATH:
+        assert launches[name] > 0, f"eval: {name} never launched"
+    by_name = {r["kernel"]: r for r in rows}
+    for name, n in launches.items():
+        by_name[name]["launches_per_serve"]["eval"] = n
+    report = runner.make_report(runner.score_rows(copy.deepcopy(card_rows)),
+                                seed=SEED, n_requests=EVAL_REQUESTS,
+                                train_steps=EVAL_STEPS, smoke=True)
+    return {"params": params, "examples": examples, "rows": card_rows,
+            "report": report, "text": runner.render_report(report),
+            "launches": launches, "train_s": t_train, "serve_s": t_serve}
+
+
+def eval_on_cpu(params, examples):
+    """12c's CPU serve of the card's weights, its near-ties recorded."""
+    from repro_torch.eval import runner
+
+    t = time.monotonic()
+    rec = TieRecorder()
+    with rec:
+        cpu_rows = runner.serve_rows(_tree_to(params, "cpu"), examples,
+                                     runner.BUDGETS_SMOKE, "cpu")
+    return cpu_rows, rec, time.monotonic() - t
+
+
+def check_eval(card, cold_text, cold_s, cpu):
+    """12c's gates: the cold CLI run's bytes equal the card run's, and
+    each CPU row equals the card's unless a stream parts at a near-tie
+    the CPU serve recorded."""
+    from repro_torch.eval import runner
+
+    text = card["text"]
+    assert cold_text == text, (
+        f"eval: the cold CLI run's {len(cold_text)} bytes differ from the "
+        f"card run's {len(text)}")
+    for line in runner.summary_table(card["report"]):
+        log("eval", line)
+    log("eval", f"tiny-lm trained {EVAL_STEPS} steps on the card in "
+        f"{card['train_s']:.1f} s; 5 rows x {EVAL_REQUESTS} requests served "
+        f"in {card['serve_s']:.1f} s under PlainGuard (both beside 12b's "
+        f"first run and the cold CLI run); kernel launches {card['launches']}; `python -m "
+        f"repro_torch.eval --smoke` in a cold process rendered the same "
+        f"{len(text)} bytes in {cold_s:.1f} s")
+    cpu_rows, rec, cpu_s = cpu
+    unexplained, explained = compare_rows(card["rows"], cpu_rows, rec)
+    for name, note in explained:
+        log("eval", f"card vs CPU, row {name}: {note}")
+    assert unexplained == [], f"eval: card vs CPU: {unexplained}"
+    same = sum(1 for a, b in zip(card["rows"], cpu_rows) if a == b)
+    log("eval", f"card vs CPU on the card's weights: {same} of "
+        f"{len(cpu_rows)} rows equal in every field and stream, "
+        f"{len(explained)} stream(s) parted at a recorded near-tie; the "
+        f"CPU serve took {cpu_s:.1f} s (beside 12b's first run)")
+    table = [{k: r[k] for k in ("name", "accuracy", "accuracy_vs_full",
+                                "agreement_vs_full", "tokens_per_step",
+                                "compressions")}
+             for r in card["report"]["results"]]
+    return {"report": card["report"], "table": table,
+            "launches": card["launches"], "train_s": card["train_s"],
+            "serve_s": card["serve_s"], "cold_cli_s": cold_s,
+            "card_vs_cpu_equal_rows": same, "near_ties": explained}
+
+
+def phase_train_eval(torch, dev, card, rows, device="cuda"):
+    """Phase 12, arranged so that CPU work and light card work run beside
+    heavy card work: 12a's card half; then 12b's first launcher run beside
+    12c's card run, the cold eval CLI, 12a's CPU half and 12c's CPU serve
+    (the evals' reports cannot read the wall clock); then 12b's restarted
+    run alone, whose timings are reported. (``device`` is the card; "cpu"
+    rehearses the phase's plumbing.)"""
+    import shutil
+    import tempfile
+
+    t0 = time.monotonic()
+    took = {}
+    work = tempfile.mkdtemp(prefix="zipage-train-")
+    started = []
+    try:
+        t = time.monotonic()
+        small_card = train_small(torch, dev)
+        torch.cuda.synchronize()
+        took["12a card"] = time.monotonic() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.monotonic()
+        ckpt_dir = os.path.join(work, "ckpt")
+        args = _train_args(device) + ["--ckpt-dir", ckpt_dir]
+        mid = TRAIN_FULL["ckpt_every"]
+        cold_out = os.path.join(work, "eval-smoke.json")
+        threads = torch.get_num_threads()
+        torch.set_num_threads(CPU_THREADS)
+        try:
+            first_run = train_run(args + ["--ckpt-every", str(mid)],
+                                  "train[first]",
+                                  stop_after=TRAIN_FULL["steps"])
+            started.append(first_run)
+            cold = Launched("repro_torch.eval",
+                            ["--smoke", "--device", device, "--seed",
+                             str(SEED), "--requests", str(EVAL_REQUESTS),
+                             "--train-steps", str(EVAL_STEPS), "--out",
+                             cold_out], "eval[cold]")
+            started.append(cold)
+            t_cpu = time.monotonic()
+            small_cpu = Background(lambda: (train_small(torch, "cpu"),
+                                            time.monotonic() - t_cpu))
+            card_eval = eval_on_card(torch, rows, device)
+            cpu_eval = Background(eval_on_cpu, card_eval["params"],
+                                  card_eval["examples"])
+            cold_lines = list(cold.lines())
+            cold_s = cold.finish(cold_lines)
+            with open(cold_out) as f:
+                cold_text = f.read()
+            first = collect_train(first_run)
+            assert first_run.killed, "train[first]: never reached its end"
+            small_cpu, cpu_s = small_cpu.result()
+            cpu_eval = cpu_eval.result()
+        finally:
+            torch.set_num_threads(threads)
+        took["12b first + 12c + CPU halves"] = time.monotonic() - t
+        published = sorted(d for d in os.listdir(ckpt_dir)
+                           if not d.endswith(".tmp"))
+        assert published == [f"step_{mid:08d}"], published
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.monotonic()
+        restart = train_run(args, "train[restart]")
+        started.append(restart)
+        second = collect_train(restart)
+        took["12b restart"] = time.monotonic() - t
+    finally:
+        for run in started:
+            run.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"card_vs_cpu": check_train_vs_cpu(
+        torch, small_card, small_cpu,
+        {"card": took["12a card"], "cpu": cpu_s}),
+        "full": check_train_full(torch, card, first, second, device),
+        "eval": check_eval(card_eval, cold_text, cold_s, cpu_eval)}
+    took["all"] = time.monotonic() - t0
+    out["took"] = took
+    log("train+eval", "passed (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in took.items()) + ")")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3723,6 +4434,8 @@ def main():
     torch.cuda.empty_cache()
     dense = phase_dense(torch, card, rows)
     lap("dense")
+    train_eval = phase_train_eval(torch, dev, card, rows)
+    lap("train+eval")
     log("done", f"all phases passed in {time.monotonic() - t0:.1f} s ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")")
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
@@ -3731,7 +4444,8 @@ def main():
                    "kernels": rows + rows_bf16, "profile": prof,
                    "paired": paired, "http": served, "memory": memory,
                    "bf16": bf16,
-                   "dense": dense, "took_s": took}, f, indent=1)
+                   "dense": dense, "train_eval": train_eval,
+                   "took_s": took}, f, indent=1)
     print(json.dumps({"kernels": rows + rows_bf16}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,15 +17,20 @@ tree onto this layout. Only the dense GQA family is ported so far;
 
 Dtypes (``cfg.dtype``, float32 or bfloat16): the JAX package keeps fp32
 parameters and casts the matrices, qkv biases and embeddings to the
-compute dtype at each use; the port stores those at the dtype once, which
-gives the same values (``cast_params``). Norm scales and biases, and the
-q/k norm scales, stay fp32 in both, and norms compute in fp32.
+compute dtype at each use. The port serves from params stored at the
+dtype once, which gives the same values (``cast_params``); training keeps
+fp32 master params, as the JAX package does, and the forward casts them
+at each use, so its gradients and updates are fp32. Norm scales and
+biases, and the q/k norm scales, stay fp32 in both, and norms compute in
+fp32.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -120,10 +125,9 @@ def _init_norm(cfg, d, device):
     raise ValueError(cfg.norm_type)
 
 
-def _init_layer(cfg, generator, device):
+def _init_layer(cfg, generator, device, dt):
     d, hq, hkv, dh, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim, cfg.d_ff)
-    dt = torch_dtype(cfg.dtype)
 
     def ones(n):
         return torch.ones(n, dtype=torch.float32, device=device)
@@ -148,22 +152,24 @@ def _init_layer(cfg, generator, device):
             "ln2": _init_norm(cfg, d, device), "attn": attn, "ffn": ffn}
 
 
-def init(cfg: ArchConfig, generator: torch.Generator, device) -> dict:
+def init(cfg: ArchConfig, generator: torch.Generator, device, *,
+         dtype=None) -> dict:
     """Random parameters in the port's layout, drawn from ``generator``
     directly on ``device`` (the same scales as the JAX package's
     ``dense_init``: std 1/sqrt(fan_in), unit norm scales, zero norm
-    biases), at ``cfg.dtype`` apart from the fp32 norms: the same draws at
-    any dtype. The two packages' generators differ, so tests carry weights
-    across with ``convert.params_from_numpy`` instead."""
+    biases), at ``dtype`` (by default ``cfg.dtype``; training asks for
+    fp32 masters) apart from the fp32 norms: the same draws at any dtype.
+    The two packages' generators differ, so tests carry weights across
+    with ``convert.params_from_numpy`` instead."""
     check_supported(cfg)
-    dt = torch_dtype(cfg.dtype)
+    dt = torch_dtype(cfg.dtype) if dtype is None else dtype
     params = {"embed": _dense((cfg.vocab_size, cfg.d_model), cfg.d_model,
                               generator, device, dt),
               "final_norm": _init_norm(cfg, cfg.d_model, device)}
     if not cfg.tie_embeddings:
         params["unembed"] = _dense((cfg.d_model, cfg.vocab_size),
                                    cfg.d_model, generator, device, dt)
-    params["layers"] = [_init_layer(cfg, generator, device)
+    params["layers"] = [_init_layer(cfg, generator, device, dt)
                         for _ in range(cfg.num_layers)]
     return params
 
@@ -186,10 +192,11 @@ def cast_params(params, dtype) -> dict:
 
 def check_params_dtype(cfg, params) -> None:
     """Raise unless the matrices of ``params`` are at ``cfg.dtype`` (the
-    port stores them at the compute dtype; ``cast_params`` converts)."""
+    port serves them at the compute dtype; ``cast_params`` converts) or
+    are fp32 masters, which the forward casts at each use (training)."""
     want = torch_dtype(cfg.dtype)
     got = params["embed"].dtype
-    if got != want:
+    if got not in (want, torch.float32):
         raise ValueError(f"{cfg.name}: params are {got}, the model computes "
                          f"in {want}; convert them with lm.cast_params")
 
@@ -214,18 +221,40 @@ def apply_layer(cfg, p, x, positions):
     return x + L.ffn_forward(cfg, p["ffn"], h2)
 
 
-def forward_hidden(cfg: ArchConfig, params, tokens, *, positions=None):
+def _cast_apply_layer(cfg, p, x, positions):
+    """``apply_layer`` on the layer's params cast to the compute dtype
+    (no copy where they are at it already), as the reference's
+    ``astype`` at each use: inside a checkpointed layer the cast copy
+    lives only while the layer runs."""
+    return apply_layer(cfg, cast_params(p, torch_dtype(cfg.dtype)), x,
+                       positions)
+
+
+def forward_hidden(cfg: ArchConfig, params, tokens, *, positions=None,
+                   remat=False):
     """Token ids (B, S) -> final hidden states (B, S, d) at ``cfg.dtype``,
     as the JAX package's: the residual stream, matrices and products at
-    the dtype, norms, RoPE and attention in fp32, cast back."""
+    the dtype, norms, RoPE and attention in fp32, cast back. ``params``
+    are at the dtype or fp32 masters, cast at each use.
+
+    ``remat=True`` checkpoints each layer: its activations are recomputed
+    in the backward pass instead of kept (the reference's ``remat``, which
+    ``lm_loss`` turns on). It changes no value."""
     check_supported(cfg)
     check_params_dtype(cfg, params)
-    x = params["embed"][tokens]
+    # the gather of params["embed"].astype(dt)[tokens], whose backward
+    # sums each row's gradients in a fixed order (indexing's accumulates
+    # in any)
+    x = F.embedding(tokens, params["embed"].to(torch_dtype(cfg.dtype)))
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     for p in params["layers"]:
-        x = apply_layer(cfg, p, x, positions)
+        if remat:
+            x = checkpoint(_cast_apply_layer, cfg, p, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _cast_apply_layer(cfg, p, x, positions)
     return apply_norm(cfg, params["final_norm"], x)
 
 
@@ -237,4 +266,43 @@ def unembed_matrix(cfg, params):
 
 def forward(cfg, params, tokens, **kw):
     h = forward_hidden(cfg, params, tokens, **kw)
-    return h @ unembed_matrix(cfg, params)
+    return h @ unembed_matrix(cfg, params).to(h.dtype)
+
+
+# ----------------------------------------------------------------------
+# chunked-vocab cross-entropy: never materializes (B, S, V) logits.
+
+def _xent_chunk(hc, lc, w, ignore_id):
+    logits = (hc @ w.to(hc.dtype)).float()
+    lse = torch.logsumexp(logits, -1)
+    tgt = torch.gather(logits, -1, torch.clamp(lc, min=0)[..., None])[..., 0]
+    valid = lc != ignore_id
+    return torch.where(valid, lse - tgt, 0.0).sum(), valid.sum()
+
+
+def chunked_xent(cfg, params, hidden, labels, *, chunk=256, ignore_id=-100):
+    """hidden: (B, S, d); labels: (B, S). Returns (sum_loss, n_tokens), an
+    fp32 and an int64 0-d tensor. The sequence goes in chunks of ``chunk``
+    positions; each chunk's (B, chunk, V) logits are recomputed in the
+    backward pass rather than kept, as the reference's ``jax.checkpoint``
+    does."""
+    w = unembed_matrix(cfg, params)
+    labels = labels.long()
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    n = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for s in range(0, hidden.shape[1], chunk):
+        part, cnt = checkpoint(_xent_chunk, hidden[:, s:s + chunk],
+                               labels[:, s:s + chunk], w, ignore_id,
+                               use_reentrant=False)
+        loss_sum = loss_sum + part
+        n = n + cnt
+    return loss_sum, n
+
+
+def lm_loss(cfg, params, batch, *, vocab_chunk=256):
+    """batch: {"tokens": (B, S), "labels": (B, S)}; the mean loss over the
+    labels that are not ``-100``."""
+    hidden = forward_hidden(cfg, params, batch["tokens"].long(), remat=True)
+    loss_sum, n = chunked_xent(cfg, params, hidden, batch["labels"],
+                               chunk=vocab_chunk)
+    return loss_sum / torch.clamp(n, min=1)

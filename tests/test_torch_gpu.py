@@ -775,3 +775,106 @@ def test_http_streams_equal_generate_on_card(qwen_2l):
     cs, z, prompts, _sps, refs = qwen_2l
     served = asyncio.run(cs.http_serve(torch, z, prompts, refs, 256))
     assert served["tokens"] == 256 * len(prompts)
+
+
+# ----------------------------------------------------------------------
+# training and the eval on the card (chip_smoke.py phase 12)
+
+
+def _train_cfg():
+    import dataclasses
+    return dataclasses.replace(get_config("qwen2.5-3b"), num_layers=2,
+                               dtype="float32", vocab_size=4096)
+
+
+def test_train_steps_on_card_match_cpu(cuda):
+    """Three steps at ``accum_steps=2`` from one init at Qwen2.5-3B's
+    widths, 2 layers, a 4096-token vocabulary, fp32: losses and gradient
+    norms within 1e-3 relative, the params within 1e-3."""
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import DataConfig, batch_at
+    from repro_torch.training.train_loop import build_train_step
+
+    cs = _chip_smoke()
+    cfg = _train_cfg()
+    step = build_train_step(cfg, opt.AdamWConfig(lr=3e-4, warmup_steps=2),
+                            accum_steps=2, vocab_chunk=64)
+    dc = DataConfig(seq_len=32, global_batch=4, vocab_size=cfg.vocab_size)
+    p_cpu = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    p_dev = cs._tree_to(cs._tree_clone(p_cpu), cuda)
+    s_cpu, s_dev = opt.init_opt_state(p_cpu), opt.init_opt_state(p_dev)
+    for i in range(3):
+        p_dev, s_dev, _, m_dev = step(p_dev, s_dev, None, batch_at(dc, i))
+        p_cpu, s_cpu, _, m_cpu = step(p_cpu, s_cpu, None, batch_at(dc, i))
+        assert m_dev["loss"].device.type == "cuda"
+        for key in ("loss", "grad_norm"):
+            assert float(m_dev[key]) == pytest.approx(float(m_cpu[key]),
+                                                      rel=1e-3)
+    for a, b in zip(opt.tree_leaves(p_dev), opt.tree_leaves(p_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3)
+
+
+def test_restore_on_card_is_bit_for_bit(cuda, tmp_path):
+    """A bf16 model's fp32 master params and optimizer state saved from
+    the card after a step and restored into a fresh tree on the card:
+    equal bits and digests; and a bf16 leaf, stored as its 16-bit
+    pattern, restored bit for bit."""
+    import dataclasses
+
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import DataConfig, batch_at
+    from repro_torch.training.train_loop import build_train_step
+
+    cfg = dataclasses.replace(_train_cfg(), dtype="bfloat16")
+    p = lm.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda,
+                dtype=torch.float32)
+    st = opt.init_opt_state(p)
+    step = build_train_step(cfg, opt.AdamWConfig(lr=3e-4, warmup_steps=2),
+                            vocab_chunk=64)
+    dc = DataConfig(seq_len=32, global_batch=2, vocab_size=cfg.vocab_size)
+    p, st, _, _ = step(p, st, None, batch_at(dc, 0))
+    tree = {"params": p, "opt": st,
+            "bf16": lm.cast_params(p, torch.bfloat16)["embed"]}
+    ckpt.save(str(tmp_path), 1, tree, extra={"data_step": 1})
+    fresh = lm.init(cfg, torch.Generator(device=cuda).manual_seed(1), cuda,
+                    dtype=torch.float32)
+    like = {"params": fresh, "opt": opt.init_opt_state(fresh),
+            "bf16": torch.zeros_like(tree["bf16"])}
+    out, extra = ckpt.restore(str(tmp_path), 1, like)
+    assert extra == {"data_step": 1}
+    assert ckpt.digest(out) == ckpt.digest(tree)
+    for a, b in zip(opt.tree_leaves(out), opt.tree_leaves(tree)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def test_eval_rows_on_card_match_cpu(cuda):
+    """tiny-lm trained 30 steps on the card; the eval's five rows at 6
+    requests on the card launch the decode, scoring, redundancy and
+    compaction kernels and no plain version; two card runs give the same
+    bytes; the card's weights on the CPU give the same rows unless a
+    stream parts at a near-tie the CPU serve recorded."""
+    import copy
+
+    from repro_torch.eval import runner, tasks
+
+    cs = _chip_smoke()
+    params = runner.trained_params(30, 0, "cuda")
+    examples = tasks.eval_set(6, 0)
+    ops.reset_launch_counts()
+    with cs.PlainGuard():
+        card = runner.serve_rows(params, examples, runner.BUDGETS_SMOKE,
+                                 "cuda")
+        again = runner.run_eval(n_requests=6, train_steps=30, device="cuda")
+    for name in cs.EVAL_PATH:
+        assert ops.launch_counts[name] > 0, name
+    report = runner.make_report(runner.score_rows(copy.deepcopy(card)),
+                                seed=0, n_requests=6, train_steps=30,
+                                smoke=True)
+    assert runner.render_report(report) == runner.render_report(again)
+    rec = cs.TieRecorder()
+    with rec:
+        cpu = runner.serve_rows(cs._tree_to(params, "cpu"), examples,
+                                runner.BUDGETS_SMOKE, "cpu")
+    unexplained, _ = cs.compare_rows(card, cpu, rec)
+    assert unexplained == []

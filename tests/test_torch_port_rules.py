@@ -24,6 +24,17 @@ HTTP_PACKAGES = ("aiohttp", "httpx", "uvicorn", "starlette", "fastapi",
                  "flask", "requests", "urllib3", "websockets")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs, restored after: the
+    suite runs six workers on a few cores, where torch's default of one
+    spinning thread a core makes these small ops many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _imported_modules(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -126,6 +137,56 @@ def test_serving_entry_points_on_the_cpu_when_asked(monkeypatch, entry):
     z = _serving_entry_points("cpu")[entry]()
     assert z.engine.device.type == "cpu"
     assert z.engine.state["pools"]["k"].device.type == "cpu"
+
+
+TRAIN_SMALL = ["--arch", "tiny-lm", "--steps", "2", "--seq-len", "16",
+               "--global-batch", "2", "--vocab-chunk", "16"]
+EVAL_SMALL = ["--smoke", "--requests", "3", "--train-steps", "2"]
+
+
+def _training_and_eval_entry_points(device, tmp_path):
+    """The training launcher and the eval's entry points, each run with
+    ``device`` (None leaves the choice to the entry point)."""
+    from repro_torch.eval import __main__ as eval_cli
+    from repro_torch.eval import runner
+    from repro_torch.launch import train
+
+    dev = [] if device is None else ["--device", device]
+    out = str(tmp_path / "eval.json")
+    return {
+        "train": lambda: train.main(TRAIN_SMALL + dev),
+        "eval": lambda: eval_cli.main(EVAL_SMALL + ["--out", out] + dev),
+        "trained_params": lambda: runner.trained_params(2, 0, device),
+        "run_eval": lambda: runner.run_eval(n_requests=3, train_steps=2,
+                                            device=device),
+    }
+
+
+@pytest.mark.parametrize("entry", ["train", "eval", "trained_params",
+                                   "run_eval"])
+def test_training_and_eval_entry_points_need_a_card_by_default(
+        monkeypatch, tmp_path, entry):
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _training_and_eval_entry_points(None, tmp_path)[entry]()
+
+
+@pytest.mark.parametrize("entry", ["train", "eval"])
+def test_training_and_eval_entry_points_on_the_cpu_when_asked(
+        monkeypatch, tmp_path, capsys, entry):
+    import json
+    _no_card(monkeypatch)
+    result = _training_and_eval_entry_points("cpu", tmp_path)[entry]()
+    out = capsys.readouterr().out
+    if entry == "train":
+        summary = json.loads(out.strip().splitlines()[-1])
+        assert summary["device"] == "cpu" and len(summary["losses"]) == 2
+        assert result == summary["losses"]["2"]
+    else:
+        assert result == 0 and "| full_kv |" in out
+        report = json.loads((tmp_path / "eval.json").read_text())
+        assert report["schema"] == "zipage-eval/v1"
+        assert [r["n"] for r in report["results"]] == [3] * 5
 
 
 @pytest.mark.parametrize("knob", [
