@@ -73,8 +73,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      plain bit for bit, B4 against K1 bit for bit on live rows);
   7. a profiled window of decode steps of the main serve: device-busy
      share of wall time and kernel time by group;
-  7b. paired serves of Qwen3-8B at full width on the same weights, at
-     ``decode_steps`` 1, 8, 8 and 1 in turn: 4 greedy and 4 seeded
+  7b. paired serves of Qwen3-8B at full width and PAIRED_LAYERS of its
+     36 layers (the same weight tensors), at ``decode_steps`` 1, 8, 8
+     and 1 in turn: 4 greedy and 4 seeded
      requests with logprobs, whose streams and logprobs must be equal in
      all four; tok/s, step median, steps, graph replays, launches and the
      device-idle share of a profiled window of each;
@@ -90,7 +91,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      dense decode and flash redundancy (2 greedy, 2 seeded), so that B4
      and B5 run in a serve at g = 8.
   9. (run between 7b and 8, on the Qwen3-8B weights) memory pressure and
-     shared prefixes at full width, every engine under ZIPAGE_SANITIZE=1:
+     shared prefixes at full width and MEMORY_LAYERS of the 36 layers,
+     every engine under ZIPAGE_SANITIZE=1:
      16 requests (8 greedy, 8 seeded, logprobs) on an ample pool, then
      recompute, swap and auto on a tight pool that starts at 36 blocks
      and shrinks until each run preempts at least 8 times; swap's streams
@@ -153,6 +155,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
      parts at a near-tie the CPU serve recorded (``TieRecorder``). The
      evals and the CPU halves run beside 12b's first run
      (phase_train_eval).
+  13. (run last, after 12) MoE and MLA (``phase_moe_mla``): (a) card vs
+     CPU at full width, fp32, random weights from the seed (vocabulary
+     capped at CPU_VOCAB): DeepSeek-V2-Lite-16B's first three layers (the
+     dense one and two MoE, MLA) and DBRX-132B's first two, one paged
+     prefill and 16 decode steps, the logits within CARD_CPU_TOL; every
+     MoE call's routing is recorded on both (``TieRecorder``), and a
+     token routed to other experts on the two devices is excused only at
+     a router margin under TIE_TOL, and counted; (b) the changed kernels
+     at DeepSeek-V2-Lite's widths against their plain versions in fp32
+     and bf16: K2 over the 576-wide latent entries (h_kv 1, g 16, the MLA
+     scale 1/sqrt(192), windows 4 and 16: the d-tiled path) and its route
+     to ``scoring.mla_attention_scores``, K3 and B5 on the 512-wide
+     latents (B5 on 32-key tiles in fp32), B6 with no V at d 576 bit for
+     bit; (c) ``Zipage.from_config("deepseek-v2-lite-16b")`` at full width
+     and depth in bf16 under ZIPAGE_SANITIZE=1: phase 5's prompts, 8
+     greedy x NEW_TOKENS (K2, K3 and B6 launch; MLA decodes in plain
+     PyTorch as the JAX package does), 2 with flash redundancy (B5); the
+     memory planner's M and N_total beside Qwen3-8B's; the kernels timed
+     at the serve's recorded calls (rows ``<kernel>_mla_bf16``); then at a
+     drop-free capacity ``decode_steps`` 1 and 8 give equal streams and
+     logprobs bit for bit; (d) DBRX-132B at full width and DBRX_LAYERS of
+     its 40 layers (one card's memory), bf16, 8 greedy x NEW_TOKENS under
+     the sanitizer (K1, K2, K3 and B6 counted into the bf16 rows).
 
 The last two lines of standard output are the card's name and power
 limit, and ``{"ok": true, "device": {...}}``; the line before them is the
@@ -231,6 +256,10 @@ PRESSURE_REQUESTS, PRESSURE_QSLOTS = 16, 16
 TIGHT_POOL, TIGHT_STEP, MIN_POOL = 36, 4, 20
 SWAP_BLOCKS = 64
 MIN_PREEMPTIONS = 8
+#: phase 9's depth: the first 12 of Qwen3-8B's 36 layers, at full width
+#: (preemptions and prefix hits count blocks, which depth does not
+#: change), so that the script keeps well inside its time limit
+MEMORY_LAYERS = 12
 #: the host link's nominal rate a direction (PCIe Gen5 x16)
 HOST_LINK_BYTES_PER_S = 64e9
 #: phase 9's shared-prefix serves: the prompt, its extensions, and the
@@ -636,17 +665,23 @@ def check_compaction_at(torch, args, label):
     """B6 on ``args`` against its sequential plain version, and a second
     launch against the first, bit for bit on every page but the sink."""
     from repro_torch.kernels import compaction as cmp
-    want = [x.clone() for x in args[:3]]
+
+    def clone(pools):               # V may be None (MLA: no V pool)
+        return [None if x is None else x.clone() for x in pools]
+
+    want = clone(args[:3])
     cmp.compact_plain(*want, *args[3:])
     runs = []
     for _ in range(2):
-        got = [x.clone() for x in args[:3]]
+        got = clone(args[:3])
         cmp.compact_cuda(*got, *args[3:])
         runs.append(got)
     torch.cuda.synchronize()
     for got, ref, what in ((runs[0], want, "the sequential plain version"),
                            (runs[1], runs[0], "the first launch")):
         for n, a, r in zip("kvf", got, ref):
+            if a is None:
+                continue
             a, r = a[:, :-1], r[:, :-1]     # the sink page: garbage on both
             if not bool(torch.isfinite(a).all()):
                 raise AssertionError(f"{label}: {n} pool not finite")
@@ -1372,6 +1407,8 @@ class DecodeInputs:
         if live <= self.best_live:
             return
         st = e.state
+        if "k" not in st["pools"]:      # MLA decodes in plain PyTorch
+            return
         self.best = (st["pools"]["k"][0].clone(), st["pools"]["v"][0].clone(),
                      st["block_tables"].clone(), st["seq_lens"] + 1)
         self.best_live = live
@@ -1380,7 +1417,10 @@ class DecodeInputs:
         self.eng.step_hooks.remove(self)
 
     def args(self, torch):
-        """(q, k_pages, v_pages, block_tables, seq_lens) for K1 and B4."""
+        """(q, k_pages, v_pages, block_tables, seq_lens) for K1 and B4;
+        None where the serve ran no decode kernel (MLA)."""
+        if self.best is None:
+            return None
         kp, vp, bt, sl = self.best
         cfg = self.eng.cfg
         gen = torch.Generator(device=kp.device).manual_seed(SEED + 8)
@@ -1571,7 +1611,10 @@ def device_ms(torch, fn, n=20, windows=5):
     of ``fn`` ran, under torch.profiler: {kernel name: ms}. Now and then
     the profiler records no kernel at all in a window (seen on the H100
     with torch 2.11, right after the same calls had been timed by events);
-    such a window is profiled again, up to ``windows`` in all."""
+    such a window is profiled again, up to ``windows`` in all, and if none
+    records any, the device time is not measured (None): all the windows
+    of a call after phase 12 have been seen to record nothing, in a run
+    whose twin on another machine recorded them."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1593,8 +1636,9 @@ def device_ms(torch, fn, n=20, windows=5):
             return by_kernel
         log("timing", "the profiler recorded no device time; profiling "
             "again")
-    raise AssertionError(f"the profiler recorded no device time in "
-                         f"{windows} windows")
+    log("timing", f"the profiler recorded no device time in {windows} "
+        "windows: the device time is not measured")
+    return None
 
 
 def _kernel_name(key):
@@ -1609,14 +1653,22 @@ def _kernel_name(key):
 def times(torch, kernel, library):
     """Event, device and host (event minus device) ms per call of the
     kernel's wrapper and of its library yardstick; ``device_kernels``
-    splits the kernel's device time by CUDA kernel."""
+    splits the kernel's device time by CUDA kernel. Device and host times
+    are None where the profiler recorded nothing (``device_ms``)."""
     ms, by_kernel = time_ms(torch, kernel), device_ms(torch, kernel)
-    dev = sum(by_kernel.values())
-    lib = time_ms(torch, library)
-    lib_dev = sum(device_ms(torch, library).values())
-    return {"ms": ms, "device_ms": dev, "host_ms": ms - dev,
+    lib, lib_by = time_ms(torch, library), device_ms(torch, library)
+    dev = None if by_kernel is None else sum(by_kernel.values())
+    lib_dev = None if lib_by is None else sum(lib_by.values())
+    return {"ms": ms, "device_ms": dev,
+            "host_ms": None if dev is None else ms - dev,
             "library_ms": lib, "library_device_ms": lib_dev,
-            "library_host_ms": lib - lib_dev, "device_kernels": by_kernel}
+            "library_host_ms": None if lib_dev is None else lib - lib_dev,
+            "device_kernels": by_kernel or {}}
+
+
+def fmt_ms(x):
+    """A time in ms for the log, or "not measured" for None."""
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def bound(nbytes, flops, bf16=False):
@@ -1780,13 +1832,14 @@ def decode_spec(torch, name, args):
                         "table_width": bt.shape[1]})
 
 
-def score_spec(torch, args):
-    """K2 on ``args``; the library yardstick is the matmul of the
-    pre-gathered queries and keys, without the mask."""
-    from repro_torch.core.paged import gather_entries
+def score_spec(torch, args, kw=None):
+    """K2 on ``args`` (and ``kw``: MLA's ``scale``); the library
+    yardstick is the matmul of the pre-gathered queries and keys, without
+    the mask."""
     from repro_torch.kernels import paged_score as ps
 
     q_win, kp, bt, sl = args
+    scale = (kw or {}).get("scale")
     n, w, hq, d = q_win.shape
     hkv = kp.shape[2]
     g = hq // hkv
@@ -1798,8 +1851,10 @@ def score_spec(torch, args):
     kt = _masked_keys(torch, kp, bt, sl).permute(0, 2, 3, 1).contiguous()
     return dict(name=ps.NAME, source="src/repro_torch/csrc/paged_score.cu",
                 dtype=kp.dtype,
-                kernel=lambda: ps.paged_score_logits_cuda(q_win, kp, bt, sl),
-                plain=lambda: ps.paged_score_logits_plain(q_win, kp, bt, sl),
+                kernel=lambda: ps.paged_score_logits_cuda(q_win, kp, bt, sl,
+                                                          scale=scale),
+                plain=lambda: ps.paged_score_logits_plain(q_win, kp, bt, sl,
+                                                          scale=scale),
                 library=lambda: torch.matmul(qg, kt), nbytes=nbytes,
                 flops=flops, shapes={"n": n, "seq_lens": sl.tolist(),
                                      "table_width": bt.shape[1]})
@@ -1869,7 +1924,8 @@ def compaction_spec(torch, args):
     n_rows = _live_rows(args)
     moved = L * n_rows * h * kk
     es = kp.element_size()        # K and V; F, new_f and indices are 4 B
-    nbytes = es * 2 * 2 * moved * d + 4 * 2 * moved \
+    n_kv = 1 if vp is None else 2   # MLA's latent pool has no V
+    nbytes = es * n_kv * 2 * moved * d + 4 * 2 * moved \
         + 4 * n_rows * (src_bt.shape[1] + kk) + 4 * L * n_rows * h * kk
     # flat row indices over (L * slots * h) rows of d (K, V) or 1 (F)
     S = N1 * b
@@ -1885,12 +1941,12 @@ def compaction_spec(torch, args):
         .reshape(-1)
     nf_idx = (((lay * n + torch.arange(n, device=dev)[None, :, None, None])
                * (new_f.shape[2]) + sc) * h + hd).reshape(-1)
-    kf, vf = kp.view(-1, d), vp.view(-1, d)
+    kvf = [t.view(-1, d) for t in (kp, vp) if t is not None]
     ff, nff = fp.view(-1), new_f.reshape(-1)
 
     def library():
-        kf.index_copy_(0, dst_idx, kf[src_idx])
-        vf.index_copy_(0, dst_idx, vf[src_idx])
+        for t in kvf:
+            t.index_copy_(0, dst_idx, t[src_idx])
         ff.index_copy_(0, dst_idx, nff[nf_idx])
 
     return dict(name=cmp.NAME, source="src/repro_torch/csrc/compaction.cu",
@@ -1901,21 +1957,24 @@ def compaction_spec(torch, args):
                         "table_width": src_bt.shape[1]})
 
 
-def _row(torch, spec, per_serve, serve, errs):
+def _row(torch, spec, per_serve, serve, errs, label=None):
+    """The kernels-line row of ``spec``, timed; named ``label`` if given,
+    else by kernel and dtype (``row_name``)."""
     name = spec["name"]
     dtype = spec["dtype"]
+    label = label or row_name(torch, name, dtype)
     t = times(torch, spec["kernel"], spec["library"])
     plain_ms = time_ms(torch, spec["plain"], n=10)
     bound_ms, bound_by = bound(spec["nbytes"], spec["flops"],
                                dtype == torch.bfloat16)
-    log("timing", f"{row_name(torch, name, dtype)}: {t['ms']:.4f} ms = "
-        f"device {t['device_ms']:.4f} + host {t['host_ms']:.4f} (plain "
+    log("timing", f"{label}: {t['ms']:.4f} ms = device "
+        f"{fmt_ms(t['device_ms'])} + host {fmt_ms(t['host_ms'])} (plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}, "
         f"library {t['library_ms']:.4f} ms "
-        f"= device {t['library_device_ms']:.4f} + host "
-        f"{t['library_host_ms']:.4f}) at {spec['shapes']}; launches per "
-        f"serve {per_serve[name]}; device by kernel {_split(t)}")
-    return {"name": row_name(torch, name, dtype), "kernel": name,
+        f"= device {fmt_ms(t['library_device_ms'])} + host "
+        f"{fmt_ms(t['library_host_ms'])}) at {spec['shapes']}; launches "
+        f"per serve {per_serve[name]}; device by kernel {_split(t)}")
+    return {"name": label, "kernel": name,
             "dtype": str(dtype).replace("torch.", ""), "route": "cuda",
             "source": spec["source"],
             "replaces": REPLACES[name], "launches": per_serve[name][serve],
@@ -2079,9 +2138,10 @@ def time_at(torch, dev, cfg, opts, names, comp=(LONG_TABLE, LONG_LENS),
         log("timing", f"{row_name(torch, name, dtype)}"
             f"[{spec['shapes']['table_width']}]: "
             f"max_abs_err={errs[name]:.3e}; {t['ms']:.4f} "
-            f"ms = device {t['device_ms']:.4f} + host {t['host_ms']:.4f} "
-            f"(bound {b_ms:.5f} ms by {b_by}, library {t['library_ms']:.4f} "
-            f"ms = device {t['library_device_ms']:.4f}) at {spec['shapes']}; "
+            f"ms = device {fmt_ms(t['device_ms'])} + host "
+            f"{fmt_ms(t['host_ms'])} (bound {b_ms:.5f} ms by {b_by}, library "
+            f"{t['library_ms']:.4f} ms = device "
+            f"{fmt_ms(t['library_device_ms'])}) at {spec['shapes']}; "
             f"device by kernel {_split(t)}")
         del specs[name]
         torch.cuda.empty_cache()
@@ -2169,11 +2229,25 @@ def device_busy(prof):
 
 #: decode_steps of the paired serves, in order
 PAIRED_STEPS = (1, 8, 8, 1)
+#: 7b's depth: the first 12 of Qwen3-8B's 36 layers, at full width, so
+#: that the script keeps well inside its time limit with phase 13 (the
+#: whole script took 1086.8 s of 1200 on an H100 80GB HBM3 at 700 W
+#: with 7b and 9 at 36 layers, ~968 s with them at 18 and 12)
+PAIRED_LAYERS = 12
+
+
+def shallow(z, n_layers):
+    """(config, params) of the first ``n_layers`` layers of ``z``'s model,
+    at full width, sharing its weight tensors (no copy)."""
+    cfg = dataclasses.replace(z.cfg, num_layers=n_layers)
+    return cfg, dict(z.engine.params, layers=z.engine.params["layers"][
+        :n_layers])
 
 
 def phase_paired(torch, card, z_main):
-    """Qwen3-8B at full width on the main serve's weights, served at
-    ``decode_steps`` 1, 8, 8 and 1 in turn (each a fresh engine whose
+    """Qwen3-8B at full width and its first PAIRED_LAYERS layers (the main
+    serve's weight tensors), served at ``decode_steps`` 1, 8, 8 and 1 in
+    turn (each a fresh engine whose
     fused chunks replay CUDA graphs): 4 greedy and 4 seeded requests of
     NEW_TOKENS tokens with logprobs. Token streams and logprobs must be
     equal across the four serves (the tests/test_fused_decode.py
@@ -2182,7 +2256,8 @@ def phase_paired(torch, card, z_main):
     No limit is set on the times."""
     from repro_torch.api import SamplingParams, Zipage
 
-    prompts = make_prompts(z_main.cfg)
+    cfg, params = shallow(z_main, PAIRED_LAYERS)
+    prompts = make_prompts(cfg)
     half = N_REQUESTS // 2
     sps = [SamplingParams(max_new_tokens=NEW_TOKENS, logprobs=True)] * half \
         + [SamplingParams(max_new_tokens=NEW_TOKENS, seed=SEED + i,
@@ -2192,7 +2267,7 @@ def phase_paired(torch, card, z_main):
     for turn, k in enumerate(PAIRED_STEPS):
         label = f"paired[{turn}: K={k}]"
         t = time.monotonic()
-        z = Zipage(z_main.cfg, z_main.engine.params, decode_steps=k)
+        z = Zipage(cfg, params, decode_steps=k)
         torch.cuda.synchronize()
         ready = time.monotonic() - t
         summary, outs = run_serve(torch, card, z, label, prompts, sps,
@@ -3183,7 +3258,8 @@ def _first_difference(a, b):
 
 def phase_memory(torch, card, z_main, rows):
     """Phase 9: pressure serves and shared-prefix serves of Qwen3-8B at
-    full width on the main serve's weights, each in a fresh engine under
+    full width and its first MEMORY_LAYERS layers (the main serve's
+    weight tensors), each in a fresh engine under
     ZIPAGE_SANITIZE=1; their launches go into the kernel rows'
     ``launches_per_serve``."""
     t = time.monotonic()
@@ -3215,7 +3291,7 @@ def phase_pressure(torch, card, z_main, audits):
     measured against it."""
     from repro_torch.api import SamplingParams
 
-    cfg, params = z_main.cfg, z_main.engine.params
+    cfg, params = shallow(z_main, MEMORY_LAYERS)
     prompts = make_prompts(cfg, PRESSURE_REQUESTS)
     half = PRESSURE_REQUESTS // 2
     sps = [SamplingParams(max_new_tokens=NEW_TOKENS, logprobs=True)] * half \
@@ -3367,7 +3443,7 @@ def phase_prefix(torch, card, z_main, audits):
     from repro_torch.api import SamplingParams, Zipage
     from repro_torch.core.engine import EngineOptions
 
-    cfg, params = z_main.cfg, z_main.engine.params
+    cfg, params = shallow(z_main, MEMORY_LAYERS)
     rng = np.random.default_rng(SEED + 16)
     prefix = [int(x) for x in rng.integers(0, cfg.vocab_size, PREFIX_TOKENS)]
     ext = [prefix + [int(x) for x in rng.integers(0, cfg.vocab_size,
@@ -4027,19 +4103,47 @@ def _margins(torch, final, seq_lens, k):
     return out
 
 
+def _router_margins(torch, cfg, p, x, valid):
+    """Per token of a MoE call: the router's k-th minus (k+1)-th
+    probability (inf where ``valid`` parks the token) and its top-k expert
+    ids as a sorted set, on the CPU: (B, S) and (B, S, k). A token whose
+    margin is under the rounding of two devices may route to another
+    expert on each."""
+    k = cfg.num_experts_per_tok
+    probs = torch.softmax((x.reshape(-1, x.shape[-1]) @ p["router"]).float(),
+                          -1)
+    top, ids = torch.topk(probs, k + 1, dim=-1)
+    m = (top[:, k - 1] - top[:, k]).reshape(x.shape[:2])
+    if valid is not None:
+        m = torch.where(valid.reshape(m.shape), m,
+                        torch.full_like(m, math.inf))
+    return m.cpu(), ids[:, :k].sort(-1)[0].reshape(*x.shape[:2], k).cpu()
+
+
 class TieRecorder:
     """While on, every engine that serves records its near-ties:
     ``gaps[e][(rid, pos)]``, the top-2 logit gap of the token at output
-    position ``pos`` of request ``rid`` in the ``e``-th engine seen, and
+    position ``pos`` of request ``rid`` in the ``e``-th engine seen,
     ``margins[e][rid][pos]``, the least margin over layers and heads of
-    the request's compression launched at output length ``pos``. It reads
-    each decode iteration's logits as it runs, so it works on engines that
-    decode eagerly (the CPU); on the card the fused chunks are graph
-    replays, which it cannot see."""
+    the request's compression launched at output length ``pos``, and
+    ``routers[e][rid][pos]``, the least router margin (k-th minus (k+1)-th
+    expert probability) over the MoE layers and tokens of the prefill
+    that ended at output length ``pos`` or of the decode iteration that
+    made token ``pos``. ``router_calls`` keeps every MoE call's per-token
+    margins and expert ids (``_router_margins``), for a card-vs-CPU check
+    that calls the steps itself. It reads each decode iteration's logits
+    and router as it runs, so it works on engines that decode eagerly
+    (the CPU); on the card the fused chunks are graph replays, which it
+    cannot see, and a card engine must not capture its graphs while it is
+    on (it reads the router back to the host). Unfused decode's router
+    margins are not recorded."""
 
     def __init__(self):
-        self.gaps, self.margins = [], []
+        self.gaps, self.margins, self.routers = [], [], []
+        self.router_calls = []
         self._iters, self._chunks = [], {}
+        self._router, self._router_iters, self._router_chunks = [], [], {}
+        self._prefill_rows = []
         self._compressing = None
         self._saved = []
 
@@ -4051,6 +4155,7 @@ class TieRecorder:
             seen[id(self)] = len(self.gaps)
             self.gaps.append({})
             self.margins.append({})
+            self.routers.append({})
         return seen[id(self)]
 
     def _patch(self, owner, name, make):
@@ -4058,42 +4163,100 @@ class TieRecorder:
         self._saved.append((owner, name, orig))
         setattr(owner, name, make(orig))
 
+    def _row_router(self, torch, n_rows):
+        """The least router margin of each row over this step's MoE
+        calls (inf without MoE)."""
+        if not self._router:
+            return torch.full((n_rows,), math.inf)
+        return torch.stack(self._router).amin(0)
+
+    def _note_router(self, e, rid, pos, m):
+        seen = self.routers[e].setdefault(rid, {})
+        seen[pos] = min(m, seen.get(pos, math.inf))
+
     def __enter__(self):
         import torch
 
         from repro_torch.core import compression, serve_model
         from repro_torch.core.engine import ZipageEngine
+        from repro_torch.models import layers
         rec = self
+
+        def moe_forward(orig):
+            def wrapped(cfg, p, x, **kw):
+                m, ids = _router_margins(torch, cfg, p, x, kw.get("valid"))
+                rec.router_calls.append((m, ids))
+                rec._router.append(m.amin(1))
+                return orig(cfg, p, x, **kw)
+            return wrapped
 
         def decode_step(orig):
             def build(cfg, spec):
                 step = orig(cfg, spec)
 
                 def recorded(params, state, tokens, active):
+                    rec._router = []
                     logits = step(params, state, tokens, active)
                     rec._iters.append(_gap(torch, logits))
+                    rec._router_iters.append(
+                        rec._row_router(torch, logits.shape[0]))
                     return logits
                 return recorded
             return build
 
+        def prefill_step(orig):
+            def build(cfg, spec):
+                step = orig(cfg, spec)
+
+                def recorded(params, state, tokens, slot_ids, *a, **kw):
+                    rec._router = []
+                    out = step(params, state, tokens, slot_ids, *a, **kw)
+                    rec._prefill_rows.append((slot_ids.cpu().tolist(),
+                                              rec._row_router(
+                                                  torch, tokens.shape[0])))
+                    return out
+                return recorded
+            return build
+
+        def run_prefill(orig):
+            def wrapped(self, chunks):
+                rec._prefill_rows = []
+                n0 = {c.request.rid: len(c.request.output) for c in chunks}
+                by_slot = {c.request.slot: c.request for c in chunks}
+                out = orig(self, chunks)
+                e = rec._index(self)
+                for slots, margins in rec._prefill_rows:
+                    for s, m in zip(slots, margins.tolist()):
+                        r = by_slot.get(s) if s >= 0 else None
+                        if r is not None:
+                            rec._note_router(e, r.rid, n0[r.rid], m)
+                return out
+            return wrapped
+
         def run_chunk(orig):
             def wrapped(self, k, greedy):
-                rec._iters = []
+                rec._iters, rec._router_iters = [], []
                 out = orig(self, k, greedy)
                 rec._chunks.setdefault(id(self), []).append(
                     torch.stack(rec._iters))
+                rec._router_chunks.setdefault(id(self), []).append(
+                    torch.stack(rec._router_iters))
                 return out
             return wrapped
 
         def record_block(orig):
             def wrapped(self, active, off, k, tok, lp, caps, halted):
                 gaps = rec._chunks[id(self)].pop(0)
+                routers = rec._router_chunks[id(self)].pop(0)
                 n0 = {r.rid: len(r.output) for r in active}
                 out = orig(self, active, off, k, tok, lp, caps, halted)
-                table = rec.gaps[rec._index(self)]
+                e = rec._index(self)
+                table = rec.gaps[e]
                 for r in active:
                     for j in range(len(r.output) - n0[r.rid]):
                         table[(r.rid, n0[r.rid] + j)] = float(gaps[j, r.slot])
+                        rec._note_router(e, r.rid, n0[r.rid] + j,
+                                         float(routers[j, r.slot]))
                 return out
             return wrapped
 
@@ -4132,7 +4295,10 @@ class TieRecorder:
                 return out
             return wrapped
 
+        self._patch(layers, "moe_forward", moe_forward)
         self._patch(serve_model, "build_decode_step", decode_step)
+        self._patch(serve_model, "build_prefill_step", prefill_step)
+        self._patch(ZipageEngine, "_run_prefill", run_prefill)
         self._patch(ZipageEngine, "_run_chunk", run_chunk)
         self._patch(ZipageEngine, "_record_decode_block", record_block)
         self._patch(ZipageEngine, "_sample_rows", sample_rows)
@@ -4156,6 +4322,10 @@ class TieRecorder:
             if at <= pos and m < tol:
                 return (f"survivor margin {m:.3e} at the compression "
                         f"after {at} tokens")
+        for at, m in self.routers[engine].get(rid, {}).items():
+            if at <= pos and m < tol:
+                what = "the prefill" if at == 0 else f"token {at}"
+                return f"router margin {m:.3e} at {what}"
         return None
 
 
@@ -4364,6 +4534,465 @@ def phase_train_eval(torch, dev, card, rows, device="cuda"):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 13: MoE and MLA (DeepSeek-V2-Lite-16B, DBRX-132B)
+
+MLA_CONFIG, DBRX_CONFIG = "deepseek-v2-lite-16b", "dbrx-132b"
+#: 13a: the layers of each on the card and the CPU (DeepSeek-V2-Lite's
+#: first, dense, layer and two MoE layers; DBRX's first two, both MoE),
+#: and the decode steps after the prefill
+MOE_CPU_LAYERS = {MLA_CONFIG: 3, DBRX_CONFIG: 2}
+MOE_DECODE_STEPS = 16
+#: 13b: K2's windows at MLA's widths
+MLA_WINDOWS = (4, 16)
+#: 13d: DBRX-132B's depth on one card: 8 of its 40 layers hold 54.6 GB of
+#: bf16 weights (one layer's 16 experts are 6.3 GB), the whole model 264 GB
+DBRX_LAYERS = 8
+#: a capacity factor at which no token-expert pair is dropped, as the JAX
+#: package's own equivalence tests take (tests/test_serve_equivalence.py)
+DROP_FREE_CAPACITY = 8.0
+#: the kernels of the MLA serves: MLA decodes in plain PyTorch, as the
+#: JAX package decodes it in jnp, so K1 and B4 do not run
+MLA_PATH = ("paged_score", "lightning_redundancy", "compaction")
+MLA_FLASH_PATH = ("paged_score", "flash_redundancy", "compaction")
+
+
+def moe_router_flips(cpu_calls, card_calls, label):
+    """Tokens whose top-k experts differ between two runs of the same MoE
+    calls (``TieRecorder.router_calls``), with the CPU's margin of each:
+    [(call, row, position, margin)]. Parked tokens (inf margin) are not
+    compared."""
+    if len(cpu_calls) != len(card_calls):
+        raise AssertionError(f"{label}: {len(cpu_calls)} MoE calls on the "
+                             f"CPU, {len(card_calls)} on the card")
+    flips = []
+    for c, ((m, ids), (_, ids_card)) in enumerate(zip(cpu_calls, card_calls)):
+        differ = (ids != ids_card).any(-1) & m.isfinite()
+        for row, pos in differ.nonzero().tolist():
+            flips.append((c, row, pos, float(m[row, pos])))
+    return flips
+
+
+def check_moe_logits(torch, dev, name):
+    """13a: ``name`` at full width and MOE_CPU_LAYERS layers, fp32, random
+    weights from the seed (vocabulary capped at CPU_VOCAB): one paged
+    prefill and MOE_DECODE_STEPS decode steps on the card and on the CPU,
+    the logits within CARD_CPU_TOL. Every MoE call's routing is recorded
+    on both (``TieRecorder``): a token routed to other experts on the two
+    devices is excused only where the CPU's router margin is below
+    TIE_TOL, and is counted; the logits of that step and after are then
+    not compared. Returns (max error, flips)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import serve_model
+    from repro_torch.models import lm
+
+    phase = f"moe card-vs-cpu[{name}]"
+    cfg = dataclasses.replace(get_config(name), dtype="float32")
+    small = dataclasses.replace(cfg, num_layers=MOE_CPU_LAYERS[name],
+                                vocab_size=min(cfg.vocab_size, CPU_VOCAB))
+    t = time.monotonic()
+    p_dev = lm.init(small, torch.Generator(dev).manual_seed(SEED), dev)
+    p_cpu = _tree_to(p_dev, "cpu")
+    log(phase, f"{small.num_layers} layers ({[f for _, f in lm.layer_specs(small)]}), "
+        f"d_model {cfg.d_model}, {cfg.attn_type}, {cfg.num_experts} experts "
+        f"top-{cfg.num_experts_per_tok}, vocabulary {small.vocab_size} (of "
+        f"{cfg.vocab_size}), {lm.param_count(p_cpu) / 1e9:.2f} B params fp32"
+        f" on each side, drawn on the card in {time.monotonic() - t:.1f} s")
+    spec = serve_model.ServeSpec(n_slots=4, block_size=16, max_blocks=8,
+                                 n_total_blocks=32, m_qslots=4, window=4,
+                                 prefill_rows=2, prefill_len=64,
+                                 dtype="float32")
+    results, calls, bounds = {}, {}, {}
+    for side, device, params in (("cpu", "cpu", p_cpu), ("card", dev, p_dev)):
+        t = time.monotonic()
+        with TieRecorder() as rec:
+            st = serve_model.make_state(small, spec, device)
+            i32 = dict(dtype=torch.int32, device=device)
+            st["block_tables"][0, :4] = torch.tensor([3, 5, 7, 9], **i32)
+            st["block_tables"][1, :5] = torch.tensor([11, 2, 4, 6, 8], **i32)
+            st["seq_lens"][:2] = torch.tensor([45, 60], **i32)
+            st["qslot"][:2] = torch.tensor([0, 1], **i32)
+            prefill = serve_model.build_prefill_step(small, spec)
+            decode = serve_model.build_decode_step(small, spec)
+            toks = torch.arange(2 * 64, device=device).reshape(2, 64) * 97 \
+                % small.vocab_size
+            lengths = torch.tensor([45, 60], **i32)
+            zero = torch.zeros(2, **i32)
+            outs = [prefill(params, st, toks, torch.tensor([0, 1], **i32),
+                            lengths, zero)]
+            step_calls = [len(rec.router_calls)]
+            st["positions"][:2] = lengths
+            active = torch.tensor([True, True, False, False], device=device)
+            tok = torch.tensor([5, 6, 0, 0], device=device)
+            for i in range(MOE_DECODE_STEPS):
+                outs.append(decode(params, st, tok, active)[:2])
+                step_calls.append(len(rec.router_calls))
+                tok = (tok + 1000 * (i + 1)) % small.vocab_size
+        results[side] = [o.cpu() for o in outs]
+        calls[side], bounds[side] = rec.router_calls, step_calls
+        log(phase, f"{side}: prefill + {MOE_DECODE_STEPS} decode steps in "
+            f"{time.monotonic() - t:.1f} s")
+    flips = moe_router_flips(calls["cpu"], calls["card"], phase)
+    first = len(results["cpu"])
+    for c, row, pos, m in flips:
+        step = next(i for i, n in enumerate(bounds["cpu"]) if c < n)
+        first = min(first, step)
+        log(phase, f"router flip at step {step} (MoE call {c}, row {row}, "
+            f"position {pos}): the CPU's k-th vs (k+1)-th margin {m:.3e}")
+        if not m < TIE_TOL:
+            raise AssertionError(f"{phase}: a token routes to other experts "
+                                 f"on the card at a router margin of {m:.3e}"
+                                 f" (tolerance {TIE_TOL})")
+    errs = []
+    for a, b in zip(results["cpu"][:first], results["card"][:first]):
+        err = (a - b).abs()
+        if bool((err > CARD_CPU_TOL + CARD_CPU_TOL * a.abs()).any()):
+            raise AssertionError(f"{phase}: card vs cpu logits off by "
+                                 f"{float(err.max()):.3e}")
+        errs.append(float(err.max()))
+    margins = torch.cat([m[m.isfinite()] for m, _ in calls["cpu"]])
+    log(phase, f"prefill + {MOE_DECODE_STEPS} decode steps: max_abs_err="
+        f"{max(errs):.3e} over {len(errs)} of {len(results['cpu'])} outputs "
+        f"(atol=rtol={CARD_CPU_TOL}) ok; {len(calls['cpu'])} MoE calls, "
+        f"{margins.numel()} routed tokens, least router margin "
+        f"{float(margins.min()):.3e}, {int((margins < TIE_TOL).sum())} under "
+        f"{TIE_TOL}; {len(flips)} router flip(s) between the devices")
+    del p_dev, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return max(errs), len(flips)
+
+
+def check_mla_kernels(torch, dev, cfg, dtype):
+    """13b: the changed kernels at DeepSeek-V2-Lite's widths against their
+    plain versions, at inputs of ``dtype``: K2 over the 576-wide latent
+    entries as h_kv = 1, g = 16 at the MLA scale, windows MLA_WINDOWS (the
+    d-tiled path), and the K2 route to the MLA scores (softmax, max over
+    heads, mean over w) against ``scoring.mla_attention_scores``; K3 and B5
+    on the 512-wide latents of the live pages (B5 on 32-key tiles in fp32)
+    with the zero-out firing and two launches bit for bit; B6 with no V at
+    d = 576, h = 1, bit for bit, at the engine's budget (k = 48) and at
+    k = 1024. Page 0 is NaN and no live row maps it. Returns each kernel's
+    max error."""
+    import types
+
+    import numpy as np
+    from repro_torch.core import compression, scoring
+    from repro_torch.core.paged import gather_entries
+    from repro_torch.kernels import compaction as cmp
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_score as ps
+    from repro_torch.kernels import redundancy as red
+
+    phase = "mla kernels" + (" bf16" if dtype == torch.bfloat16 else "")
+    tol = kernel_tols(torch, dtype)[0]
+    r = cfg.kv_lora_rank
+    e = r + cfg.qk_rope_head_dim
+    scale = 1.0 / math.sqrt(cfg.head_dim + cfg.qk_rope_head_dim)
+    b, mb, n_pages = 16, 32, 256           # the engine defaults' shapes
+    T = mb * b
+    rng = np.random.default_rng(SEED + 13)
+    errs = {ps.NAME: 0.0, red.NAME: 0.0, red.FLASH_NAME: 0.0, cmp.NAME: 0.0}
+    mixes = {"compress": [64, 176, 4, T, 16, 80, 0, 48],
+             "similar": [64, 64, 128, 200, 31, T, 5, 0]}
+    hits = {red.NAME: 0, red.FLASH_NAME: 0}
+    for label, lens in mixes.items():
+        kv, _ = make_pool(torch, rng, n_pages, b, 1, e, dev,
+                          similar=label == "similar", dtype=dtype)
+        bt, sl = make_tables(torch, rng, lens, b, mb, n_pages, dev, kv, kv)
+        valid = torch.arange(T, device=dev)[None] < sl[:, None]
+        for w in MLA_WINDOWS:
+            q = torch.randn(len(lens), w, cfg.num_heads, e, device=dev,
+                            generator=torch.Generator(dev).manual_seed(
+                                SEED + w)).to(dtype)
+            got = ps.paged_score_logits_cuda(q, kv, bt, sl, scale=scale)
+            want = ps.paged_score_logits_plain(q, kv, bt, sl, scale=scale)
+            err = max_err(torch, got, want, f"{ps.NAME}[mla {label} w={w}]",
+                          tol)
+            route = ops.attention_scores_from_logits(got, sl, causal=True)
+            ref = scoring.mla_attention_scores(
+                q, gather_entries(kv[:, :, 0], bt), valid, sl, scale=scale)
+            err_s = max_err(torch, route, ref,
+                            f"{ps.NAME}[mla {label} w={w}] scores", tol)
+            errs[ps.NAME] = max(errs[ps.NAME], err, err_s)
+            log(phase, f"{ps.NAME}[{label}, w={w}, h_kv 1, g "
+                f"{cfg.num_heads}, d {e}, scale 1/sqrt("
+                f"{cfg.head_dim + cfg.qk_rope_head_dim})]: max_abs_err="
+                f"{err:.3e}, its route to mla_attention_scores {err_s:.3e} "
+                f"(atol=rtol={tol}) ok")
+        pool, table = compression._latent_pages(kv[:, :, 0], bt, r)
+        for name, cuda_fn, plain_fn in (
+                (red.NAME, red.lightning_redundancy_cuda,
+                 red.lightning_redundancy_plain),
+                (red.FLASH_NAME, red.flash_redundancy_cuda,
+                 red.flash_redundancy_plain)):
+            got = cuda_fn(pool, table, sl, p_thresh=0.8)
+            want = plain_fn(pool, table, sl, p_thresh=0.8)
+            err = max_err(torch, got, want, f"{name}[mla {label}]", tol)
+            if not bool(torch.equal(got, cuda_fn(pool, table, sl,
+                                                 p_thresh=0.8))):
+                raise AssertionError(f"{name}[mla]: two runs differ")
+            hits[name] += int((plain_fn(pool, table, sl, p_thresh=2.0)
+                               != want).sum())
+            errs[name] = max(errs[name], err)
+            log(phase, f"{name}[{label}, latent d {r}, h 1]: max_abs_err="
+                f"{err:.3e} (atol=rtol={tol}), the same in two runs, ok")
+    for name, n in hits.items():
+        if n == 0:
+            raise AssertionError(f"{name}[mla]: the zero-out never fired")
+    log(phase, f"the p_thresh zero-out changed {hits} row sums (exercised)")
+    latent = types.SimpleNamespace(num_kv_heads=1, head_dim=e)
+    kinds = ["in_place"] * 6 + ["cow"] * 2 + ["pad"] * 2
+    for width, budget in ((8, 3), (LONG_TABLE, LONG_BUDGET)):
+        lens = [int(x) * b for x in rng.integers(budget + 1, width + 1, 8)] \
+            + [0, 0]
+        args = compaction_case(torch, dev, latent, types.SimpleNamespace(
+            block_size=b), rng, lens, kinds, width, budget, L=4, dtype=dtype)
+        args = (args[0], None) + args[2:]
+        check_compaction_at(torch, args, f"compaction[mla, k={budget * b}]")
+        log(phase, f"compaction with no V at d {e}, h 1: {len(lens)} rows x "
+            f"4 layers at k={budget * b} equal to the plain version bit for "
+            "bit, and the same in two launches ok")
+        del args
+    torch.cuda.empty_cache()
+    return errs
+
+
+def mla_rows(torch, rec, rec_flash, per_serve, errs):
+    """The MLA rows of the kernels line: K2, K3 and B6 timed at the
+    DeepSeek serve's recorded calls whose live work is largest (bf16), B5
+    at the flash serve's; launches from those serves."""
+    def pick(r, op, key):
+        return _pick(r.calls[op], key)
+
+    def comp_live(a):
+        return _live_entries(a[1], a[2], a[0].shape[1])
+
+    def score_live(a):
+        return _live_entries(a[2], a[3], a[1].shape[1])
+
+    specs = [
+        ("mla", score_spec(torch, *pick(rec, "score_logits", score_live))),
+        ("mla", redundancy_spec(torch, "lightning_redundancy",
+                                *pick(rec, "lightning_redundancy",
+                                      comp_live))),
+        ("mla-flash", redundancy_spec(torch, "flash_redundancy",
+                                      *pick(rec_flash, "flash_redundancy",
+                                            comp_live))),
+        ("mla", compaction_spec(torch, pick(rec, "compact",
+                                            _live_rows)[0])),
+    ]
+    return [dict(_row(torch, spec, per_serve, serve, errs,
+                      label=spec["name"] + "_mla_bf16"),
+                 shapes=spec["shapes"]) for serve, spec in specs]
+
+
+def mla_serve(torch, card, errs_bf16):
+    """13c: DeepSeek-V2-Lite-16B at full width and depth in bf16, its
+    registered dtype, through ``Zipage.from_config`` at the engine
+    defaults under ZIPAGE_SANITIZE=1: phase 5's prompts, 8 greedy
+    requests of NEW_TOKENS tokens (compression fires, every compression
+    goes through B6, no plain version runs, K2, K3 and B6 launch, the
+    sanitizer reports nothing); 2 greedy requests with flash redundancy
+    (B5); tok/s, step median, peak memory and the memory planner's M and
+    N_total beside Qwen3-8B's at the same free memory. Then the same
+    weights at a drop-free capacity, at ``decode_steps`` 1 and 8: equal
+    streams and logprobs, bit for bit. Returns (summary, MLA rows)."""
+    import numpy as np
+    from repro_torch.api import SamplingParams, Zipage
+    from repro_torch.configs import get_config
+    from repro_torch.core import memory_planner
+    from repro_torch.core.compression import CompressOptions
+    from repro_torch.models import lm
+
+    phase = f"mla[{MLA_CONFIG}]"
+    took, t = {}, time.monotonic()
+
+    def lap(what):
+        nonlocal t
+        took[what] = time.monotonic() - t
+        t = time.monotonic()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    z = _sanitized(lambda: Zipage.from_config(MLA_CONFIG, param_seed=SEED,
+                                              dtype="bfloat16"))
+    torch.cuda.synchronize()
+    eng, cfg = z.engine, z.cfg
+    assert eng.sanitize, "the engine did not read ZIPAGE_SANITIZE"
+    opts = eng.opts
+    n_params = lm.param_count(eng.params)
+    log(phase, f"{cfg.num_layers} layers ({cfg.first_dense_layers} dense), "
+        f"d_model {cfg.d_model}, MLA (kv_lora_rank {cfg.kv_lora_rank}, rope "
+        f"{cfg.qk_rope_head_dim}, {cfg.num_heads} heads), {cfg.num_experts} "
+        f"experts top-{cfg.num_experts_per_tok} + {cfg.num_shared_experts} "
+        f"shared (d_ff {cfg.moe_d_ff}), vocab {cfg.vocab_size}; "
+        f"{n_params / 1e9:.2f} B params bf16 on the card, ready in "
+        f"{took.get('build', time.monotonic() - t):.1f} s")
+    free, total = torch.cuda.mem_get_info()
+    plans = {}
+    for name in (MLA_CONFIG, "qwen3-8b"):
+        plans[name] = memory_planner.plan_memory(
+            get_config(name), free, opts.n_max, block_size=opts.block_size,
+            window=opts.window, dtype_bytes=2)
+    real = memory_planner.pool_bytes_per_kv_block(cfg, opts.block_size,
+                                                  dtype_bytes=2)
+    if real != eng._kv_block_bytes():
+        raise AssertionError(f"{phase}: the planner's pool bytes {real} are "
+                             f"not the pools' {eng._kv_block_bytes()}")
+    for name, plan in plans.items():
+        log(phase, f"memory plan (Eq. 1) at bf16 with {free / 1e9:.2f} of "
+            f"{total / 1e9:.2f} GB free, n_max {opts.n_max}: {name} M = "
+            f"{plan.M} requests, N_total = {plan.N_total} blocks of "
+            f"{plan.m_kv_block} B, {plan.m_q_req} B of window a request")
+    lap("build")
+    prompts = make_prompts(cfg)
+    greedy = [SamplingParams(max_new_tokens=NEW_TOKENS)] * N_REQUESTS
+    with Audits() as audits:
+        rec, launches, summary, outs = sanitized_serve(
+            torch, card, z, f"{phase} sanitized", prompts, greedy, MLA_PATH,
+            audits)
+        lap("serve")
+        zf = _sanitized(lambda: Zipage(cfg, eng.params, dtype="bfloat16",
+                                       compress=CompressOptions(
+                                           window=opts.window,
+                                           redundancy="flash")))
+        rec_f, launches_f, summary_f, _ = sanitized_serve(
+            torch, card, zf, f"{phase} flash sanitized", prompts[:2],
+            greedy[:2], MLA_FLASH_PATH, audits)
+        del zf
+        lap("serve-flash")
+    peak = torch.cuda.max_memory_allocated()
+    log(phase, f"peak memory allocated {peak / 1e9:.2f} GB on {card}")
+    per_serve = {n: {"mla": launches[n], "mla-flash": launches_f[n]}
+                 for n in launches}
+    errs = {n: errs_bf16.get(n, 0.0) for n in launches}
+    rows = mla_rows(torch, rec, rec_f, per_serve, errs)
+    del rec, rec_f
+    lap("timing")
+
+    free_cfg = dataclasses.replace(cfg, moe_capacity_factor=DROP_FREE_CAPACITY)
+    sps = [SamplingParams(max_new_tokens=NEW_TOKENS, logprobs=True)] * 4 + [
+        SamplingParams(max_new_tokens=NEW_TOKENS, seed=SEED + i,
+                       logprobs=True, **THINKING) for i in range(4)]
+    pair = {}
+    for k in (1, 8):
+        zk = Zipage(free_cfg, eng.params, dtype="bfloat16", decode_steps=k)
+        tk = time.monotonic()
+        got = zk.generate(prompts, sps)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - tk
+        pair[k] = ([o.token_ids for o in got],
+                   [np.asarray(o.logprobs).tobytes() for o in got])
+        n_tok = sum(len(o.token_ids) for o in got)
+        n_comp = sum(o.metrics.compression.n_compressions for o in got)
+        log(phase, f"capacity factor {DROP_FREE_CAPACITY} (drop-free), "
+            f"decode_steps={k}: {n_tok} tokens in {wall:.2f} s = "
+            f"{n_tok / wall:.1f} tok/s, {n_comp} compressions, "
+            f"{zk.engine._graphs.replays} graph replays")
+        assert n_comp > 0, "compression never fired"
+        del zk
+    if pair[1] != pair[8]:
+        diff = [i for i in range(len(prompts))
+                if pair[1][0][i] != pair[8][0][i]
+                or pair[1][1][i] != pair[8][1][i]]
+        raise AssertionError(f"{phase}: decode_steps 1 and 8 differ at a "
+                             f"drop-free capacity (requests {diff})")
+    log(phase, "decode_steps 1 and 8 at a drop-free capacity: 4 greedy and "
+        "4 seeded streams and their logprobs equal bit for bit ok")
+    lap("pair")
+    out = {"layers": cfg.num_layers, "params": n_params, "peak_bytes": peak,
+           "free_bytes_after_weights": free,
+           "plans": {n: dataclasses.asdict(p) for n, p in plans.items()},
+           "serves": {"mla": summary, "mla-flash": summary_f},
+           "k1_equals_k8_drop_free": True, "took": took}
+    del z, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, rows
+
+
+def dbrx_serve(torch, dev, card, rows):
+    """13d: DBRX-132B at full width and DBRX_LAYERS of its 40 layers, bf16,
+    random weights from the seed, under ZIPAGE_SANITIZE=1: 8 greedy
+    requests of NEW_TOKENS tokens on the main path (K1, K2, K3 and B6,
+    whose launch counts go into the bf16 rows)."""
+    from repro_torch.api import SamplingParams, Zipage
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    phase = f"moe[{DBRX_CONFIG}]"
+    t = time.monotonic()
+    full = get_config(DBRX_CONFIG)
+    cfg = dataclasses.replace(full, num_layers=DBRX_LAYERS, dtype="bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    z = _sanitized(lambda: Zipage(cfg, params, dtype="bfloat16"))
+    torch.cuda.synchronize()
+    assert z.engine.sanitize
+    g = cfg.num_heads // cfg.num_kv_heads
+    log(phase, f"{cfg.num_layers} of {full.num_layers} layers (depth cut "
+        f"for one card's memory), d_model {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads (g = {g}), {cfg.num_experts} experts "
+        f"top-{cfg.num_experts_per_tok} (d_ff {cfg.moe_d_ff}), "
+        f"{cfg.norm_type}, vocab {cfg.vocab_size}; "
+        f"{lm.param_count(params) / 1e9:.2f} B params bf16 on the card, "
+        f"ready in {time.monotonic() - t:.1f} s")
+    with Audits() as audits:
+        _, launches, summary, _ = sanitized_serve(
+            torch, card, z, f"{phase} sanitized", make_prompts(cfg),
+            [SamplingParams(max_new_tokens=NEW_TOKENS)] * N_REQUESTS,
+            MAIN_PATH, audits)
+    peak = torch.cuda.max_memory_allocated()
+    log(phase, f"peak memory allocated {peak / 1e9:.2f} GB on {card}")
+    by_name = {r["name"]: r for r in rows}
+    for kname, n in launches.items():
+        if n:
+            by_name[kname + "_bf16"]["launches_per_serve"][DBRX_CONFIG] = n
+    out = {"layers": cfg.num_layers, "of_layers": full.num_layers,
+           "params": lm.param_count(params), "peak_bytes": peak,
+           "serve": summary, "phase_s": time.monotonic() - t}
+    del z, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_mla(torch, dev, card, rows_bf16):
+    """Phase 13: 13a card vs CPU at a few layers of both configs, 13b the
+    changed kernels at MLA's widths, 13c DeepSeek-V2-Lite-16B served at
+    full width and depth, 13d DBRX-132B served at full width and reduced
+    depth. Returns (summary, the MLA kernel rows)."""
+    from repro_torch.configs import get_config
+
+    took, t = {}, time.monotonic()
+
+    def lap(what):
+        nonlocal t
+        took[what] = time.monotonic() - t
+        t = time.monotonic()
+
+    card_cpu = {}
+    for name in (MLA_CONFIG, DBRX_CONFIG):
+        err, flips = check_moe_logits(torch, dev, name)
+        card_cpu[name] = {"max_abs_err": err, "router_flips": flips}
+    lap("13a")
+    mcfg = get_config(MLA_CONFIG)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs[str(dtype)] = check_mla_kernels(torch, dev, mcfg, dtype)
+    lap("13b")
+    served, rows = mla_serve(torch, card, errs[str(torch.bfloat16)])
+    lap("13c")
+    dbrx = dbrx_serve(torch, dev, card, rows_bf16)
+    lap("13d")
+    log("moe+mla", "passed in " + ", ".join(f"{k} {v:.1f} s"
+                                            for k, v in took.items()))
+    return {"card_vs_cpu": card_cpu, "kernel_errs": errs, "mla": served,
+            "dbrx": dbrx, "took": took}, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4436,17 +5065,20 @@ def main():
     lap("dense")
     train_eval = phase_train_eval(torch, dev, card, rows)
     lap("train+eval")
+    moe_mla, rows_mla = phase_moe_mla(torch, dev, card, rows_bf16)
+    lap("moe+mla")
     log("done", f"all phases passed in {time.monotonic() - t0:.1f} s ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")")
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "serve": summary, "serve_alg34": summary34,
-                   "kernels": rows + rows_bf16, "profile": prof,
+                   "kernels": rows + rows_bf16 + rows_mla,
+                   "profile": prof,
                    "paired": paired, "http": served, "memory": memory,
                    "bf16": bf16,
                    "dense": dense, "train_eval": train_eval,
-                   "took_s": took}, f, indent=1)
-    print(json.dumps({"kernels": rows + rows_bf16}))
+                   "moe_mla": moe_mla, "took_s": took}, f, indent=1)
+    print(json.dumps({"kernels": rows + rows_bf16 + rows_mla}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

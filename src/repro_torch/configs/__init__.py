@@ -1,6 +1,7 @@
 """Architecture configs the port serves: the dense GQA family (the paper's
-Qwen3-8B, Llama-3-8B, Qwen2.5-3B, OLMo-1B and Nemotron-4-15B) and the tiny
-CPU test model. Each module registers one ``ArchConfig`` on import."""
+Qwen3-8B, Llama-3-8B, Qwen2.5-3B, OLMo-1B and Nemotron-4-15B), the MoE
+configs DeepSeek-V2-Lite-16B (MLA) and DBRX-132B (GQA), and the tiny CPU
+test model. Each module registers one ``ArchConfig`` on import."""
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
@@ -8,7 +9,7 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _MODULES = ["qwen3_8b", "llama3_8b", "qwen2_5_3b", "olmo_1b",
-            "nemotron_4_15b", "tiny"]
+            "nemotron_4_15b", "deepseek_v2_lite_16b", "dbrx_132b", "tiny"]
 
 _loaded = False
 

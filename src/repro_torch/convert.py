@@ -6,7 +6,10 @@ stacked into scanned units (``head`` / ``main`` / ``tail``, the layout
 nesting of dicts and lists), ``params_from_numpy`` returns the port's
 per-layer dict (``repro_torch.models.lm``), so both packages compute on
 the same weights: at bfloat16 the port's matrices hold the values the
-JAX package casts its fp32 ones to at each use.
+JAX package casts its fp32 ones to at each use. MLA's projections
+(``wq``, ``w_dkv``, ``w_uk``, ``w_uv``, ``wo``) and a MoE layer's router,
+experts (``w1``/``w2``/``w3``, stacked (E, d, f)) and shared experts are
+carried as matrices; MLA's ``kv_norm`` stays fp32, as the norms do.
 """
 from __future__ import annotations
 

@@ -12,6 +12,16 @@ what another layer's moves write, so every layer is scored first and one
 compaction launch then moves K, V and F of all layers. Pools are updated
 in place; padding rows (qslot < 0) write only to the pools' sink page
 (``paged.sink_page``).
+
+MLA (``cfg.attn_type == "mla"``) scores one stream, h = 1, on the latent
+pool (``{"kv", "f"}``), where the JAX package runs its jnp functions: the
+window logits are ``paged_score`` over the (r + d_rope)-wide entries as
+h_kv = 1 at the MLA scale 1/sqrt(head_dim + qk_rope_head_dim) (16 query
+heads, reduced as ``scoring.mla_attention_scores`` reduces them), the
+redundancy is
+taken on the latents ``[..., :r]`` of the live pages, gathered into a
+contiguous temporary with a table over it, and ``compaction`` moves the
+whole entries as h = 1 with no V.
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ import torch
 from repro_torch.core import scoring
 from repro_torch.core.paged import gather_entries
 from repro_torch.kernels import ops
+from repro_torch.models.layers import mla_scale
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +60,18 @@ def _window_queries(qwin_l, qslots, seq_lens):
              + torch.arange(w, device=rings.device)[None]) % w
     return torch.gather(rings, 1, order.long()[:, :, None, None]
                         .expand(-1, -1, *rings.shape[2:]))
+
+
+def _latent_pages(kv_l, src_bt, r):
+    """The latents ``[..., :r]`` of the pages each table maps, gathered
+    into a contiguous pool (n * mb, b, 1, r) with the table (n, mb) over
+    it; a -1 entry stays -1."""
+    n, mb = src_bt.shape
+    pages = kv_l[src_bt.clamp(min=0).long(), :, :r]         # (n, mb, b, r)
+    table = torch.arange(n * mb, dtype=torch.int32,
+                         device=src_bt.device).view(n, mb)
+    table = torch.where(src_bt >= 0, table, torch.full_like(table, -1))
+    return pages.view(n * mb, kv_l.shape[1], 1, r), table
 
 
 def _select_survivors(cfg, opts, k_keep, pre_s, pre_r, fscore, seq_lens,
@@ -86,8 +109,9 @@ def build_compress_fn(cfg, *, block_size, max_blocks, budget_blocks,
                       opts: CompressOptions):
     """Returns compress(pools, qwin, req) -> (new_seq_lens, stats).
 
-    pools: {"k", "v": (L, N + 1, b, h, d), "f": (L, N + 1, b, h)} with
-    the sink page last, updated in place; qwin: (L, M, w, h_q, d)
+    pools: {"k", "v": (L, N + 1, b, h, d), "f": (L, N + 1, b, h)} (GQA)
+    or {"kv": (L, N + 1, b, r + d_rope), "f": (L, N + 1, b, 1)} (MLA),
+    with the sink page last, updated in place; qwin: (L, M, w, h_q, dq)
     observation-window query pool (ring order).
     req (tensors on the pools' device, leading dim n):
       src_bt (n, max_blocks) source tables (-1 padded), dest_bt
@@ -105,28 +129,40 @@ def build_compress_fn(cfg, *, block_size, max_blocks, budget_blocks,
     b = block_size
     T = max_blocks * b
     k_keep = budget_blocks * b
+    mla = cfg.attn_type == "mla"
+    key = "kv" if mla else "k"
+    scale = mla_scale(cfg) if mla else None
 
     def compress(pools, qwin, req):
         src_bt, dest_bt, qslots, seq_lens, hist_lens = req
         dev = src_bt.device
-        sink = pools["k"].shape[1] - 1
+        n_layers = pools[key].shape[0]
+        sink = pools[key].shape[1] - 1
         writes = (dest_bt >= 0) & (qslots >= 0)[:, None]
         dest_blk = torch.where(writes, dest_bt.long(), sink)
         dest_flat = (dest_blk.repeat_interleave(b, dim=1) * b
                      + torch.arange(b, device=dev).repeat(budget_blocks))
         stats_sum = 0.0
         survivors, new_fs = [], []
-        for l in range(pools["k"].shape[0]):
-            k_l = pools["k"][l]
+        for l in range(n_layers):
+            k_l = pools[key][l]
+            if mla:                          # (N + 1, b, 1, r + d_rope)
+                k_l = k_l.unsqueeze(2)
             q_wins = _window_queries(qwin[l], qslots, seq_lens)
-            logits = ops.score_logits(q_wins, k_l, src_bt, seq_lens)
-            pre_s = ops.attention_scores_from_logits(logits, seq_lens)
+            logits = ops.score_logits(q_wins, k_l, src_bt, seq_lens,
+                                      scale=scale)
+            pre_s = ops.attention_scores_from_logits(logits, seq_lens,
+                                                     causal=mla)
+            red_pool, red_bt = k_l, src_bt
+            if mla and opts.redundancy != "none":
+                red_pool, red_bt = _latent_pages(pools["kv"][l], src_bt,
+                                                 cfg.kv_lora_rank)
             pre_r = None
             if opts.redundancy == "lightning":
-                pre_r = ops.lightning_redundancy(k_l, src_bt, seq_lens,
+                pre_r = ops.lightning_redundancy(red_pool, red_bt, seq_lens,
                                                  p_thresh=opts.p_thresh)
             elif opts.redundancy == "flash":
-                pre_r = ops.flash_redundancy(k_l, src_bt, seq_lens,
+                pre_r = ops.flash_redundancy(red_pool, red_bt, seq_lens,
                                              p_thresh=opts.p_thresh)
             fscore = gather_entries(pools["f"][l], src_bt)
             src_cache, new_f, stats, _ = _select_survivors(
@@ -135,11 +171,14 @@ def build_compress_fn(cfg, *, block_size, max_blocks, budget_blocks,
             stats_sum = stats_sum + stats
             survivors.append(src_cache)
             new_fs.append(new_f)
-        # F is refreshed (post-global scores) and moved with its entries
-        ops.compact(pools["k"], pools["v"], pools["f"], torch.stack(new_fs),
+        # F is refreshed (post-global scores) and moved with its entries;
+        # MLA's whole entries move as one stream (h = 1) with no V
+        k_pool, v_pool = (pools["kv"].unsqueeze(3), None) if mla else \
+            (pools["k"], pools["v"])
+        ops.compact(k_pool, v_pool, pools["f"], torch.stack(new_fs),
                     src_bt, torch.stack(survivors), dest_flat)
         new_seq = torch.where(qslots >= 0,
                               torch.full_like(seq_lens, k_keep), seq_lens)
-        return new_seq, stats_sum / pools["k"].shape[0]
+        return new_seq, stats_sum / n_layers
 
     return compress

@@ -17,7 +17,8 @@ The graphs read fixed addresses, so the device state and the decode
 inputs are buffers allocated once: every host push, and ``restore()``,
 copies into them.
 
-Ported so far: dense GQA models, compression with lightning or flash
+Ported so far: attention models (GQA, and DeepSeek's MLA on a latent
+pool) with dense or MoE FFNs, compression with lightning or flash
 redundancy, the ragged and the dense decode kernel, recompute, swap and
 auto preemption with the host swap tier (a pinned host pool on the card),
 block-level prefix caching of raw KV and of compressed prefixes, fused and

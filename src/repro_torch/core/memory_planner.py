@@ -53,9 +53,11 @@ def bytes_per_kv_block(cfg, block_size, *, dtype_bytes=4, with_global=True):
 
 def pool_bytes_per_kv_block(cfg, block_size, *, dtype_bytes=4):
     """The bytes one block really takes in the port's pools, over all
-    layers: K and V at ``dtype_bytes``, F in fp32 (dense GQA)."""
+    layers: K and V (or MLA's latent entries) at ``dtype_bytes``, F in
+    fp32, one score per kv head (GQA) or one per token (MLA)."""
+    f_width = 1 if cfg.attn_type == "mla" else cfg.num_kv_heads
     return cfg.num_attn_layers * block_size * (
-        cfg.kv_entry_dim * dtype_bytes + cfg.num_kv_heads * 4)
+        cfg.kv_entry_dim * dtype_bytes + f_width * 4)
 
 
 def bytes_q_per_request(cfg, window, *, dtype_bytes=4):

@@ -156,3 +156,51 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, q_start,
                      torch.zeros((), device=q.device))
     o = torch.einsum("bhgst,bthd->bshgd", p, vs)
     return o.reshape(B, S, hq, d).to(q.dtype)
+
+
+def paged_decode_attention_mla(q_nope_abs, q_rope, kv_pool, block_tables,
+                               seq_lens, *, r, scale):
+    """MLA absorbed decode (no kernel: plain PyTorch, as in the JAX
+    package): score = q_abs·c + q_rope·k_rope, output in the latent.
+
+    q_nope_abs: (B, h_q, r), the queries already absorbed through W_uk;
+    q_rope: (B, h_q, d_rope); kv_pool: (N, b, r + d_rope). The product
+    contracts the full (r + d_rope)-wide entries. Returns the latent
+    output (B, h_q, r); the caller applies W_uv. Masked entries are zeroed
+    before ``p·entries`` (pool garbage, and 0·NaN = NaN)."""
+    entries = gather_entries(kv_pool, block_tables)      # (B, T, r+dr)
+    T = entries.shape[1]
+    q_cat = torch.cat([q_nope_abs, q_rope], -1)          # (B, hq, r+dr)
+    s = torch.einsum("bhe,bte->bht", q_cat.float(), entries.float()) * scale
+    mask = torch.arange(T, device=q_cat.device)[None, :] < seq_lens[:, None]
+    s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, -1)
+    ent = torch.where(mask[..., None], entries.float(),
+                      torch.zeros((), device=q_cat.device))
+    o = torch.einsum("bht,bte->bhe", p, ent)
+    return o[..., :r].to(q_nope_abs.dtype)
+
+
+def paged_prefill_attention_mla(q_full, kv_pool, block_tables, q_start,
+                                kv_lens, *, r, scale):
+    """MLA prefill attention in the absorbed space against the pool (the
+    JAX package's ``_paged_prefill_mla``). q_full: (B, S, h_q, r + d_rope)
+    at cache positions q_start + arange(S); kv_lens: (B,) valid entries,
+    this chunk's already written. Causal within the chunk. Returns the
+    latent output (B, S, h_q, r)."""
+    B, S = q_full.shape[:2]
+    entries = gather_entries(kv_pool, block_tables)      # (B, T, r+dr)
+    T = entries.shape[1]
+    dev = q_full.device
+    s = torch.einsum("bshe,bte->bhst", q_full.float(),
+                     entries.float()) * scale
+    qpos = q_start[:, None] + torch.arange(S, device=dev)[None]
+    kpos = torch.arange(T, device=dev)[None]
+    kv_valid = kpos < kv_lens[:, None]                             # (B, T)
+    mask = (kpos[:, None] <= qpos[..., None]) & kv_valid[:, None]  # (B,S,T)
+    s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, -1)
+    ent = torch.where(kv_valid[..., None], entries.float(),
+                      torch.zeros((), device=dev))
+    o = torch.einsum("bhst,bte->bshe", p, ent)
+    return o[..., :r].to(q_full.dtype)

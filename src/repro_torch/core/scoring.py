@@ -19,6 +19,25 @@ def _arange(T, like):
     return torch.arange(T, device=like.device)
 
 
+def mla_attention_scores(q_win_abs, entries, valid, seq_len, *, scale):
+    """MLA window scores (the JAX package's ``mla_attention_scores``,
+    batched), the plain reference the kernel route is held against:
+    q_win_abs (n, w, h_q, r + d_rope) absorbed window queries; entries
+    (n, T, r + d_rope) the latent cache. Softmax over T, max over the
+    query heads, mean over w. Returns (n, T, 1)."""
+    w = q_win_abs.shape[1]
+    T = entries.shape[1]
+    s = torch.einsum("nwhe,nte->nwht", q_win_abs.float(),
+                     entries.float()) * scale
+    qpos = seq_len[:, None] - w + _arange(w, s)[None]             # (n, w)
+    mask = (_arange(T, s)[None, None] <= qpos[..., None]) \
+        & valid[:, None]                                          # (n, w, T)
+    s = torch.where(mask[:, :, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, -1)
+    p = torch.where(mask[:, :, None], p, torch.zeros_like(p))
+    return p.amax(2).mean(1)[..., None]
+
+
 def global_score_update(scores, f_prev, hist_len, alpha):
     """Paper Alg. 2 (G-KV): decayed max with history; entries with cache
     position < hist_len carry history."""

@@ -1,14 +1,18 @@
-"""Serving-time model execution over the paged KV pool, dense GQA
-(``repro.core.serve_model`` for the layer kind the port serves).
+"""Serving-time model execution over the paged KV pool
+(``repro.core.serve_model`` for the layer kinds the port serves:
+attention, GQA or MLA, with dense or MoE FFNs).
 
 State layout (a dict of tensors on one device; the steps update it in
 place where the JAX package returned a new state, and never replace a
 tensor of it, so a captured CUDA graph of a step reads and writes the same
 buffers on every replay):
   pools:  {"k", "v": (L, N + 1, b, h_kv, d) at ``ServeSpec.dtype``,
-           "f": (L, N + 1, b, h_kv) fp32}
-  qwin:   (L, M + 1, w, h_q, d) ring-ordered observation-window queries,
-          at ``ServeSpec.dtype``
+           "f": (L, N + 1, b, h_kv) fp32}                       [GQA]
+          or {"kv": (L, N + 1, b, r + d_rope) at ``ServeSpec.dtype``,
+           "f": (L, N + 1, b, 1) fp32}                          [MLA]
+  qwin:   (L, M + 1, w, h_q, dq) ring-ordered observation-window queries,
+          at ``ServeSpec.dtype``; dq = d (GQA) or r + d_rope (MLA: the
+          absorbed query beside its roped part)
 The extra last page of the pools and the extra last query slot are sinks:
 nothing maps them, and writes that must be dropped land there
 (``paged.sink_page``).
@@ -60,6 +64,13 @@ class ServeSpec:
                              f"expected one of {DECODE_KERNELS}")
 
 
+def qwin_dim(cfg: ArchConfig) -> int:
+    """Width of one observation-window query."""
+    if cfg.attn_type == "mla":
+        return cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    return cfg.head_dim
+
+
 def make_state(cfg: ArchConfig, spec: ServeSpec, device) -> dict:
     lm.check_supported(cfg)
     L, B = cfg.num_layers, spec.n_slots
@@ -67,20 +78,28 @@ def make_state(cfg: ArchConfig, spec: ServeSpec, device) -> dict:
     h, d = cfg.num_kv_heads, cfg.head_dim
     f32, i32 = torch.float32, torch.int32
     dt = lm.torch_dtype(spec.dtype)
+    if cfg.attn_type == "mla":
+        pools = {"kv": torch.zeros((L, N + 1, b, qwin_dim(cfg)), dtype=dt,
+                                   device=device),
+                 "f": torch.zeros((L, N + 1, b, 1), dtype=f32,
+                                  device=device)}
+    else:
+        pools = {"k": torch.zeros((L, N + 1, b, h, d), dtype=dt,
+                                  device=device),
+                 "v": torch.zeros((L, N + 1, b, h, d), dtype=dt,
+                                  device=device),
+                 "f": torch.zeros((L, N + 1, b, h), dtype=f32,
+                                  device=device)}
     return {
         "block_tables": torch.full((B, spec.max_blocks), -1, dtype=i32,
                                    device=device),
         "seq_lens": torch.zeros(B, dtype=i32, device=device),
         "positions": torch.zeros(B, dtype=i32, device=device),
         "qslot": torch.full((B,), -1, dtype=i32, device=device),
-        "pools": {"k": torch.zeros((L, N + 1, b, h, d), dtype=dt,
-                                   device=device),
-                  "v": torch.zeros((L, N + 1, b, h, d), dtype=dt,
-                                   device=device),
-                  "f": torch.zeros((L, N + 1, b, h), dtype=f32,
-                                   device=device)},
+        "pools": pools,
         "qwin": torch.zeros((L, spec.m_qslots + 1, spec.window,
-                             cfg.num_heads, d), dtype=dt, device=device),
+                             cfg.num_heads, qwin_dim(cfg)), dtype=dt,
+                            device=device),
         "tokens_next": torch.zeros(B, dtype=torch.int64, device=device),
         "active_mask": torch.zeros(B, dtype=torch.bool, device=device),
         "sample_counters": torch.zeros(B, dtype=i32, device=device),
@@ -98,6 +117,23 @@ def _write_qwin(qwin_l, rows, qslot, ring_pos, q):
         flat.dtype)
 
 
+def _absorb(cfg, p, q_nope, dtype):
+    """Queries absorbed through W_uk: (..., h_q, dh) -> (..., h_q, r), the
+    product in fp32, as the reference."""
+    w_uk = p["w_uk"].reshape(cfg.kv_lora_rank, cfg.num_heads, cfg.head_dim)
+    return torch.einsum("...hd,rhd->...hr", q_nope.float(),
+                        w_uk.float()).to(dtype)
+
+
+def _expand(cfg, p, o_lat, dtype):
+    """Latent attention output through W_uv: (..., h_q, r) ->
+    (..., h_q * dv), the product in fp32."""
+    w_uv = p["w_uv"].reshape(cfg.kv_lora_rank, cfg.num_heads,
+                             cfg.v_head_dim)
+    o = torch.einsum("...hr,rhd->...hd", o_lat.float(), w_uv.float())
+    return o.reshape(*o.shape[:-2], -1).to(dtype)
+
+
 def build_decode_step(cfg: ArchConfig, spec: ServeSpec):
     """decode_step(params, state, tokens, active) -> logits (B, V) fp32.
 
@@ -108,6 +144,7 @@ def build_decode_step(cfg: ArchConfig, spec: ServeSpec):
     """
     lm.check_supported(cfg)
     dense = spec.decode_kernel == "dense"
+    mla = cfg.attn_type == "mla"
 
     def step(params, state, tokens, active):
         x = params["embed"][tokens]
@@ -122,20 +159,46 @@ def build_decode_step(cfg: ArchConfig, spec: ServeSpec):
         B = x.shape[0]
         for li, p in enumerate(params["layers"]):
             h = apply_norm(cfg, p["ln1"], x)
-            q, k, v = ML.attn_qkv(cfg, p["attn"], h)          # (B, h, d)
-            q = apply_rope(q[:, None], positions[:, None], cfg.rope_theta)[:, 0]
-            k = apply_rope(k[:, None], positions[:, None], cfg.rope_theta)[:, 0]
-            k_l, v_l = pools["k"][li], pools["v"][li]
-            paged.scatter_token(k_l, bt, write_pos, k)
-            paged.scatter_token(v_l, bt, write_pos, v)
-            if dense:
-                o = ops.paged_decode_attention(q, k_l, v_l, bt, attend_len)
+            pa = p["attn"]
+            if mla:
+                # the latent pool, attended in plain PyTorch as the JAX
+                # package decodes MLA in jnp
+                q_nope, q_rope = ML.mla_queries(cfg, pa, h[:, None],
+                                                positions[:, None])
+                c, k_rope = ML.mla_latent(cfg, pa, h[:, None],
+                                          positions[:, None])
+                kv_l = pools["kv"][li]
+                paged.scatter_token(kv_l, bt, write_pos,
+                                    torch.cat([c[:, 0], k_rope[:, 0]], -1))
+                q_abs = _absorb(cfg, pa, q_nope[:, 0], x.dtype)
+                o_lat = paged.paged_decode_attention_mla(
+                    q_abs, q_rope[:, 0], kv_l, bt, attend_len,
+                    r=cfg.kv_lora_rank, scale=ML.mla_scale(cfg))
+                o = _expand(cfg, pa, o_lat, x.dtype)
+                q = torch.cat([q_abs, q_rope[:, 0]], -1)   # (B, hq, r+dr)
             else:
-                o = ops.ragged_decode_attention(q, k_l, v_l, bt, attend_len)
+                q, k, v = ML.attn_qkv(cfg, pa, h)             # (B, h, d)
+                q = apply_rope(q[:, None], positions[:, None],
+                               cfg.rope_theta)[:, 0]
+                k = apply_rope(k[:, None], positions[:, None],
+                               cfg.rope_theta)[:, 0]
+                k_l, v_l = pools["k"][li], pools["v"][li]
+                paged.scatter_token(k_l, bt, write_pos, k)
+                paged.scatter_token(v_l, bt, write_pos, v)
+                if dense:
+                    o = ops.paged_decode_attention(q, k_l, v_l, bt,
+                                                   attend_len)
+                else:
+                    o = ops.ragged_decode_attention(q, k_l, v_l, bt,
+                                                    attend_len)
             _write_qwin(qwin[li], live_q, qslot, seq, q)
-            x = x + o.reshape(B, -1) @ p["attn"]["wo"]
-            x = x + ML.ffn_forward(cfg, p["ffn"],
-                                   apply_norm(cfg, p["ln2"], x))
+            x = x + o.reshape(B, -1) @ pa["wo"]
+            h2 = apply_norm(cfg, p["ln2"], x)
+            if "moe" in p:
+                x = x + ML.moe_forward(cfg, p["moe"], h2[:, None],
+                                       valid=active[:, None])[:, 0]
+            else:
+                x = x + ML.ffn_forward(cfg, p["ffn"], h2)
         x = apply_norm(cfg, params["final_norm"], x)
         logits = (x @ lm.unembed_matrix(cfg, params)).float()
         inc = active.to(seq.dtype)
@@ -246,6 +309,7 @@ def build_prefill_step(cfg: ArchConfig, spec: ServeSpec):
     """
     lm.check_supported(cfg)
     w_obs = spec.window
+    mla = cfg.attn_type == "mla"
 
     def step(params, state, tokens, slot_ids, lengths, start_pos,
              rope_start=None):
@@ -269,20 +333,38 @@ def build_prefill_step(cfg: ArchConfig, spec: ServeSpec):
             & ((qslot >= 0) & row_ok)[:, None]
         qslot_rows = qslot[:, None].expand(P, S)
         pools, qwin = state["pools"], state["qwin"]
+        moe_valid = valid & row_ok[:, None]
         for li, p in enumerate(params["layers"]):
             h = apply_norm(cfg, p["ln1"], x)
-            q, k, v = ML.attn_qkv(cfg, p["attn"], h)       # (P, S, h, d)
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
-            k_l, v_l = pools["k"][li], pools["v"][li]
-            paged.scatter_positions(k_l, bt, wpos, k)
-            paged.scatter_positions(v_l, bt, wpos, v)
-            o = paged.paged_prefill_attention(q, k_l, v_l, bt, start_pos,
-                                              kv_lens)
+            pa = p["attn"]
+            if mla:
+                q_nope, q_rope = ML.mla_queries(cfg, pa, h, positions)
+                c, k_rope = ML.mla_latent(cfg, pa, h, positions)
+                kv_l = pools["kv"][li]
+                paged.scatter_positions(kv_l, bt, wpos,
+                                        torch.cat([c, k_rope], -1))
+                q = torch.cat([_absorb(cfg, pa, q_nope, x.dtype), q_rope],
+                              -1)                         # (P, S, hq, r+dr)
+                o_lat = paged.paged_prefill_attention_mla(
+                    q, kv_l, bt, start_pos, kv_lens, r=cfg.kv_lora_rank,
+                    scale=ML.mla_scale(cfg))
+                o = _expand(cfg, pa, o_lat, x.dtype)
+            else:
+                q, k, v = ML.attn_qkv(cfg, pa, h)          # (P, S, h, d)
+                q = apply_rope(q, positions, cfg.rope_theta)
+                k = apply_rope(k, positions, cfg.rope_theta)
+                k_l, v_l = pools["k"][li], pools["v"][li]
+                paged.scatter_positions(k_l, bt, wpos, k)
+                paged.scatter_positions(v_l, bt, wpos, v)
+                o = paged.paged_prefill_attention(q, k_l, v_l, bt,
+                                                  start_pos, kv_lens)
             _write_qwin(qwin[li], in_win, qslot_rows, cache_pos, q)
-            x = x + o.reshape(P, S, -1) @ p["attn"]["wo"]
-            x = x + ML.ffn_forward(cfg, p["ffn"],
-                                   apply_norm(cfg, p["ln2"], x))
+            x = x + o.reshape(P, S, -1) @ pa["wo"]
+            h2 = apply_norm(cfg, p["ln2"], x)
+            if "moe" in p:
+                x = x + ML.moe_forward(cfg, p["moe"], h2, valid=moe_valid)
+            else:
+                x = x + ML.ffn_forward(cfg, p["ffn"], h2)
         x = apply_norm(cfg, params["final_norm"], x)
         last = (lengths - 1).clamp(min=0).long()
         x_last = x[torch.arange(P, device=dev), last]

@@ -58,6 +58,9 @@
 // evict-first (st.global.cs): no rank of the launch reads them back, and
 // they would otherwise push the reads still to come out of L2.
 //
+// Without a V pool (MLA's latent pool: its whole entries, 576 wide, move
+// as K with h = 1) the V ring and its copies are left out.
+//
 // What bounds it on the card: memory. Per (layer, request, head) it moves
 // k rows of d floats for K and for V (read once, written once) and k
 // floats of F; it does no arithmetic.
@@ -74,11 +77,12 @@ __host__ __device__ inline int zp_rows_per_chunk(int d4) {
 }
 
 // E: the storage type of K and V, whose bits are moved as 16-byte units
-// (float4s); F is fp32 at either E.
-template <typename E>
+// (float4s); F is fp32 at either E. kV: whether there is a V pool (MLA's
+// latent entries move as K alone, h = 1).
+template <typename E, bool kV>
 __global__ void __launch_bounds__(kThreads)
 compaction_kernel(E* __restrict__ k_pool,                // (L, S, h, d), S = slots
-                  E* __restrict__ v_pool,                // (L, S, h, d)
+                  E* __restrict__ v_pool,                // (L, S, h, d), or null
                   float* __restrict__ f_pool,            // (L, S, h)
                   const float* __restrict__ new_f,       // (L, n, T, h)
                   const int* __restrict__ src_bt,        // (n, mb), -1 padded
@@ -90,11 +94,11 @@ compaction_kernel(E* __restrict__ k_pool,                // (L, S, h, d), S = sl
   const int d4 = d / V;  // 16-byte units a row
   const int rows = zp_rows_per_chunk(d4);
   const int chunk4 = rows * d4;                 // float4s of one tensor a chunk
-  // the ring: kStages chunks of K rows, of V rows, of destination slots
-  // and of F values
+  // the ring: kStages chunks of K rows, of V rows (if any), of destination
+  // slots and of F values
   float4* k_ring = smem4;
-  float4* v_ring = k_ring + kStages * chunk4;
-  long long* dst_ring = reinterpret_cast<long long*>(v_ring + kStages * chunk4);
+  float4* v_ring = k_ring + kStages * chunk4;  // == dst_ring without V
+  long long* dst_ring = reinterpret_cast<long long*>(v_ring + (kV ? kStages * chunk4 : 0));
   float* f_ring = reinterpret_cast<float*>(dst_ring + kStages * rows);
 
   const int hh = blockIdx.x;
@@ -107,7 +111,7 @@ compaction_kernel(E* __restrict__ k_pool,                // (L, S, h, d), S = sl
   const float* nf = new_f + ((size_t)l * n + i) * T * h + hh;
   const size_t layer = (size_t)l * S * h * d;
   E* kl = k_pool + layer;
-  E* vl = v_pool + layer;
+  E* vl = kV ? v_pool + layer : nullptr;
   float* fl = f_pool + (size_t)l * S * h + hh;
 
   // this thread's row of every chunk, and its first float4 column of it
@@ -141,7 +145,7 @@ compaction_kernel(E* __restrict__ k_pool,                // (L, S, h, d), S = sl
       float4* vd = v_ring + st * chunk4 + t * d4;
       for (int c4 = c0; c4 < d4; c4 += kThreads) {
         zp_cp_async16(kd + c4, kl + s.off + V * c4, true);
-        zp_cp_async16(vd + c4, vl + s.off + V * c4, true);
+        if (kV) zp_cp_async16(vd + c4, vl + s.off + V * c4, true);
       }
       if (leader) {
         zp_cp_async8(dst_ring + st * rows + t, dest + c * rows + t);
@@ -164,10 +168,11 @@ compaction_kernel(E* __restrict__ k_pool,                // (L, S, h, d), S = sl
       const float4* ks = k_ring + st * chunk4 + t * d4;
       const float4* vs = v_ring + st * chunk4 + t * d4;
       float4* kd = reinterpret_cast<float4*>(kl + (dst * h + hh) * d);
-      float4* vd = reinterpret_cast<float4*>(vl + (dst * h + hh) * d);
-      for (int c4 = c0; c4 < d4; c4 += kThreads) {  // evict-first: no rank reads them back
+      for (int c4 = c0; c4 < d4; c4 += kThreads)  // evict-first: no rank reads them back
         __stcs(kd + c4, ks[c4]);
-        __stcs(vd + c4, vs[c4]);
+      if (kV) {
+        float4* vd = reinterpret_cast<float4*>(vl + (dst * h + hh) * d);
+        for (int c4 = c0; c4 < d4; c4 += kThreads) __stcs(vd + c4, vs[c4]);
       }
       if (leader) fl[dst * h] = f_ring[st * rows + t];
     }
@@ -177,22 +182,34 @@ compaction_kernel(E* __restrict__ k_pool,                // (L, S, h, d), S = sl
   zp_cp_async_wait<0>();  // no copy outlives the block
 }
 
+template <typename E, bool kV>
+int launch_kv(void* k_pool, void* v_pool, void* f_pool, const void* new_f, const void* src_bt,
+              const void* src_cache, const void* dest_flat, int L, int n, int h, int d, int b,
+              int mb, int k, int S, int T, void* stream) {
+  const int d4 = d / kVecOf<E>;
+  const size_t rows = zp_rows_per_chunk(d4);
+  const size_t smem = kStages * ((kV ? 2 : 1) * sizeof(float4) * rows * d4 +
+                                 (sizeof(long long) + sizeof(float)) * rows);
+  cudaError_t err = zp_allow_smem(compaction_kernel<E, kV>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(h, n, L);
+  compaction_kernel<E, kV><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (E*)k_pool, (E*)v_pool, (float*)f_pool, (const float*)new_f, (const int*)src_bt,
+      (const long long*)src_cache, (const long long*)dest_flat, n, h, d, b, mb, k, S, T);
+  return (int)cudaGetLastError();
+}
+
+// v_pool null: K and F only.
 template <typename E>
 int launch(void* k_pool, void* v_pool, void* f_pool, const void* new_f, const void* src_bt,
            const void* src_cache, const void* dest_flat, int L, int n, int h, int d, int b,
            int mb, int k, int S, int T, void* stream) {
   if (d % kVecOf<E> != 0 || b < 1) return (int)cudaErrorInvalidValue;
-  const int d4 = d / kVecOf<E>;
-  const size_t rows = zp_rows_per_chunk(d4);
-  const size_t smem = kStages * (2 * sizeof(float4) * rows * d4 +
-                                 (sizeof(long long) + sizeof(float)) * rows);
-  cudaError_t err = zp_allow_smem(compaction_kernel<E>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(h, n, L);
-  compaction_kernel<E><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (E*)k_pool, (E*)v_pool, (float*)f_pool, (const float*)new_f, (const int*)src_bt,
-      (const long long*)src_cache, (const long long*)dest_flat, n, h, d, b, mb, k, S, T);
-  return (int)cudaGetLastError();
+  if (v_pool == nullptr)
+    return launch_kv<E, false>(k_pool, v_pool, f_pool, new_f, src_bt, src_cache, dest_flat, L,
+                               n, h, d, b, mb, k, S, T, stream);
+  return launch_kv<E, true>(k_pool, v_pool, f_pool, new_f, src_bt, src_cache, dest_flat, L, n,
+                            h, d, b, mb, k, S, T, stream);
 }
 }  // namespace
 

@@ -64,16 +64,24 @@
 // p_thresh the newest such row would take every column's zero-out, so a
 // valid entry is never zeroed, and the tag starts set).
 //
+// Tiles of 64 keys need 3 x 64 x (d + pad) elements of shared memory:
+// ~200 KB at d = 256 in fp32 and at d = 512 in bf16. Where they do not fit
+// (d = 512 in fp32, MLA's latent: ~396 KB) the same kernel runs on tiles of
+// 32 keys, each thread a 2 x 2 micro-tile (~198 KB); the sums then run in
+// another order, within the plain version's tolerance.
+//
 // Memory: `out` is the start of one buffer that flash_redundancy_cuda
 // allocates: n * T * h floats of output, then flash_redundancy_workspace()
-// floats for the strips' partial row sums (none when T <= 64), so the strip
-// width is decided here alone.
+// floats for the strips' partial row sums (none when the table is one
+// strip wide), so the strip width is decided here alone.
 #include "common.cuh"
 
 namespace {
-constexpr int kThreads = 256;  // 16 x 16 threads, each 4 x 4 entries of a 64 x 64 tile
+constexpr int kThreads = 256;  // 16 x 16 threads, each R x R entries of a 16R x 16R tile
 
-template <typename E>  // the keys' storage type
+// R: rows (and columns) of a thread's micro-tile; tiles are 16 R keys a
+// side. E: the keys' storage type.
+template <int R, typename E>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_redundancy_strip_kernel(const E* __restrict__ k_pool,          // (N, b, h, d)
                               const int* __restrict__ block_tables,  // (n, mb)
@@ -81,6 +89,7 @@ flash_redundancy_strip_kernel(const E* __restrict__ k_pool,          // (N, b, h
                               float* __restrict__ out,               // (n, T, h)
                               float* __restrict__ part,  // (n, h, n_strips, T), or null
                               int h, int d, int b, int mb, float p_thresh) {
+  constexpr int kTile = 16 * R;
   extern __shared__ __align__(16) float smem[];
   const int ld = d + kKeyPadOf<E>;
   const int T = mb * b;
@@ -90,35 +99,35 @@ flash_redundancy_strip_kernel(const E* __restrict__ k_pool,          // (N, b, h
   const int ib = blockIdx.z;
   const int tid = threadIdx.x;
   const int L = min(max(seq_lens[ib], 0), T);
-  const int c0 = J * kKeyTile;
+  const int c0 = J * kTile;
   if (c0 >= L) {  // a dead strip adds nothing; a lone strip still writes zeros
     if (part == nullptr)
       for (int t = tid; t < T; t += blockDim.x) out[((size_t)ib * T + t) * h + hh] = 0.f;
     return;
   }
-  E* col_s = reinterpret_cast<E*>(smem);           // kKeyTile x ld: the strip's keys
-  E* row_s = col_s + kKeyTile * ld;                // 2 x kKeyTile x ld: row tiles
-  float* cinv_s = reinterpret_cast<float*>(row_s + 2 * kKeyTile * ld);  // kKeyTile: 1 / norms
-  int* win_s = (int*)(cinv_s + kKeyTile);          // 2 x kKeyTile: newest row above p
-  int* done_s = win_s + 2 * kKeyTile;              // 2 x kKeyTile: zeroed in a newer tile
+  E* col_s = reinterpret_cast<E*>(smem);           // kTile x ld: the strip's keys
+  E* row_s = col_s + kTile * ld;                   // 2 x kTile x ld: row tiles
+  float* cinv_s = reinterpret_cast<float*>(row_s + 2 * kTile * ld);  // kTile: 1 / norms
+  int* win_s = (int*)(cinv_s + kTile);             // 2 x kTile: newest row above p
+  int* done_s = win_s + 2 * kTile;                 // 2 x kTile: zeroed in a newer tile
   const int* bt = block_tables + (size_t)ib * mb;
   const int ty = tid >> 4;  // rows ty + 16 r of a tile
   const int tx = tid & 15;  // columns tx + 16 c of the strip
-  const int n_tiles = (L + kKeyTile - 1) / kKeyTile;
+  const int n_tiles = (L + kTile - 1) / kTile;
 
   const int tag0 = p_thresh < 0.f && L < T;
-  for (int c = tid; c < 2 * kKeyTile; c += blockDim.x) {
+  for (int c = tid; c < 2 * kTile; c += blockDim.x) {
     win_s[c] = -1;
     done_s[c] = tag0;
   }
-  zp_load_key_tile(col_s, k_pool, bt, c0, L, h, hh, d, b);
+  zp_load_key_tile(col_s, k_pool, bt, c0, L, h, hh, d, b, kTile);
   zp_cp_async_commit();
   if (n_tiles - 1 != J)  // row tile J holds the strip's own keys: not loaded twice
-    zp_load_key_tile(row_s, k_pool, bt, (n_tiles - 1) * kKeyTile, L, h, hh, d, b);
+    zp_load_key_tile(row_s, k_pool, bt, (n_tiles - 1) * kTile, L, h, hh, d, b, kTile);
   zp_cp_async_commit();   // (maybe empty) group of the first row tile
   zp_cp_async_wait<1>();  // the strip has landed (the first row tile may not have)
   __syncthreads();
-  if (tid < kKeyTile) {  // the strip's inverse key norms: a thread per key
+  if (tid < kTile) {  // the strip's inverse key norms: a thread per key
     const E* x = col_s + tid * ld;
     float ss = 0.f;
     for (int k = 0; k < d; k += 4) {
@@ -131,29 +140,29 @@ flash_redundancy_strip_kernel(const E* __restrict__ k_pool,          // (N, b, h
   for (int it = 0; it < n_tiles; ++it) {
     const int I = n_tiles - 1 - it;  // newest row tile first
     const int cur = it & 1;
-    const E* rt = I == J ? col_s : row_s + cur * kKeyTile * ld;
+    const E* rt = I == J ? col_s : row_s + cur * kTile * ld;
     zp_cp_async_wait<0>();
     __syncthreads();  // (A) tile I has landed, the norms are in, the other buffer is free
     if (I > 0 && I - 1 != J) {
-      zp_load_key_tile(row_s + (cur ^ 1) * kKeyTile * ld, k_pool, bt, (I - 1) * kKeyTile, L, h,
-                       hh, d, b);
+      zp_load_key_tile(row_s + (cur ^ 1) * kTile * ld, k_pool, bt, (I - 1) * kTile, L, h, hh,
+                       d, b, kTile);
       zp_cp_async_commit();
     }
-    float acc[4][4];
+    float acc[R][R];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+      for (int c = 0; c < R; ++c) acc[r][c] = 0.f;
     for (int k = 0; k < d; k += 4) {
-      float4 a[4], q[4];
+      float4 a[R], q[R];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = zp_load4(rt + (ty + 16 * r) * ld + k);
+      for (int r = 0; r < R; ++r) a[r] = zp_load4(rt + (ty + 16 * r) * ld + k);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) q[c] = zp_load4(col_s + (tx + 16 * c) * ld + k);
+      for (int c = 0; c < R; ++c) q[c] = zp_load4(col_s + (tx + 16 * c) * ld + k);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < R; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+        for (int c = 0; c < R; ++c) {
           float s = acc[r][c];
           s = fmaf(a[r].x, q[c].x, s);
           s = fmaf(a[r].y, q[c].y, s);
@@ -163,9 +172,9 @@ flash_redundancy_strip_kernel(const E* __restrict__ k_pool,          // (N, b, h
         }
     }
     // the rows' norms: the 16 lanes that share a row each take d / 16 squares
-    float rinv[4];
+    float rinv[R];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < R; ++r) {
       const E* x = rt + (ty + 16 * r) * ld;
       float ss = 0.f;
       for (int k = 4 * tx; k < d; k += 64) {
@@ -176,38 +185,38 @@ flash_redundancy_strip_kernel(const E* __restrict__ k_pool,          // (N, b, h
       for (int off = 8; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
       rinv[r] = 1.f / fmaxf(sqrtf(ss), 1e-12f);
     }
-    const int r0 = I * kKeyTile;
-    float cinv[4];
+    const int r0 = I * kTile;
+    float cinv[R];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) cinv[c] = cinv_s[tx + 16 * c];
-    int* win = win_s + cur * kKeyTile;
-    const int* done = done_s + cur * kKeyTile;
+    for (int c = 0; c < R; ++c) cinv[c] = cinv_s[tx + 16 * c];
+    int* win = win_s + cur * kTile;
+    const int* done = done_s + cur * kTile;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < R; ++r) {
       const int gi = r0 + ty + 16 * r;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < R; ++c) {
         const int gj = c0 + tx + 16 * c;
         acc[r][c] = gi < L && gj < L && gi != gj ? acc[r][c] * rinv[r] * cinv[c] : 0.f;
       }
     }
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {  // the newest row of this tile above p, per column
+    for (int c = 0; c < R; ++c) {  // the newest row of this tile above p, per column
       const int cl = tx + 16 * c;
       if (done[cl]) continue;
       int newest = -1;
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < R; ++r)
         if (r0 + ty + 16 * r < T && acc[r][c] > p_thresh) newest = ty + 16 * r;
       if (newest >= 0) atomicMax(&win[cl], newest);
     }
     __syncthreads();  // (B) win is complete
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < R; ++r) {
       const int rl = ty + 16 * r;
       float s = 0.f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s += win[tx + 16 * c] == rl ? 0.f : acc[r][c];
+      for (int c = 0; c < R; ++c) s += win[tx + 16 * c] == rl ? 0.f : acc[r][c];
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
       const int gi = r0 + rl;
@@ -220,10 +229,10 @@ flash_redundancy_strip_kernel(const E* __restrict__ k_pool,          // (N, b, h
     }
     if (ty == 0) {  // carry the tags to the next tile; reset the other win
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < R; ++c) {
         const int cl = tx + 16 * c;
-        done_s[(cur ^ 1) * kKeyTile + cl] = done[cl] | (win[cl] >= 0);
-        win_s[(cur ^ 1) * kKeyTile + cl] = -1;
+        done_s[(cur ^ 1) * kTile + cl] = done[cl] | (win[cl] >= 0);
+        win_s[(cur ^ 1) * kTile + cl] = -1;
       }
     }
   }
@@ -234,7 +243,7 @@ flash_redundancy_strip_kernel(const E* __restrict__ k_pool,          // (N, b, h
 __global__ void flash_redundancy_reduce_kernel(const float* __restrict__ part,
                                                const int* __restrict__ seq_lens,
                                                float* __restrict__ out, int h, int T,
-                                               int n_strips, int total) {
+                                               int n_strips, int tile, int total) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const int t = idx % T;
@@ -244,46 +253,85 @@ __global__ void flash_redundancy_reduce_kernel(const float* __restrict__ part,
   float s = 0.f;
   if (t < L) {
     const float* p = part + ((size_t)ib * h + hh) * n_strips * T + t;
-    const int live = (L + kKeyTile - 1) / kKeyTile;
+    const int live = (L + tile - 1) / tile;
     for (int J = 0; J < live; ++J) s += p[(size_t)J * T];
     s = s / (float)L;
   }
   out[((size_t)ib * T + t) * h + hh] = s;
 }
+
+// Shared memory of a strip block with tiles of 16 R keys.
+template <int R, typename E>
+size_t strip_smem(int d) {
+  return sizeof(E) * 3 * 16 * R * (size_t)(d + kKeyPadOf<E>) + sizeof(float) * 16 * R +
+         sizeof(int) * 4 * 16 * R;
+}
+
+int g_smem_optin = 0;  // the most shared memory a block may opt in to
+
+// The tile side a launch takes: 64 keys where three 64-key tiles fit
+// shared memory, else 32 (d = 512 in fp32: MLA's latent); 0 if neither.
+template <typename E>
+int strip_tile(int d) {
+  if (g_smem_optin == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&g_smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+            cudaSuccess)
+      return 0;
+  }
+  if (strip_smem<4, E>(d) <= (size_t)g_smem_optin) return 64;
+  if (strip_smem<2, E>(d) <= (size_t)g_smem_optin) return 32;
+  return 0;
+}
 }  // namespace
 
 // Floats of scratch that a launch needs after its n * T * h outputs: the
-// strips' partial row sums, n * h * ceil(T / 64) * T of them, or none
-// when the table is one strip wide.
-extern "C" long long flash_redundancy_workspace(int n, int h, int b, int mb) {
+// strips' partial row sums, n * h * ceil(T / tile) * T of them, or none
+// when the table is one strip wide. The tile follows d and the keys'
+// element size (esize bytes).
+extern "C" long long flash_redundancy_workspace(int n, int h, int d, int b, int mb, int esize) {
+  const int tile = esize == 2 ? strip_tile<zp_bf16>(d) : strip_tile<float>(d);
+  if (tile == 0) return 0;
   const long long T = (long long)mb * b;
-  const long long n_strips = (T + kKeyTile - 1) / kKeyTile;
+  const long long n_strips = (T + tile - 1) / tile;
   return n_strips > 1 ? (long long)n * h * n_strips * T : 0;
 }
 
 namespace {
-template <typename E>
-int launch(const void* k_pool, const void* block_tables, const void* seq_lens, void* out, int n,
-           int h, int d, int b, int mb, float p_thresh, void* stream) {
-  if (d % kVecOf<E> != 0) return (int)cudaErrorInvalidValue;
+template <int R, typename E>
+int launch_tiles(const void* k_pool, const void* block_tables, const void* seq_lens, void* out,
+                 int n, int h, int d, int b, int mb, float p_thresh, cudaStream_t s) {
+  constexpr int kTile = 16 * R;
   const int T = mb * b;
-  const int n_strips = (T + kKeyTile - 1) / kKeyTile;
-  const size_t smem = sizeof(E) * 3 * kKeyTile * (size_t)(d + kKeyPadOf<E>) +
-                      sizeof(float) * kKeyTile + sizeof(int) * 4 * kKeyTile;
-  cudaError_t err = zp_allow_smem(flash_redundancy_strip_kernel<E>, smem);
+  const int n_strips = (T + kTile - 1) / kTile;
+  const size_t smem = strip_smem<R, E>(d);
+  cudaError_t err = zp_allow_smem(flash_redundancy_strip_kernel<R, E>, smem);
   if (err != cudaSuccess) return (int)err;
   float* o = (float*)out;
-  float* part = flash_redundancy_workspace(n, h, b, mb) > 0 ? o + (size_t)n * T * h : nullptr;
-  cudaStream_t s = (cudaStream_t)stream;
-  flash_redundancy_strip_kernel<E><<<dim3(n_strips, h, n), kThreads, smem, s>>>(
+  float* part = n_strips > 1 ? o + (size_t)n * T * h : nullptr;
+  flash_redundancy_strip_kernel<R, E><<<dim3(n_strips, h, n), kThreads, smem, s>>>(
       (const E*)k_pool, (const int*)block_tables, (const int*)seq_lens, o, part, h, d, b, mb,
       p_thresh);
   err = cudaGetLastError();
   if (err != cudaSuccess || part == nullptr) return (int)err;
   const int total = n * h * T;
   flash_redundancy_reduce_kernel<<<(total + 255) / 256, 256, 0, s>>>(
-      part, (const int*)seq_lens, o, h, T, n_strips, total);
+      part, (const int*)seq_lens, o, h, T, n_strips, kTile, total);
   return (int)cudaGetLastError();
+}
+
+template <typename E>
+int launch(const void* k_pool, const void* block_tables, const void* seq_lens, void* out, int n,
+           int h, int d, int b, int mb, float p_thresh, void* stream) {
+  if (d % kVecOf<E> != 0) return (int)cudaErrorInvalidValue;
+  const int tile = strip_tile<E>(d);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (tile == 64)
+    return launch_tiles<4, E>(k_pool, block_tables, seq_lens, out, n, h, d, b, mb, p_thresh, s);
+  if (tile == 32)
+    return launch_tiles<2, E>(k_pool, block_tables, seq_lens, out, n, h, d, b, mb, p_thresh, s);
+  return (int)cudaErrorInvalidValue;
 }
 }  // namespace
 

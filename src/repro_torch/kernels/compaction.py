@@ -8,7 +8,8 @@ request and head, the surviving cache entries of K, V and the refreshed
 global score F into the request's destination slots, in place.
 
 Contract: pools k, v (L, N + 1, b, h, d) and f (L, N + 1, b, h) with the
-sink page last; new_f (L, n, T, h) the post-global scores in cache order;
+sink page last (v may be None: MLA's latent pool, viewed as k with h = 1,
+has no V); new_f (L, n, T, h) the post-global scores in cache order;
 src_bt (n, mb) int32 source tables (-1 padded); src_cache (L, n, h, k)
 survivor cache positions per head, in destination order; dest_flat (n, k)
 destination flat slots (sink-page slots where nothing is to be written).
@@ -62,7 +63,9 @@ def compact_plain(k_pool, v_pool, f_pool, new_f, src_bt, src_cache,
         f_flat = f_pool[l].view(-1, h)
         for i in range(src_bt.shape[0]):
             _compact(k_pool[l], src_c[i], src_cache[l, i], dest_flat[i])
-            _compact(v_pool[l], src_c[i], src_cache[l, i], dest_flat[i])
+            if v_pool is not None:
+                _compact(v_pool[l], src_c[i], src_cache[l, i],
+                         dest_flat[i])
             f_flat[dest_flat[i][None, :], heads] = \
                 new_f[l, i].T[heads, src_cache[l, i]]
 
@@ -72,9 +75,11 @@ def compact_cuda(k_pool, v_pool, f_pool, new_f, src_bt, src_cache,
     """Launch ``csrc/compaction.cu`` on the current stream (one launch for
     all layers). Any budget k is taken; the kernel moves rows by 16-byte
     copies, so head_dim must be a multiple of 4 (8 at bf16) and the pools
-    16-byte aligned."""
+    16-byte aligned. ``v_pool=None`` moves K and F only."""
     dev = k_pool.device
-    dtype = kv_tensors(NAME, dev, k_pool=k_pool, v_pool=v_pool)
+    kv = {"k_pool": k_pool} if v_pool is None else \
+        {"k_pool": k_pool, "v_pool": v_pool}
+    dtype = kv_tensors(NAME, dev, **kv)
     for arg, t in (("f_pool", f_pool), ("new_f", new_f)):
         cuda_tensor(NAME, arg, t, torch.float32, dev)
     cuda_tensor(NAME, "src_bt", src_bt, torch.int32, dev)
@@ -83,10 +88,11 @@ def compact_cuda(k_pool, v_pool, f_pool, new_f, src_bt, src_cache,
     src_cache = src_cache.to(torch.int64).contiguous()
     dest_flat = dest_flat.to(torch.int64).contiguous()
     L, N1, b, h, d = k_pool.shape
-    require(v_pool.shape == k_pool.shape, NAME, "k/v pool shapes differ")
+    require(v_pool is None or v_pool.shape == k_pool.shape, NAME,
+            "k/v pool shapes differ")
     require(d % 4 == 0, NAME, f"head_dim {d} must be a multiple of 4")
-    require(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
-            NAME, "k_pool and v_pool must be 16-byte aligned")
+    require(all(t.data_ptr() % 16 == 0 for t in kv.values()), NAME,
+            "k_pool and v_pool must be 16-byte aligned")
     require(tuple(f_pool.shape) == (L, N1, b, h), NAME,
             f"f_pool {tuple(f_pool.shape)} vs k_pool {tuple(k_pool.shape)}")
     n, mb = src_bt.shape
@@ -102,7 +108,8 @@ def compact_cuda(k_pool, v_pool, f_pool, new_f, src_bt, src_cache,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = native.launcher(lib, "compaction_launch", dtype)(
-            k_pool.data_ptr(), v_pool.data_ptr(), f_pool.data_ptr(),
+            k_pool.data_ptr(), None if v_pool is None else v_pool.data_ptr(),
+            f_pool.data_ptr(),
             new_f.data_ptr(), src_bt.data_ptr(), src_cache.data_ptr(),
             dest_flat.data_ptr(), L, n, h, d, b, mb, k, N1 * b, T, stream)
     native.check(NAME, lib, code)

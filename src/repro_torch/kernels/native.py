@@ -64,7 +64,7 @@ _ARGTYPES = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "flash_redundancy_launch":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "flash_redundancy_workspace": [_I, _I, _I, _I],
+    "flash_redundancy_workspace": [_I, _I, _I, _I, _I, _I],
     "ragged_paged_attention_workspace": [_I, _I, _I, _I, _I, _I],
     "paged_attention_workspace": [_I, _I, _I, _I, _I, _I],
     "compaction_launch":

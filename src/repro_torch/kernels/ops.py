@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.paged import NEG_INF
 from repro_torch.kernels import compaction as _cmp
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_score as _ps
@@ -43,13 +44,14 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
                                      seq_lens)
 
 
-def score_logits(q_win, k_pages, block_tables, seq_lens):
-    """Masked window logits (n, h_kv, g, w, mb*b)."""
+def score_logits(q_win, k_pages, block_tables, seq_lens, scale=None):
+    """Masked window logits (n, h_kv, g, w, mb*b), scaled by ``scale``
+    (1/sqrt(d) when None, as the reference's ``attention_scores``)."""
     if q_win.is_cuda:
         return _ps.paged_score_logits_cuda(q_win, k_pages, block_tables,
-                                           seq_lens)
+                                           seq_lens, scale=scale)
     return _ps.paged_score_logits_plain(q_win, k_pages, block_tables,
-                                        seq_lens)
+                                        seq_lens, scale=scale)
 
 
 def lightning_redundancy(k_pages, block_tables, seq_lens, p_thresh=0.8):
@@ -71,8 +73,9 @@ def flash_redundancy(k_pages, block_tables, seq_lens, p_thresh=0.8):
 
 
 def compact(k_pool, v_pool, f_pool, new_f, src_bt, src_cache, dest_flat):
-    """Move every request's survivors of K, V and F into its destination
-    slots, all layers at once, in place (paper Alg. 4)."""
+    """Move every request's survivors of K, V (None: no V, as MLA's
+    latent pool) and F into its destination slots, all layers at once, in
+    place (paper Alg. 4)."""
     if k_pool.is_cuda:
         return _cmp.compact_cuda(k_pool, v_pool, f_pool, new_f, src_bt,
                                  src_cache, dest_flat)
@@ -80,14 +83,24 @@ def compact(k_pool, v_pool, f_pool, new_f, src_bt, src_cache, dest_flat):
                               src_cache, dest_flat)
 
 
-def attention_scores_from_logits(logits, seq_lens):
+def attention_scores_from_logits(logits, seq_lens, causal=False):
     """Softmax over T, GQA max over g, mean over w (paper App. C.2).
-    logits: (n, h, g, w, T) masked with -1e30. Returns (n, T, h)."""
+    logits: (n, h, g, w, T) masked with -1e30. Returns (n, T, h).
+
+    The probabilities at positions >= seq_len are zeroed (the JAX
+    package's kernel route); ``causal=True`` zeroes them at every masked
+    logit, the causal mask's too, as its jnp scoring functions do
+    (``scoring.mla_attention_scores``, MLA's reference). The two differ
+    only for a window query that sees no key (seq_len < w), whose softmax
+    is uniform."""
     p = torch.softmax(logits, dim=-1)
-    T = logits.shape[-1]
-    valid = torch.arange(T, device=logits.device)[None] < seq_lens[:, None]
-    p = torch.where(valid[:, None, None, None], p,
-                    torch.zeros((), device=p.device))
+    if causal:
+        keep = logits != NEG_INF
+    else:
+        T = logits.shape[-1]
+        keep = (torch.arange(T, device=logits.device)[None]
+                < seq_lens[:, None])[:, None, None, None]
+    p = torch.where(keep, p, torch.zeros((), device=p.device))
     return p.amax(dim=2).mean(dim=2).transpose(1, 2)
 
 

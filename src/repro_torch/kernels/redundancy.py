@@ -25,8 +25,10 @@ from repro_torch.kernels._checks import cuda_tensor, kv_tensors, require
 
 NAME = "lightning_redundancy"
 FLASH_NAME = "flash_redundancy"
-#: three 64-key tiles of d + 4 floats must fit a block's shared memory
-FLASH_MAX_D = 256
+#: three key tiles (of 64 keys, or of 32 where 64 would not fit) of
+#: d + pad elements must fit a block's shared memory: d <= 576 takes
+#: MLA's latent (512) at either dtype
+FLASH_MAX_D = 576
 
 
 def lightning_redundancy_plain(k_pages, block_tables, seq_lens, *,
@@ -59,7 +61,8 @@ def _launch(name, launch, k_pages, block_tables, seq_lens, p_thresh,
             workspace=None):
     """Check the arguments and launch on the current stream. The kernel
     gets one buffer: the (n, mb*b, h) output, then as many floats of
-    scratch as the library's ``workspace`` function asks for, if named."""
+    scratch as the library's ``workspace`` function asks for, if named
+    (given n, h, d, b, mb and the keys' element size)."""
     dev = k_pages.device
     dtype = kv_tensors(name, dev, k_pages=k_pages)
     for arg, t in (("block_tables", block_tables), ("seq_lens", seq_lens)):
@@ -70,7 +73,8 @@ def _launch(name, launch, k_pages, block_tables, seq_lens, p_thresh,
     require(tuple(seq_lens.shape) == (n,), name, "seq_lens must be (n,)")
     lib = native.library(name)
     size = n * mb * b * h
-    extra = getattr(lib, workspace)(n, h, b, mb) if workspace else 0
+    extra = getattr(lib, workspace)(n, h, d, b, mb, k_pages.element_size()) \
+        if workspace else 0
     buf = torch.empty(size + extra, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -126,7 +130,7 @@ def flash_redundancy_plain(k_pages, block_tables, seq_lens, *,
 def flash_redundancy_cuda(k_pages, block_tables, seq_lens, *, p_thresh=0.8):
     """Launch ``csrc/flash_redundancy.cu`` on the current stream. Needs
     ``d % 4 == 0`` (16-byte copies; ``d % 8 == 0`` at bf16) and
-    ``d <= 256`` (shared memory)."""
+    ``d <= FLASH_MAX_D`` (shared memory)."""
     d = k_pages.shape[-1]
     require(d % 4 == 0 and d <= FLASH_MAX_D, FLASH_NAME,
             f"head_dim {d}: needs a multiple of 4, at most {FLASH_MAX_D}")

@@ -1,1 +1,2 @@
-"""Dense GQA transformer in PyTorch, mirroring ``repro.models``."""
+"""Transformers in PyTorch (GQA or MLA attention, dense or MoE FFNs),
+mirroring ``repro.models``."""

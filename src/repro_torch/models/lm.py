@@ -1,28 +1,31 @@
-"""Generic dense GQA LM built from an ArchConfig (``repro.models.lm``).
+"""Generic LM built from an ArchConfig (``repro.models.lm``).
 
 The JAX package stacks identical layers into scanned units; the port keeps
 a plain list of per-layer dicts, since PyTorch runs the layers eagerly:
 
     {"embed": (V, d), "final_norm": norm, "unembed": (d, V),
-     "layers": [{"ln1": norm, "ln2": norm, "attn": {"wq", "wk", "wv", "wo",
-                 ["q_norm", "k_norm"], ["bq", "bk", "bv"]},
-                 "ffn": {"w1", "w2", ["w3"]}}, ...]}
+     "layers": [{"ln1": norm, "ln2": norm, "attn": attn,
+                 "ffn": {"w1", "w2", ["w3"]} or "moe": moe}, ...]}
 
-where a norm is {"scale": (d,)} (rmsnorm), {"scale", "bias": (d,)}
+where attn is {"wq", "wk", "wv", "wo", ["q_norm", "k_norm"], ["bq", "bk",
+"bv"]} (GQA) or {"wq", "w_dkv", "kv_norm", "w_uk", "w_uv", "wo"} (MLA),
+moe is {"router": (d, E), "w1", "w3": (E, d, f), "w2": (E, f, d),
+["shared": ffn]} (the layers at or past ``first_dense_layers`` of a MoE
+config), and a norm is {"scale": (d,)} (rmsnorm), {"scale", "bias": (d,)}
 (layernorm) or {} (nonparam_ln), as ``repro.models.common.init_norm``.
 
 ``repro_torch.convert.params_from_numpy`` maps the JAX package's stacked
-tree onto this layout. Only the dense GQA family is ported so far;
-``check_supported`` names what is not.
+tree onto this layout. Attention layers (GQA or MLA) with dense or MoE
+FFNs are ported; ``check_supported`` names what is not.
 
 Dtypes (``cfg.dtype``, float32 or bfloat16): the JAX package keeps fp32
-parameters and casts the matrices, qkv biases and embeddings to the
-compute dtype at each use. The port serves from params stored at the
-dtype once, which gives the same values (``cast_params``); training keeps
-fp32 master params, as the JAX package does, and the forward casts them
-at each use, so its gradients and updates are fp32. Norm scales and
-biases, and the q/k norm scales, stay fp32 in both, and norms compute in
-fp32.
+parameters and casts the matrices, qkv biases, router, experts and
+embeddings to the compute dtype at each use. The port serves from params
+stored at the dtype once, which gives the same values (``cast_params``);
+training keeps fp32 master params, as the JAX package does, and the
+forward casts them at each use, so its gradients and updates are fp32.
+Norm scales and biases, the q/k norm scales and MLA's ``kv_norm`` stay
+fp32 in both, and norms compute in fp32.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ from repro_torch.models.common import apply_norm, is_gated
 #: compute dtypes the port serves (``cfg.dtype``, ``EngineOptions.dtype``)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: parameters that stay fp32 whatever the dtype: the norms' scales and biases
-NORM_KEYS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+NORM_KEYS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "kv_norm")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -85,10 +88,10 @@ def build_plan(cfg: ArchConfig):
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for any architecture feature the port has not ported yet."""
     unported = []
-    if cfg.attn_type != "gqa":
+    if cfg.attn_type not in ("gqa", "mla"):
         unported.append(f"attn_type={cfg.attn_type!r}")
-    if any(spec != ("attn", "dense") for spec in layer_specs(cfg)):
-        unported.append("non-attention mixers or MoE layers")
+    if any(kind != "attn" for kind, _ in layer_specs(cfg)):
+        unported.append("non-attention mixers")
     if cfg.local_window:
         unported.append("local_window attention")
     if cfg.is_enc_dec:
@@ -125,7 +128,7 @@ def _init_norm(cfg, d, device):
     raise ValueError(cfg.norm_type)
 
 
-def _init_layer(cfg, generator, device, dt):
+def _init_layer(cfg, generator, device, dt, ffn_kind="dense"):
     d, hq, hkv, dh, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim, cfg.d_ff)
 
@@ -135,21 +138,45 @@ def _init_layer(cfg, generator, device, dt):
     def dense(shape, fan_in):
         return _dense(shape, fan_in, generator, device, dt)
 
-    attn = {"wq": dense((d, hq * dh), d),
-            "wk": dense((d, hkv * dh), d),
-            "wv": dense((d, hkv * dh), d),
-            "wo": dense((hq * dh, d), hq * dh)}
-    if cfg.qkv_bias:
-        for name, n in (("bq", hq * dh), ("bk", hkv * dh), ("bv", hkv * dh)):
-            attn[name] = torch.zeros(n, dtype=dt, device=device)
-    if cfg.qk_norm:
-        attn["q_norm"] = ones(dh)
-        attn["k_norm"] = ones(dh)
-    ffn = {"w1": dense((d, f), d), "w2": dense((f, d), f)}
-    if is_gated(cfg.ffn_act):
-        ffn["w3"] = dense((d, f), d)
-    return {"ln1": _init_norm(cfg, d, device),
-            "ln2": _init_norm(cfg, d, device), "attn": attn, "ffn": ffn}
+    def ffn(width, lead=()):
+        e = tuple(lead)
+        out = {"w1": dense(e + (d, width), d), "w2": dense(e + (width, d),
+                                                           width)}
+        if is_gated(cfg.ffn_act):
+            out["w3"] = dense(e + (d, width), d)
+        return out
+
+    if cfg.attn_type == "mla":
+        r, dr, dv = cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.v_head_dim
+        attn = {"wq": dense((d, hq * (dh + dr)), d),
+                "w_dkv": dense((d, r + dr), d),   # down: latent + rope key
+                "kv_norm": ones(r),
+                "w_uk": dense((r, hq * dh), r),   # latent -> per-head keys
+                "w_uv": dense((r, hq * dv), r),
+                "wo": dense((hq * dv, d), hq * dv)}
+    else:
+        attn = {"wq": dense((d, hq * dh), d),
+                "wk": dense((d, hkv * dh), d),
+                "wv": dense((d, hkv * dh), d),
+                "wo": dense((hq * dh, d), hq * dh)}
+        if cfg.qkv_bias:
+            for name, n in (("bq", hq * dh), ("bk", hkv * dh),
+                            ("bv", hkv * dh)):
+                attn[name] = torch.zeros(n, dtype=dt, device=device)
+        if cfg.qk_norm:
+            attn["q_norm"] = ones(dh)
+            attn["k_norm"] = ones(dh)
+    layer = {"ln1": _init_norm(cfg, d, device),
+             "ln2": _init_norm(cfg, d, device), "attn": attn}
+    if ffn_kind == "moe":
+        moe = {"router": dense((d, cfg.num_experts), d),
+               **ffn(cfg.moe_d_ff, (cfg.num_experts,))}
+        if cfg.num_shared_experts:
+            moe["shared"] = ffn(cfg.moe_d_ff * cfg.num_shared_experts)
+        layer["moe"] = moe
+    else:
+        layer["ffn"] = ffn(f)
+    return layer
 
 
 def init(cfg: ArchConfig, generator: torch.Generator, device, *,
@@ -169,8 +196,8 @@ def init(cfg: ArchConfig, generator: torch.Generator, device, *,
     if not cfg.tie_embeddings:
         params["unembed"] = _dense((cfg.d_model, cfg.vocab_size),
                                    cfg.d_model, generator, device, dt)
-    params["layers"] = [_init_layer(cfg, generator, device, dt)
-                        for _ in range(cfg.num_layers)]
+    params["layers"] = [_init_layer(cfg, generator, device, dt, ffn_kind)
+                        for _, ffn_kind in layer_specs(cfg)]
     return params
 
 
@@ -216,8 +243,13 @@ def param_count(params) -> int:
 
 def apply_layer(cfg, p, x, positions):
     h = apply_norm(cfg, p["ln1"], x)
-    x = x + L.attn_forward(cfg, p["attn"], h, positions)
+    if cfg.attn_type == "mla":
+        x = x + L.mla_forward(cfg, p["attn"], h, positions)
+    else:
+        x = x + L.attn_forward(cfg, p["attn"], h, positions)
     h2 = apply_norm(cfg, p["ln2"], x)
+    if "moe" in p:
+        return x + L.moe_forward(cfg, p["moe"], h2)
     return x + L.ffn_forward(cfg, p["ffn"], h2)
 
 

@@ -380,7 +380,8 @@ def test_sink_page_and_sink_query_slot_are_not_audited():
 
 
 PLAN_NAMES = ["qwen3-8b", "llama3-8b", "qwen2.5-3b", "olmo-1b",
-              "nemotron-4-15b", "tiny-lm"]
+              "nemotron-4-15b", "deepseek-v2-lite-16b", "dbrx-132b",
+              "tiny-lm"]
 
 
 @pytest.mark.parametrize("name", PLAN_NAMES)

@@ -292,7 +292,42 @@ def test_dense_decode_and_flash_are_accepted(knob):
 
 
 def test_unported_architectures_raise():
+    """What the port still refuses: local-window attention, recurrent
+    mixers (RG-LRU, RWKV), encoder-decoder models and modality frontends
+    (MLA and MoE layers are ported: the test below)."""
     import dataclasses
-    cfg = dataclasses.replace(get_config("tiny-lm"), attn_type="mla")
-    with pytest.raises(NotImplementedError, match="attn_type"):
-        lm.init(cfg, torch.Generator(), "cpu")
+    tiny = get_config("tiny-lm")
+    cases = {"local_window": dict(local_window=32),
+             "non-attention mixers": dict(block_pattern=("rglru", "rglru",
+                                                         "attn")),
+             "encoder-decoder": dict(encoder_layers=2),
+             "frontend": dict(frontend="vision_stub", num_prefix_embeds=4)}
+    for match, kw in cases.items():
+        cfg = dataclasses.replace(tiny, **kw)
+        with pytest.raises(NotImplementedError, match=match):
+            lm.init(cfg, torch.Generator(), "cpu")
+        with pytest.raises(NotImplementedError, match=match):
+            lm.check_supported(cfg)
+    cfg = dataclasses.replace(tiny, block_pattern=("rwkv",))
+    with pytest.raises(NotImplementedError, match="non-attention"):
+        lm.check_supported(cfg)
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "dbrx-132b"])
+def test_moe_and_mla_configs_are_accepted(name):
+    """DeepSeek-V2-Lite-16B (MLA, MoE with shared experts, a dense first
+    layer) and DBRX-132B (GQA, MoE) pass ``lm.check_supported`` and serve
+    through the facade on the CPU at their reduced widths."""
+    cfg = get_config(name)
+    lm.check_supported(cfg)
+    assert cfg.num_experts > 0
+    z = Zipage.from_config(name, device="cpu", reduce=True, block_size=8,
+                           n_total_blocks=32, max_batch=2, max_model_len=64,
+                           prefill_rows=1, prefill_len=32)
+    outs = z.generate([[1, 2, 3, 4, 5], [9, 8, 7]],
+                      SamplingParams(max_new_tokens=8))
+    assert [len(o.token_ids) for o in outs] == [8, 8]
+    assert z.num_free_blocks == 32
+    kinds = {f for _, f in lm.layer_specs(z.cfg)}
+    assert kinds == ({"dense", "moe"} if name.startswith("deepseek")
+                     else {"moe"})

@@ -169,12 +169,14 @@ def main(argv=None):
                     print(f"{version:6s} {name:22s} {label:5s} refused at "
                           f"launch: {r['refused']}", flush=True)
                     continue
+                ms = {k: chip_smoke.fmt_ms(r[k]) for k in (
+                    "device_ms", "host_ms", "library_device_ms")}
                 print(f"{version:6s} {name:22s} {label:5s} event "
-                      f"{r['ms']:.4f} device {r['device_ms']:.4f} host "
-                      f"{r['host_ms']:.4f} ms | bound {r['bound_ms']:.5f} "
+                      f"{r['ms']:.4f} device {ms['device_ms']} host "
+                      f"{ms['host_ms']} ms | bound {r['bound_ms']:.5f} "
                       f"({r['bound_by']}) | library event "
                       f"{r['library_ms']:.4f} device "
-                      f"{r['library_device_ms']:.4f} ms", flush=True)
+                      f"{ms['library_device_ms']} ms", flush=True)
     print(card)
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "kernel_ab.json", "w") as f:
