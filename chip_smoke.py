@@ -178,6 +178,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
      logprobs bit for bit; (d) DBRX-132B at full width and DBRX_LAYERS of
      its 40 layers (one card's memory), bf16, 8 greedy x NEW_TOKENS under
      the sanitizer (K1, K2, K3 and B6 counted into the bf16 rows).
+  14. (run last, after 13) the recurrent configs (``phase_recurrent``):
+     (a) K1 and B4 at RecurrentGemma-2B's layout (g = 10, h_kv = 1,
+     d = 256, b = 16, a 128-block ring: the G = 16 instantiations) in
+     fp32 and bf16 against their plain versions on full rings (seq_len
+     2048), partly filled ones, seq_len 0 rows and idle slots, dense ==
+     ragged bit for bit on live rows; (b) card vs CPU at full width, fp32,
+     vocabulary capped at CPU_VOCAB: RecurrentGemma's first 5 layers
+     (rglru, rglru, attn, rglru, rglru) and RWKV6's first 2, prompts of
+     150 and 100 tokens fed in prefill calls of 64 (the recurrent state
+     and the ring carried across calls), then 16 greedy decode steps: the
+     logits within CARD_CPU_TOL, the tokens equal; (c)
+     ``Zipage.from_config("recurrentgemma-2b")`` at full width and depth
+     in bf16 under ZIPAGE_SANITIZE=1, 10 requests (phase 5's 8 prompts
+     and two of 2000 and 2300 tokens, whose 2048-token rings wrap in
+     decode and across 18 prefill calls), NEW_TOKENS each, at
+     ``decode_steps`` 1 and 8 (streams and logprobs bit for bit), 2 of
+     them through dense decode (B4; streams equal to ragged's), K1 and B4
+     timed at the serve's fullest decode input (rows ``<kernel>_g10_bf16``);
+     (d) ``Zipage.from_config("rwkv6-3b")`` at full width and depth in
+     bf16 under the sanitizer, phase 5's prompts at ``decode_steps`` 1 and
+     8 (bit for bit; RWKV6 runs no kernel); (e) ``python -m
+     repro_torch.launch.serve --arch`` for both on the card (reduced
+     widths, as the launcher serves a non-tiny arch).
 
 The last two lines of standard output are the card's name and power
 limit, and ``{"ok": true, "device": {...}}``; the line before them is the
@@ -4993,6 +5016,457 @@ def phase_moe_mla(torch, dev, card, rows_bf16):
             "dbrx": dbrx, "took": took}, rows
 
 
+# ----------------------------------------------------------------------
+# phase 14: the recurrent configs (RecurrentGemma-2B, RWKV6-3B)
+
+RG_CONFIG, RWKV_CONFIG = "recurrentgemma-2b", "rwkv6-3b"
+#: 14b: the layers of each on the card and the CPU (RecurrentGemma's
+#: first unit (rglru, rglru, attn) and two rglru layers, as its tail; two
+#: RWKV layers), the prefill bucket the prompts span, their lengths, and
+#: the decode steps after them
+REC_CPU_LAYERS = {RG_CONFIG: 5, RWKV_CONFIG: 2}
+REC_PREFILL_LEN = 64
+REC_CPU_LENS = (150, 100)
+REC_DECODE_STEPS = 16
+#: 14c: the two requests that cross RecurrentGemma's 2048-token window:
+#: one whose prompt wraps the ring in decode, one whose prompt wraps it
+#: across prefill calls; the engine's table and pool for 10 requests,
+#: each holding its 128-block ring
+RG_LONG_PROMPTS = (2000, 2300)
+RG_SHAPES = dict(max_model_len=2560, n_total_blocks=1280, max_batch=10)
+#: the decode kernels on the recurrent serves (RWKV6 runs none)
+RG_PATH = ("ragged_paged_attention",)
+RG_DENSE_PATH = ("paged_attention",)
+
+
+def check_rec_kernels(torch, dev, cfg, dtype):
+    """14a: K1 and B4 at RecurrentGemma's layout (g = 10, h_kv = 1,
+    d = 256, b = 16, a 128-block ring) against their plain versions at
+    inputs of ``dtype``, on full rings (seq_len 2048), partly filled ones
+    and seq_len 0 rows (exact zeros), the dense kernel against the ragged
+    one bit for bit on live rows; then on idle slots (``check_idle_slots``:
+    seq_len >= 1 over an empty table reads page 0). Returns each kernel's
+    max error."""
+    import types
+
+    import numpy as np
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ragged_paged_attention as rpa
+
+    phase = "recurrent kernels" + (" bf16" if dtype == torch.bfloat16
+                                   else "")
+    out_tol = kernel_tols(torch, dtype)[1]
+    b = 16
+    ring = cfg.local_window // b
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(SEED + 14)
+    errs = {rpa.NAME: 0.0, pa.NAME: 0.0}
+    W = cfg.local_window
+    mixes = {"full ring": [W] * 6 + [0, 0],
+             "partial": [W, W - 1, W * 39 // 40, W * 3 // 8, W // 7,
+                         min(17, W), 1, 0]}
+    for label, lens in mixes.items():
+        n_pages = 1 + sum(-(-s // b) for s in lens) + 8
+        k, v = make_pool(torch, rng, n_pages, b, hkv, d, dev, dtype=dtype)
+        bt, sl = make_tables(torch, rng, lens, b, ring, n_pages, dev, k, v)
+        q = torch.randn(len(lens), hq, d, device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED)) \
+            .to(dtype)
+        ragged = rpa.ragged_paged_attention_cuda(q, k, v, bt, sl)
+        dense = pa.paged_attention_cuda(q, k, v, bt, sl)
+        torch.cuda.synchronize()
+        for name, got in ((rpa.NAME, ragged), (pa.NAME, dense)):
+            if not bool((got[sl == 0] == 0).all()):
+                raise AssertionError(f"{name}[{label}]: seq_len == 0 rows "
+                                     "are not zeros")
+            plain = (rpa.ragged_paged_attention_plain if name == rpa.NAME
+                     else pa.paged_attention_plain)
+            errs[name] = max(errs[name], max_err(
+                torch, got, plain(q, k, v, bt, sl), f"{name}[{label}]",
+                out_tol))
+        live = sl > 0
+        if not bool(torch.equal(dense[live], ragged[live])):
+            raise AssertionError(f"dense vs ragged[{label}]: live rows "
+                                 "differ (bit for bit is required)")
+        log(phase, f"[{label}, seq_lens {lens}, g {hq // hkv}, h_kv {hkv}, "
+            f"d {d}, b {b}, table {ring}]: {rpa.NAME} max_abs_err="
+            f"{errs[rpa.NAME]:.3e}, {pa.NAME} {errs[pa.NAME]:.3e} (atol=rtol="
+            f"{out_tol}), dense == ragged on live rows bit for bit ok")
+    # idle slots at the serve's table width (RG_SHAPES)
+    opts = types.SimpleNamespace(
+        block_size=b, max_model_len=RG_SHAPES["max_model_len"],
+        n_total_blocks=64, max_batch=RG_SHAPES["max_batch"])
+    errs[rpa.NAME] = max(errs[rpa.NAME], check_idle_slots(
+        torch, dev, cfg, opts, rng, phase, dtype))
+    torch.cuda.empty_cache()
+    return errs
+
+
+def rec_steps(torch, cfg, params, device, seqs):
+    """14b on one device: the prompts ``seqs`` prefilled in calls of
+    REC_PREFILL_LEN tokens (each spans several), then REC_DECODE_STEPS
+    greedy decode steps, each feeding the device's own argmax. Returns
+    the logits of the prompts' last prefill call and of each decode step
+    ((n, rows, V) on the CPU), the greedy tokens and the prefill calls."""
+    from repro_torch.core import serve_model
+
+    P, S = len(seqs), REC_PREFILL_LEN
+    b = 16
+    spec = serve_model.ServeSpec(
+        n_slots=P, block_size=b, max_blocks=cfg.local_window // b or 8,
+        n_total_blocks=P * (cfg.local_window // b or 8), m_qslots=P,
+        window=4, prefill_rows=P, prefill_len=S, dtype="float32")
+    st = serve_model.make_state(cfg, spec, device)
+    i32 = dict(dtype=torch.int32, device=device)
+    if "pools" in st:
+        n = spec.max_blocks
+        st["block_tables"].copy_(torch.arange(P * n, **i32).reshape(P, n))
+    prefill = serve_model.build_prefill_step(cfg, spec)
+    decode = serve_model.build_decode_step(cfg, spec)
+    lens = [len(s) for s in seqs]
+    done, calls, last = [0] * P, 0, [None] * P
+    while done != lens:
+        toks = torch.zeros((P, S), dtype=torch.int64)
+        slots, n, start = [-1] * P, [0] * P, [0] * P
+        for i, s in enumerate(seqs):
+            c = min(S, lens[i] - done[i])
+            if c:
+                toks[i, :c] = torch.tensor(s[done[i]:done[i] + c])
+                slots[i], n[i], start[i] = i, c, done[i]
+        logits = prefill(params, st, toks.to(device),
+                         torch.tensor(slots, **i32), torch.tensor(n, **i32),
+                         torch.tensor(start, **i32))
+        calls += 1
+        for i in range(P):
+            done[i] += n[i]
+            if n[i] and done[i] == lens[i]:
+                last[i] = logits[i].cpu()
+    ring = serve_model.ring_tokens(cfg, spec)
+    st["positions"].copy_(torch.tensor(lens, **i32))
+    st["seq_lens"].copy_(torch.tensor([min(x, ring) if ring else x
+                                       for x in lens], **i32))
+    outs = [torch.stack(last)]
+    active = torch.ones(P, dtype=torch.bool, device=device)
+    tok = outs[0].argmax(-1)
+    toks = [tok]
+    for _ in range(REC_DECODE_STEPS):
+        logits = decode(params, st, tok.to(device), active).cpu()
+        outs.append(logits)
+        tok = logits.argmax(-1)
+        toks.append(tok)
+    return torch.stack(outs), torch.stack(toks).T.tolist(), calls
+
+
+def check_rec_logits(torch, dev, name):
+    """14b: ``name`` at full width and REC_CPU_LAYERS layers, fp32, random
+    weights from the seed (vocabulary capped at CPU_VOCAB), on the card
+    and on the CPU: prompts that span several prefill calls (the state
+    carried across them), then greedy decode; the logits within
+    CARD_CPU_TOL and the greedy tokens equal. Returns the max error."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    phase = f"recurrent card-vs-cpu[{name}]"
+    cfg = dataclasses.replace(get_config(name), dtype="float32")
+    small = dataclasses.replace(cfg, num_layers=REC_CPU_LAYERS[name],
+                                vocab_size=min(cfg.vocab_size, CPU_VOCAB))
+    t = time.monotonic()
+    p_dev = lm.init(small, torch.Generator(dev).manual_seed(SEED), dev)
+    p_cpu = _tree_to(p_dev, "cpu")
+    rng = np.random.default_rng(SEED + 15)
+    seqs = [[int(x) for x in rng.integers(0, small.vocab_size, n)]
+            for n in REC_CPU_LENS]
+    log(phase, f"{small.num_layers} layers {list(small.layer_kinds())}, "
+        f"d_model {cfg.d_model}, vocabulary {small.vocab_size} (of "
+        f"{cfg.vocab_size}), {lm.param_count(p_cpu) / 1e9:.2f} B params "
+        f"fp32 on each side, drawn in {time.monotonic() - t:.1f} s")
+    res = {}
+    for side, device, params in (("cpu", "cpu", p_cpu), ("card", dev, p_dev)):
+        t = time.monotonic()
+        res[side] = rec_steps(torch, small, params, device, seqs)
+        log(phase, f"{side}: prompts of {list(REC_CPU_LENS)} tokens in "
+            f"{res[side][2]} prefill calls of {REC_PREFILL_LEN}, then "
+            f"{REC_DECODE_STEPS} decode steps, in {time.monotonic() - t:.1f}"
+            " s")
+    a, b = res["cpu"][0], res["card"][0]
+    err = (a - b).abs()
+    if bool((err > CARD_CPU_TOL + CARD_CPU_TOL * a.abs()).any()):
+        raise AssertionError(f"{phase}: card vs cpu logits off by "
+                             f"{float(err.max()):.3e}")
+    if res["cpu"][1] != res["card"][1]:
+        raise AssertionError(f"{phase}: greedy tokens differ: cpu "
+                             f"{res['cpu'][1]}, card {res['card'][1]}")
+    log(phase, f"last prefill + {REC_DECODE_STEPS} decode steps: "
+        f"max_abs_err={float(err.max()):.3e} (atol=rtol={CARD_CPU_TOL}), "
+        f"greedy tokens equal ({res['card'][1][0][:8]} ...) ok")
+    del p_dev, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return float(err.max())
+
+
+class RingDecodeInputs(DecodeInputs):
+    """``DecodeInputs`` for a local-window serve: the lengths its next
+    decode step passes are min(position + 1, ring), not seq_len + 1."""
+
+    def __call__(self, entry):
+        import numpy as np
+        e = self.eng
+        ring = e._ring * e.opts.block_size
+        live = int(np.minimum(e.host_pos + 1, ring)[
+            (e.host_bt >= 0).any(1)].sum())
+        if live <= self.best_live:
+            return
+        st = e.state
+        self.best = (st["pools"]["k"][0].clone(), st["pools"]["v"][0].clone(),
+                     st["block_tables"].clone(),
+                     (st["positions"] + 1).clamp(max=ring))
+        self.best_live = live
+
+
+def rec_serve(torch, card, z, label, prompts, sps, path, audits,
+              hook=None):
+    """Serve ``prompts`` through ``z`` (built under ZIPAGE_SANITIZE=1) with
+    the launch counts set to 0 just before and read just after: one audit
+    after every step, no violation, every kernel of ``path`` launched and
+    no other, no plain version run, no compression (it is off for these
+    configs), the pool whole again. Returns (launches, summary, outputs)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+
+    eng, cfg = z.engine, z.cfg
+    audits.steps.clear()
+    s0, m0 = eng.step_count, len(eng.metrics)
+    replays0 = eng._graphs.replays
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    with PlainGuard():
+        outs = z.generate(prompts, sps)
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    launches = dict(ops.launch_counts)
+    if hook is not None:
+        hook.close()
+    metrics = eng.metrics[m0:]
+    steps = [m["t_total"] for m in metrics]
+    n_tok = sum(len(o.token_ids) for o in outs)
+    replays = eng._graphs.replays - replays0
+    if audits.steps != list(range(s0 + 1, eng.step_count + 1)):
+        raise AssertionError(f"{label}: {len(audits.steps)} audits over "
+                             f"{eng.step_count - s0} steps")
+    assert all(len(o.token_ids) == sp.max_new_tokens
+               for o, sp in zip(outs, sps)), f"{label}: short output"
+    assert all(o.finish_reason == "length" for o in outs)
+    assert all(0 <= t < cfg.vocab_size for o in outs for t in o.token_ids)
+    assert all(np.isfinite(o.logprobs).all() for o in outs
+               if o.logprobs is not None)
+    assert all(o.metrics.compression.n_compressions == 0 for o in outs)
+    assert z.num_free_blocks == eng.opts.n_total_blocks, "blocks leaked"
+    z.bm.check_invariants()
+    for name in path:
+        assert launches[name] > 0, f"kernel {name} never launched ({label})"
+    for name, n in launches.items():
+        assert name in path or n == 0, f"{name} launched off its path"
+    assert replays > 0, f"no decode graph replayed ({label})"
+    log(label, f"{len(prompts)} requests (prompts {[len(p) for p in prompts]}"
+        f" tokens), {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} "
+        f"tok/s over {len(steps)} steps (step median "
+        f"{1e3 * statistics.median(steps):.1f} ms), decode_steps="
+        f"{eng.opts.decode_steps}, {replays} graph replays, launches "
+        f"{launches}; sanitizer: {len(audits.steps)} audits, 0 violations, "
+        f"on {card}")
+    return launches, {"tokens": n_tok, "wall_s": wall,
+                      "tok_per_s": n_tok / wall, "steps": len(steps),
+                      "step_median_ms": 1e3 * statistics.median(steps),
+                      "decode_steps": eng.opts.decode_steps,
+                      "graph_replays": replays, "launches": launches,
+                      "audits": len(audits.steps), "violations": 0}, outs
+
+
+def _streams(outs):
+    import numpy as np
+    return ([o.token_ids for o in outs],
+            [np.asarray(o.logprobs).tobytes() for o in outs])
+
+
+def recurrent_serve(torch, dev, card, name, errs):
+    """14c / 14d: ``name`` at full width and depth in bf16 through
+    ``Zipage.from_config`` under ZIPAGE_SANITIZE=1: phase 5's prompts, 8
+    greedy requests of NEW_TOKENS tokens at ``decode_steps`` 1 and 8 (the
+    streams and logprobs equal bit for bit); RecurrentGemma also with the
+    two requests that cross its window (RG_LONG_PROMPTS: the ring wraps in
+    decode and across prefill calls) and 2 requests through the dense
+    decode kernel (streams equal to the ragged ones), RWKV6 with prompts
+    over ``prefill_len``. Returns (summary, the K1 / B4 rows)."""
+    import numpy as np
+    from repro_torch.api import SamplingParams, Zipage
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ragged_paged_attention as rpa
+    from repro_torch.models import lm
+
+    phase = f"recurrent[{name}]"
+    rg = name == RG_CONFIG
+    t = time.monotonic()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shapes = RG_SHAPES if rg else {}
+    z = _sanitized(lambda: Zipage.from_config(name, param_seed=SEED,
+                                              dtype="bfloat16", **shapes))
+    torch.cuda.synchronize()
+    eng, cfg = z.engine, z.cfg
+    assert eng.sanitize, "the engine did not read ZIPAGE_SANITIZE"
+    assert not eng.compression_enabled and not eng.prefix_ok
+    n_params = lm.param_count(eng.params)
+    log(phase, f"{cfg.num_layers} layers ({cfg.num_attn_layers} attention, "
+        f"window {cfg.local_window}), d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}; {n_params / 1e9:.2f} B params bf16 on the card, "
+        f"ready in {time.monotonic() - t:.1f} s; prefill_len "
+        f"{eng.opts.prefill_len}, block_size {eng.opts.block_size}, "
+        f"n_total_blocks {eng.opts.n_total_blocks}, max_model_len "
+        f"{eng.opts.max_model_len}")
+    prompts = make_prompts(cfg)
+    rng = np.random.default_rng(SEED + 16)
+    if rg:
+        prompts += [[int(x) for x in rng.integers(0, cfg.vocab_size, n)]
+                    for n in RG_LONG_PROMPTS]
+    assert max(len(p) for p in prompts) > eng.opts.prefill_len
+    sps = [SamplingParams(max_new_tokens=NEW_TOKENS, logprobs=True)] * \
+        len(prompts)
+    hook = RingDecodeInputs(eng) if rg else None
+    served, launches = {}, {}
+    with Audits() as audits:
+        launches[1], served[1], outs1 = rec_serve(
+            torch, card, z, f"{phase} K=1", prompts, sps,
+            RG_PATH if rg else (), audits, hook)
+        z8 = _sanitized(lambda: Zipage(cfg, eng.params, dtype="bfloat16",
+                                       decode_steps=8, **shapes))
+        launches[8], served[8], outs8 = rec_serve(
+            torch, card, z8, f"{phase} K=8", prompts, sps,
+            RG_PATH if rg else (), audits)
+        del z8
+        if _streams(outs1) != _streams(outs8):
+            diff = [i for i, (a, b) in enumerate(zip(outs1, outs8))
+                    if _streams([a]) != _streams([b])]
+            raise AssertionError(f"{phase}: decode_steps 1 and 8 differ "
+                                 f"(requests {diff})")
+        log(phase, f"decode_steps 1 and 8: {len(prompts)} streams and their "
+            "logprobs equal bit for bit ok")
+        if rg:
+            zd = _sanitized(lambda: Zipage(cfg, eng.params, dtype="bfloat16",
+                                           decode_kernel="dense", **shapes))
+            pick = [0, len(prompts) - 1]
+            launches["dense"], served["dense"], outs_d = rec_serve(
+                torch, card, zd, f"{phase} dense", [prompts[i] for i in pick],
+                [sps[i] for i in pick], RG_DENSE_PATH, audits)
+            del zd
+            if [o.token_ids for o in outs_d] != \
+                    [outs1[i].token_ids for i in pick]:
+                raise AssertionError(f"{phase}: dense decode's streams are "
+                                     "not the ragged ones")
+            log(phase, "dense decode (B4): 2 streams equal to ragged's ok")
+            wraps = [len(p) + NEW_TOKENS > cfg.local_window for p in prompts]
+            log(phase, f"{sum(wraps)} requests wrap the {cfg.local_window}"
+                f"-token ring (prompts {[len(p) for p, w in zip(prompts, wraps) if w]}"
+                f"; one across {-(-RG_LONG_PROMPTS[1] // eng.opts.prefill_len)}"
+                " prefill calls)")
+    peak = torch.cuda.max_memory_allocated()
+    log(phase, f"peak memory allocated {peak / 1e9:.2f} GB on {card}")
+    rows = []
+    if rg:
+        per_serve = {n: {f"{name} K={k}": launches[k][n] for k in (1, 8)}
+                     for n in (rpa.NAME, pa.NAME)}
+        for n in per_serve:
+            per_serve[n][f"{name} dense"] = launches["dense"][n]
+        args = hook.args(torch)
+        for n, serve in ((rpa.NAME, f"{name} K=1"),
+                         (pa.NAME, f"{name} dense")):
+            spec = decode_spec(torch, n, args)
+            got = spec["kernel"]()
+            max_err(torch, got, spec["plain"](), f"{n}[rg serve input]",
+                    BF16_OUT_TOL)
+            rows.append(dict(_row(torch, spec, per_serve, serve, errs,
+                                  label=f"{n}_g10_bf16"),
+                             shapes=spec["shapes"]))
+    out = {"layers": cfg.num_layers, "params": n_params, "peak_bytes": peak,
+           "serves": {str(k): v for k, v in served.items()},
+           "k1_equals_k8": True, "phase_s": time.monotonic() - t}
+    del z, eng, hook
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, rows
+
+
+def rec_launchers(label):
+    """14e: ``python -m repro_torch.launch.serve --arch <name>`` for both
+    configs on the card, side by side (the launcher serves a non-tiny
+    arch at its reduced widths, as the JAX package's does): each exits 0
+    with tokens served and no compression. Returns each one's summary."""
+    env = _port_env()
+    procs = {name: subprocess.Popen(
+        port_cmd("repro_torch.launch.serve", "--arch", name, "--workload",
+                 "mix", "--n-requests", "8"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT) for name in (RG_CONFIG, RWKV_CONFIG)}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            text, err = proc.communicate(timeout=SUBPROCESS_DEADLINE)
+            if proc.returncode != 0:
+                raise AssertionError(f"{label}: the launcher for {name} "
+                                     f"exited {proc.returncode}: {err[-2000:]}")
+            res = json.loads(text)
+            assert res["tokens"] > 0 and res["compressions"] == 0, res
+            assert res["device"].startswith("cuda"), res["device"]
+            log(label, f"launch.serve --arch {name} (reduced widths): "
+                f"{res['tokens']} tokens in {res['steps']} steps, "
+                f"{res['tps']:.1f} tok/s, 0 compressions, on {res['device']}")
+            out[name] = res
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
+
+
+def phase_recurrent(torch, dev, card):
+    """Phase 14: 14a K1 and B4 at RecurrentGemma's layout, 14b card vs CPU
+    at a few layers of both configs, 14c RecurrentGemma-2B and 14d
+    RWKV6-3B served at full width and depth, 14e the serving launcher on
+    both. Returns (summary, rows)."""
+    from repro_torch.configs import get_config
+
+    took, t = {}, time.monotonic()
+
+    def lap(what):
+        nonlocal t
+        took[what] = time.monotonic() - t
+        t = time.monotonic()
+
+    rcfg = get_config(RG_CONFIG)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs[str(dtype)] = check_rec_kernels(torch, dev, rcfg, dtype)
+    lap("14a")
+    card_cpu = {n: check_rec_logits(torch, dev, n)
+                for n in (RG_CONFIG, RWKV_CONFIG)}
+    lap("14b")
+    rg, rows = recurrent_serve(torch, dev, card, RG_CONFIG,
+                               errs[str(torch.bfloat16)])
+    lap("14c")
+    rwkv, _ = recurrent_serve(torch, dev, card, RWKV_CONFIG, {})
+    lap("14d")
+    launched = rec_launchers("recurrent launch")
+    lap("14e")
+    log("recurrent", "passed in " + ", ".join(f"{k} {v:.1f} s"
+                                              for k, v in took.items()))
+    return {"kernel_errs": errs, "card_vs_cpu": card_cpu, RG_CONFIG: rg,
+            RWKV_CONFIG: rwkv, "launch": launched, "took": took}, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5067,18 +5541,21 @@ def main():
     lap("train+eval")
     moe_mla, rows_mla = phase_moe_mla(torch, dev, card, rows_bf16)
     lap("moe+mla")
+    recurrent, rows_rec = phase_recurrent(torch, dev, card)
+    lap("recurrent")
     log("done", f"all phases passed in {time.monotonic() - t0:.1f} s ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")")
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "serve": summary, "serve_alg34": summary34,
-                   "kernels": rows + rows_bf16 + rows_mla,
+                   "kernels": rows + rows_bf16 + rows_mla + rows_rec,
                    "profile": prof,
                    "paired": paired, "http": served, "memory": memory,
                    "bf16": bf16,
                    "dense": dense, "train_eval": train_eval,
-                   "moe_mla": moe_mla, "took_s": took}, f, indent=1)
-    print(json.dumps({"kernels": rows + rows_bf16 + rows_mla}))
+                   "moe_mla": moe_mla, "recurrent": recurrent,
+                   "took_s": took}, f, indent=1)
+    print(json.dumps({"kernels": rows + rows_bf16 + rows_mla + rows_rec}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

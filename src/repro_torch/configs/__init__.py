@@ -1,7 +1,9 @@
 """Architecture configs the port serves: the dense GQA family (the paper's
 Qwen3-8B, Llama-3-8B, Qwen2.5-3B, OLMo-1B and Nemotron-4-15B), the MoE
-configs DeepSeek-V2-Lite-16B (MLA) and DBRX-132B (GQA), and the tiny CPU
-test model. Each module registers one ``ArchConfig`` on import."""
+configs DeepSeek-V2-Lite-16B (MLA) and DBRX-132B (GQA), the tiny CPU
+test model, and the recurrent configs RecurrentGemma-2B (RG-LRU with
+local-window attention) and RWKV6-3B (attention-free). Each module
+registers one ``ArchConfig`` on import."""
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
@@ -9,7 +11,8 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _MODULES = ["qwen3_8b", "llama3_8b", "qwen2_5_3b", "olmo_1b",
-            "nemotron_4_15b", "deepseek_v2_lite_16b", "dbrx_132b", "tiny"]
+            "nemotron_4_15b", "deepseek_v2_lite_16b", "dbrx_132b",
+            "recurrentgemma_2b", "rwkv6_3b", "tiny"]
 
 _loaded = False
 

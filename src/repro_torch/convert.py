@@ -9,7 +9,10 @@ the same weights: at bfloat16 the port's matrices hold the values the
 JAX package casts its fp32 ones to at each use. MLA's projections
 (``wq``, ``w_dkv``, ``w_uk``, ``w_uv``, ``wo``) and a MoE layer's router,
 experts (``w1``/``w2``/``w3``, stacked (E, d, f)) and shared experts are
-carried as matrices; MLA's ``kv_norm`` stays fp32, as the norms do.
+carried as matrices; MLA's ``kv_norm`` stays fp32, as the norms do, and
+so do the recurrent mixers' parameters that the JAX package uses uncast
+(``lm.FP32_KEYS``). RecurrentGemma's 26 layers come as 8 stacked
+(rglru, rglru, attn) units and a (rglru, rglru) tail, in layer order.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ def _tensor(a, device, dtype):
 
 
 def _layer_tree(t, device, dtype, index=None, key=None):
-    if key in lm.NORM_KEYS:
+    if key in lm.FP32_KEYS:
         dtype = torch.float32
     if isinstance(t, dict):
         return {k: _layer_tree(v, device, dtype, index, k)
@@ -36,7 +39,7 @@ def _layer_tree(t, device, dtype, index=None, key=None):
 def params_from_numpy(cfg, tree, device="cpu", dtype=torch.float32) -> dict:
     """JAX param tree (numpy leaves) -> port params on ``device``, the
     matrices, qkv biases and embeddings at ``dtype`` (cast one leaf at a
-    time) and the norms' parameters in fp32."""
+    time) and ``lm.FP32_KEYS`` in fp32."""
     lm.check_supported(cfg)
     plan = lm.build_plan(cfg)
     layers = [_layer_tree(p, device, dtype) for p in tree.get("head", [])]

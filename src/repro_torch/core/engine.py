@@ -18,7 +18,11 @@ inputs are buffers allocated once: every host push, and ``restore()``,
 copies into them.
 
 Ported so far: attention models (GQA, and DeepSeek's MLA on a latent
-pool) with dense or MoE FFNs, compression with lightning or flash
+pool) with dense or MoE FFNs, local-window attention over a ring of pages
+beside RG-LRU layers (RecurrentGemma) and the attention-free RWKV6, whose
+per-slot recurrent state lives in the device state (``rec``): these two
+run without compression and without prefix caching, as in the JAX
+package, and preempt by recompute; compression with lightning or flash
 redundancy, the ragged and the dense decode kernel, recompute, swap and
 auto preemption with the host swap tier (a pinned host pool on the card),
 block-level prefix caching of raw KV and of compressed prefixes, fused and
@@ -37,6 +41,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import time
+import warnings
 from collections import deque
 from typing import Dict, List, Optional, Sequence
 
@@ -154,7 +159,9 @@ class ZipageEngine:
         self.params = params
         b = opts.block_size
         assert opts.window == opts.compress.window
-        self.compression_enabled = opts.n_max is not None
+        self.compression_enabled = (
+            opts.n_max is not None and not cfg.attention_free
+            and not cfg.local_window)
         self.budget_blocks = (opts.n_max - 1) if self.compression_enabled else 0
         self.max_blocks = -(-opts.max_model_len // b)
         self.spec = serve_model.ServeSpec(
@@ -163,8 +170,30 @@ class ZipageEngine:
             window=opts.window, prefill_rows=opts.prefill_rows,
             prefill_len=opts.prefill_len, dtype=opts.dtype,
             decode_kernel=opts.decode_kernel)
-        self.prefix_ok = opts.prefix_caching
+        self.prefix_ok = (opts.prefix_caching and not cfg.attention_free
+                          and not cfg.local_window)
+        self._ring = (self.spec.ring_blocks(cfg) if cfg.local_window
+                      else 0)
+        if self._ring > self.max_blocks:
+            raise ValueError(
+                f"{cfg.name}: the local window takes {self._ring} blocks of "
+                f"{b}, the block table {self.max_blocks} (max_model_len "
+                f"{opts.max_model_len}); raise max_model_len to at least "
+                f"{cfg.local_window}")
         self.state = serve_model.make_state(cfg, self.spec, self.device)
+        # host swap tier: only archs whose request state is all in the
+        # paged pools can vacate a slot and resume in another; a ring's
+        # pages and the recurrent state are per slot, so those archs
+        # preempt by recompute, with the JAX engine's warning
+        self._swap_ok = (opts.swap_space_blocks > 0
+                         and "pools" in self.state and not self._ring
+                         and "rec" not in self.state)
+        if opts.swap_space_blocks > 0 and not self._swap_ok:
+            warnings.warn(
+                f"preemption_mode={opts.preemption_mode!r} cannot swap on "
+                "this arch (recurrent/ring/enc-dec state is per-slot, not "
+                "paged); falling back to recompute-mode preemption",
+                stacklevel=2)
         self.scheduler = Scheduler(
             SchedulerParams(
                 block_size=b, max_batch=opts.max_batch,
@@ -173,7 +202,10 @@ class ZipageEngine:
                 async_compression=opts.async_compression,
                 prefill_rows=opts.prefill_rows,
                 policy=opts.policy, preemption=opts.preemption,
-                preemption_mode=opts.preemption_mode,
+                preemption_mode=(opts.preemption_mode
+                                 if self._swap_ok
+                                 or opts.swap_space_blocks == 0
+                                 else "recompute"),
                 swap_cost_per_token=opts.swap_cost_per_token,
                 block_bytes=self._kv_block_bytes(),
                 token_budget=opts.token_budget,
@@ -192,11 +224,12 @@ class ZipageEngine:
                 decode_steps=opts.decode_steps,
                 compression_enabled=self.compression_enabled,
                 budget_blocks=self.budget_blocks,
-                prefix_ok=self.prefix_ok, attention_free=False,
-                ring_blocks=0),
+                prefix_ok=self.prefix_ok, attention_free=cfg.attention_free,
+                ring_blocks=self._ring),
             BlockManager(opts.n_total_blocks, b,
                          enable_prefix_cache=self.prefix_ok,
-                         swap_space_blocks=opts.swap_space_blocks,
+                         swap_space_blocks=(opts.swap_space_blocks
+                                            if self._swap_ok else 0),
                          prefix_cache_policy=opts.prefix_cache_policy,
                          prefix_cache_watermark=opts.prefix_cache_watermark))
         self._prefill = serve_model.build_prefill_step(cfg, self.spec)
@@ -260,10 +293,7 @@ class ZipageEngine:
         self._swap_qwin: Dict[int, torch.Tensor] = {}   # rid -> parked window
         self._swap_out = serve_model.build_swap_out_step(cfg, self.spec)
         self._swap_in = serve_model.build_swap_in_step(cfg, self.spec)
-        # host swap tier: every arch the port serves keeps its whole
-        # request state in the paged pools (lm.check_supported), so the JAX
-        # engine's recompute fallback for per-slot state never applies
-        if opts.swap_space_blocks > 0:
+        if self._swap_ok:
             self._init_swap()
         self._graphs: Optional[DecodeGraphs] = None
         if self.device.type == "cuda":
@@ -379,7 +409,11 @@ class ZipageEngine:
         self._t_blocked += time.monotonic() - t
 
     def _kv_block_bytes(self) -> int:
-        pools = self.state["pools"]
+        """Bytes one pool block takes over all layers and leaves; 0 for an
+        attention-free arch, which has no pools."""
+        pools = self.state.get("pools")
+        if not pools:
+            return 0
         return int(sum(leaf.numel() // leaf.shape[1] * leaf.element_size()
                        for leaf in pools.values()))
 
@@ -647,7 +681,10 @@ class ZipageEngine:
     def _advance_decoded(self, r: Request) -> None:
         if r.qslot >= 0:
             r.win_count = min(self.opts.window, r.win_count + 1)
-        r.seq_len += 1
+        if self._ring:
+            r.seq_len = min(r.seq_len + 1, self._ring * self.opts.block_size)
+        elif not self.cfg.attention_free:
+            r.seq_len += 1
         r.position += 1
         self.host_seq[r.slot] = r.seq_len
         self.host_pos[r.slot] = r.position

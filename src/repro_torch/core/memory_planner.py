@@ -16,6 +16,12 @@ Closed-form solution of the linear program: the maximum concurrency is
 ``M = floor(m_avail / (m_kv·N_max + m_q))`` with
 ``N_total = floor((m_avail − M·m_q) / m_kv)`` (global score inflates m_kv by
 ``1 + 1/(2d)`` per Eq. 2).
+
+Configs outside the paper's setting: a local-window config (RecurrentGemma)
+runs without compression, and each request holds its ring of
+``local_window / block_size`` blocks from admission, so that ring takes
+N_max's place; an attention-free config (RWKV6) has no KV block at all,
+and ``plan_memory`` refuses it rather than divide by its zero block bytes.
 """
 from __future__ import annotations
 
@@ -71,6 +77,11 @@ def bytes_q_per_request(cfg, window, *, dtype_bytes=4):
 
 def plan_memory(cfg, m_available: int, n_max: int, *, block_size,
                 window=16, with_global=True, dtype_bytes=4) -> MemoryPlan:
+    if cfg.num_attn_layers == 0:
+        raise ValueError(f"{cfg.name} is attention-free: it has no KV block "
+                         "to plan (its per-request state is fixed)")
+    if cfg.local_window:
+        n_max = -(-cfg.local_window // block_size)   # the ring, held whole
     m_kv = bytes_per_kv_block(cfg, block_size, dtype_bytes=dtype_bytes,
                               with_global=with_global)
     m_q = bytes_q_per_request(cfg, window, dtype_bytes=dtype_bytes)

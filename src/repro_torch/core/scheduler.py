@@ -842,7 +842,9 @@ class Scheduler:
             if self.p.compression_enabled and self.free_qslots \
                     and len(self.running) < self.p.m_qslots:
                 r.qslot = self.free_qslots.pop()
-            ring = self.p.ring_blocks
+            # a ring holds the window's tokens (the JAX package clamps at
+            # the ring's block count here, a unit slip nothing reads)
+            ring = self.p.ring_blocks * self.p.block_size
             r.seq_len = (min(len(prompt), ring) if ring
                          else (0 if self.p.attention_free
                                else len(prompt) - pos_gap))

@@ -1,24 +1,45 @@
 """Serving-time model execution over the paged KV pool
 (``repro.core.serve_model`` for the layer kinds the port serves:
-attention, GQA or MLA, with dense or MoE FFNs).
+attention, GQA or MLA, local-window GQA over a ring of pages, and the
+recurrent mixers RG-LRU and RWKV6, with dense or MoE FFNs).
 
 State layout (a dict of tensors on one device; the steps update it in
 place where the JAX package returned a new state, and never replace a
 tensor of it, so a captured CUDA graph of a step reads and writes the same
-buffers on every replay):
-  pools:  {"k", "v": (L, N + 1, b, h_kv, d) at ``ServeSpec.dtype``,
-           "f": (L, N + 1, b, h_kv) fp32}                       [GQA]
-          or {"kv": (L, N + 1, b, r + d_rope) at ``ServeSpec.dtype``,
-           "f": (L, N + 1, b, 1) fp32}                          [MLA]
-  qwin:   (L, M + 1, w, h_q, dq) ring-ordered observation-window queries,
-          at ``ServeSpec.dtype``; dq = d (GQA) or r + d_rope (MLA: the
-          absorbed query beside its roped part)
+buffers on every replay). L_attn counts the attention layers, L_rec the
+recurrent ones; a config with no attention layer has no pools and no qwin.
+  pools:  {"k", "v": (L_attn, N + 1, b, h_kv, d) at ``ServeSpec.dtype``,
+           "f": (L_attn, N + 1, b, h_kv) fp32}                  [GQA]
+          or {"kv": (L_attn, N + 1, b, r + d_rope) at the dtype,
+           "f": (L_attn, N + 1, b, 1) fp32}                     [MLA]
+  qwin:   (L_attn, M + 1, w, h_q, dq) ring-ordered observation-window
+          queries, at ``ServeSpec.dtype``; dq = d (GQA) or r + d_rope
+          (MLA: the absorbed query beside its roped part)
+  rec:    {"h": (L_rec, B, w) fp32, "conv": (L_rec, B, cw - 1, w) at the
+           dtype}                                               [RG-LRU]
+          or {"S": (L_rec, B, h, K, K) fp32, "shift": (L_rec, B, d) at
+           the dtype}                                           [RWKV6]
 The extra last page of the pools and the extra last query slot are sinks:
 nothing maps them, and writes that must be dropped land there
 (``paged.sink_page``).
   block_tables (B, max_blocks) int32, seq_lens (B,), positions (B,),
   qslot (B,) int32, and the fused-decode carry tokens_next (B,),
   active_mask (B,) bool, sample_counters (B,).
+
+Local-window attention (``cfg.local_window``, RecurrentGemma) keeps a
+request's keys in a ring of ``ServeSpec.ring_blocks(cfg)`` blocks, the
+window's tokens: position p lives at ring entry p % ring, and a decode
+attends the ring's min(p + 1, ring) entries; seq_lens stays clamped at the
+ring.
+
+Prefill continues a request's state across calls. The JAX package starts
+every prefill call's recurrent state from zero and lets a ring's queries
+see only the call's own keys, so a prompt fed in several calls loses its
+state at each boundary; here a row whose ``start_pos`` is above 0 starts
+from the slot's carried state (RG-LRU's h and conv history, RWKV's S and
+token shift), and its queries see the ring entries of the window before
+the call, read before the call's own writes, beside the call's keys. A row
+at ``start_pos`` 0 starts from zero, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -63,6 +84,33 @@ class ServeSpec:
             raise ValueError(f"unknown decode_kernel {self.decode_kernel!r}; "
                              f"expected one of {DECODE_KERNELS}")
 
+    def ring_blocks(self, cfg) -> int:
+        """Ring capacity for local-window attention, in blocks (the
+        window's tokens)."""
+        if cfg.local_window % self.block_size:
+            raise ValueError(f"local_window {cfg.local_window} is not a "
+                             f"multiple of block_size {self.block_size}")
+        return cfg.local_window // self.block_size
+
+
+def ring_tokens(cfg: ArchConfig, spec: ServeSpec) -> int:
+    """The ring's entries for a local-window config, else 0."""
+    return spec.ring_blocks(cfg) * spec.block_size if cfg.local_window else 0
+
+
+def mixer_kinds(cfg: ArchConfig):
+    """Each layer's mixer and its ordinal among the layers of its state:
+    [(kind, index into the pools or into rec)]."""
+    out, n_attn, n_rec = [], 0, 0
+    for kind in cfg.layer_kinds():
+        if kind == "attn":
+            out.append((kind, n_attn))
+            n_attn += 1
+        else:
+            out.append((kind, n_rec))
+            n_rec += 1
+    return out
+
 
 def qwin_dim(cfg: ArchConfig) -> int:
     """Width of one observation-window query."""
@@ -73,37 +121,46 @@ def qwin_dim(cfg: ArchConfig) -> int:
 
 def make_state(cfg: ArchConfig, spec: ServeSpec, device) -> dict:
     lm.check_supported(cfg)
-    L, B = cfg.num_layers, spec.n_slots
+    L, B = cfg.num_attn_layers, spec.n_slots
+    L_rec = cfg.num_layers - L
     N, b = spec.n_total_blocks, spec.block_size
     h, d = cfg.num_kv_heads, cfg.head_dim
     f32, i32 = torch.float32, torch.int32
     dt = lm.torch_dtype(spec.dtype)
-    if cfg.attn_type == "mla":
-        pools = {"kv": torch.zeros((L, N + 1, b, qwin_dim(cfg)), dtype=dt,
-                                   device=device),
-                 "f": torch.zeros((L, N + 1, b, 1), dtype=f32,
-                                  device=device)}
-    else:
-        pools = {"k": torch.zeros((L, N + 1, b, h, d), dtype=dt,
-                                  device=device),
-                 "v": torch.zeros((L, N + 1, b, h, d), dtype=dt,
-                                  device=device),
-                 "f": torch.zeros((L, N + 1, b, h), dtype=f32,
-                                  device=device)}
-    return {
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    st = {
         "block_tables": torch.full((B, spec.max_blocks), -1, dtype=i32,
                                    device=device),
-        "seq_lens": torch.zeros(B, dtype=i32, device=device),
-        "positions": torch.zeros(B, dtype=i32, device=device),
+        "seq_lens": zeros(B, i32),
+        "positions": zeros(B, i32),
         "qslot": torch.full((B,), -1, dtype=i32, device=device),
-        "pools": pools,
-        "qwin": torch.zeros((L, spec.m_qslots + 1, spec.window,
-                             cfg.num_heads, qwin_dim(cfg)), dtype=dt,
-                            device=device),
-        "tokens_next": torch.zeros(B, dtype=torch.int64, device=device),
-        "active_mask": torch.zeros(B, dtype=torch.bool, device=device),
-        "sample_counters": torch.zeros(B, dtype=i32, device=device),
     }
+    if L:
+        if cfg.attn_type == "mla":
+            st["pools"] = {"kv": zeros((L, N + 1, b, qwin_dim(cfg)), dt),
+                           "f": zeros((L, N + 1, b, 1), f32)}
+        else:
+            st["pools"] = {"k": zeros((L, N + 1, b, h, d), dt),
+                           "v": zeros((L, N + 1, b, h, d), dt),
+                           "f": zeros((L, N + 1, b, h), f32)}
+        st["qwin"] = zeros((L, spec.m_qslots + 1, spec.window,
+                            cfg.num_heads, qwin_dim(cfg)), dt)
+    if L_rec:
+        if "rglru" in cfg.layer_kinds():
+            w = cfg.lru_width or cfg.d_model
+            st["rec"] = {"h": zeros((L_rec, B, w), f32),
+                         "conv": zeros((L_rec, B, cfg.conv1d_width - 1, w),
+                                       dt)}
+        else:
+            K = cfg.head_dim
+            st["rec"] = {"S": zeros((L_rec, B, cfg.num_heads, K, K), f32),
+                         "shift": zeros((L_rec, B, cfg.d_model), dt)}
+    st.update(tokens_next=zeros(B, torch.int64),
+              active_mask=zeros(B, torch.bool),
+              sample_counters=zeros(B, i32))
+    return st
 
 
 def _write_qwin(qwin_l, rows, qslot, ring_pos, q):
@@ -134,17 +191,38 @@ def _expand(cfg, p, o_lat, dtype):
     return o.reshape(*o.shape[:-2], -1).to(dtype)
 
 
+def _decode_rec(cfg, p, kind, x, rec, r_i, active):
+    """One recurrent layer, one token. The state of an inactive slot is
+    left as it was: the new state is selected per slot and copied into
+    the buffers in place. Returns the mixer's output (B, d)."""
+    if kind == "rglru":
+        st = {"h": rec["h"][r_i], "conv": rec["conv"][r_i]}
+        out, new = ML.rglru_step(cfg, p, x, st)
+    else:
+        st = {"S": rec["S"][r_i], "shift": rec["shift"][r_i]}
+        out, new = ML.rwkv_step(cfg, p, x, st)
+    for k, old in st.items():
+        keep = active.reshape((-1,) + (1,) * (old.dim() - 1))
+        old.copy_(torch.where(keep, new[k].to(old.dtype), old))
+    return out
+
+
 def build_decode_step(cfg: ArchConfig, spec: ServeSpec):
     """decode_step(params, state, tokens, active) -> logits (B, V) fp32.
 
     tokens: (B,) int; active: (B,) bool. Inactive slots produce garbage
-    logits and leave all their state untouched: they write no KV and no
+    logits and leave all their state untouched: they write no KV, no
     observation-window query (their ring position is frozen, so a write
-    would overwrite an entry compression scoring still needs).
+    would overwrite an entry compression scoring still needs) and no
+    recurrent state. A local-window layer writes position p at ring entry
+    p % ring and attends min(p + 1, ring) entries; seq_lens then stays
+    clamped at the ring.
     """
     lm.check_supported(cfg)
     dense = spec.decode_kernel == "dense"
     mla = cfg.attn_type == "mla"
+    ring = ring_tokens(cfg, spec)
+    kinds = mixer_kinds(cfg)
 
     def step(params, state, tokens, active):
         x = params["embed"][tokens]
@@ -152,47 +230,57 @@ def build_decode_step(cfg: ArchConfig, spec: ServeSpec):
         seq = state["seq_lens"]
         bt = state["block_tables"]
         qslot = state["qslot"]
-        write_pos = torch.where(active, seq, torch.full_like(seq, -1))
-        attend_len = seq + 1
+        if ring:
+            write_pos = torch.where(active, positions % ring,
+                                    torch.full_like(positions, -1))
+            attend_len = torch.clamp(positions + 1, max=ring)
+        else:
+            write_pos = torch.where(active, seq, torch.full_like(seq, -1))
+            attend_len = seq + 1
         live_q = (qslot >= 0) & active
-        pools, qwin = state["pools"], state["qwin"]
+        pools, qwin = state.get("pools"), state.get("qwin")
         B = x.shape[0]
-        for li, p in enumerate(params["layers"]):
+        for p, (kind, li) in zip(params["layers"], kinds):
             h = apply_norm(cfg, p["ln1"], x)
-            pa = p["attn"]
-            if mla:
-                # the latent pool, attended in plain PyTorch as the JAX
-                # package decodes MLA in jnp
-                q_nope, q_rope = ML.mla_queries(cfg, pa, h[:, None],
-                                                positions[:, None])
-                c, k_rope = ML.mla_latent(cfg, pa, h[:, None],
-                                          positions[:, None])
-                kv_l = pools["kv"][li]
-                paged.scatter_token(kv_l, bt, write_pos,
-                                    torch.cat([c[:, 0], k_rope[:, 0]], -1))
-                q_abs = _absorb(cfg, pa, q_nope[:, 0], x.dtype)
-                o_lat = paged.paged_decode_attention_mla(
-                    q_abs, q_rope[:, 0], kv_l, bt, attend_len,
-                    r=cfg.kv_lora_rank, scale=ML.mla_scale(cfg))
-                o = _expand(cfg, pa, o_lat, x.dtype)
-                q = torch.cat([q_abs, q_rope[:, 0]], -1)   # (B, hq, r+dr)
+            if kind != "attn":
+                x = x + _decode_rec(cfg, p[kind], kind, h, state["rec"], li,
+                                    active)
             else:
-                q, k, v = ML.attn_qkv(cfg, pa, h)             # (B, h, d)
-                q = apply_rope(q[:, None], positions[:, None],
-                               cfg.rope_theta)[:, 0]
-                k = apply_rope(k[:, None], positions[:, None],
-                               cfg.rope_theta)[:, 0]
-                k_l, v_l = pools["k"][li], pools["v"][li]
-                paged.scatter_token(k_l, bt, write_pos, k)
-                paged.scatter_token(v_l, bt, write_pos, v)
-                if dense:
-                    o = ops.paged_decode_attention(q, k_l, v_l, bt,
-                                                   attend_len)
+                pa = p["attn"]
+                if mla:
+                    # the latent pool, attended in plain PyTorch as the JAX
+                    # package decodes MLA in jnp
+                    q_nope, q_rope = ML.mla_queries(cfg, pa, h[:, None],
+                                                    positions[:, None])
+                    c, k_rope = ML.mla_latent(cfg, pa, h[:, None],
+                                              positions[:, None])
+                    kv_l = pools["kv"][li]
+                    paged.scatter_token(kv_l, bt, write_pos,
+                                        torch.cat([c[:, 0], k_rope[:, 0]],
+                                                  -1))
+                    q_abs = _absorb(cfg, pa, q_nope[:, 0], x.dtype)
+                    o_lat = paged.paged_decode_attention_mla(
+                        q_abs, q_rope[:, 0], kv_l, bt, attend_len,
+                        r=cfg.kv_lora_rank, scale=ML.mla_scale(cfg))
+                    o = _expand(cfg, pa, o_lat, x.dtype)
+                    q = torch.cat([q_abs, q_rope[:, 0]], -1)  # (B, hq, r+dr)
                 else:
-                    o = ops.ragged_decode_attention(q, k_l, v_l, bt,
-                                                    attend_len)
-            _write_qwin(qwin[li], live_q, qslot, seq, q)
-            x = x + o.reshape(B, -1) @ pa["wo"]
+                    q, k, v = ML.attn_qkv(cfg, pa, h)          # (B, h, d)
+                    q = apply_rope(q[:, None], positions[:, None],
+                                   cfg.rope_theta)[:, 0]
+                    k = apply_rope(k[:, None], positions[:, None],
+                                   cfg.rope_theta)[:, 0]
+                    k_l, v_l = pools["k"][li], pools["v"][li]
+                    paged.scatter_token(k_l, bt, write_pos, k)
+                    paged.scatter_token(v_l, bt, write_pos, v)
+                    if dense:
+                        o = ops.paged_decode_attention(q, k_l, v_l, bt,
+                                                       attend_len)
+                    else:
+                        o = ops.ragged_decode_attention(q, k_l, v_l, bt,
+                                                        attend_len)
+                _write_qwin(qwin[li], live_q, qslot, seq, q)
+                x = x + o.reshape(B, -1) @ pa["wo"]
             h2 = apply_norm(cfg, p["ln2"], x)
             if "moe" in p:
                 x = x + ML.moe_forward(cfg, p["moe"], h2[:, None],
@@ -203,6 +291,8 @@ def build_decode_step(cfg: ArchConfig, spec: ServeSpec):
         logits = (x @ lm.unembed_matrix(cfg, params)).float()
         inc = active.to(seq.dtype)
         seq.add_(inc)
+        if ring:
+            seq.clamp_(max=ring)
         positions.add_(inc)
         return logits
 
@@ -295,6 +385,62 @@ def build_swap_in_step(cfg: ArchConfig, spec: ServeSpec):
     return swap_in
 
 
+def _carried(rec, r_i, slot_c, carry):
+    """The slots' recurrent state of layer ``r_i`` for the rows that carry
+    it (start_pos > 0), zeros for the rows that start afresh."""
+    out = {}
+    for k, t in rec.items():
+        st = t[r_i][slot_c]
+        keep = carry.reshape((-1,) + (1,) * (st.dim() - 1))
+        out[k] = torch.where(keep, st, torch.zeros_like(st))
+    return out
+
+
+def _store_rec(rec, r_i, slot_ids, row_ok, new):
+    """Write the rows' final recurrent state into their slots, in place;
+    padding rows (slot -1) write nothing."""
+    idx = slot_ids[row_ok].long()
+    for k, t in rec.items():
+        t[r_i].index_copy_(0, idx, new[k][row_ok].to(t.dtype))
+
+
+def _rwkv_chunk(S: int) -> int:
+    """The reference's choice of WKV chunk for a prefill of S positions:
+    64, 32, S itself below 32, else the token scan (1)."""
+    if S % 64 == 0:
+        return 64
+    if S % 32 == 0:
+        return 32
+    return S if S < 32 else 1
+
+
+def _prefill_ring(cfg, spec, q, k, v, k_l, v_l, bt, positions, valid,
+                  row_ok, start_pos, lengths):
+    """Local-window attention of a prefill chunk over the ring. The ring
+    entries of the window before the chunk are read first: entry j holds
+    the latest position below ``start_pos`` that is j modulo the ring
+    (none at ``start_pos`` 0). Then the chunk's last ``ring`` keys are
+    written at their ring entries, and the queries attend both, under the
+    window's mask."""
+    ring = ring_tokens(cfg, spec)
+    nb = spec.ring_blocks(cfg)
+    k_prev = paged.gather_entries(k_l, bt[:, :nb])      # (P, ring, h, d)
+    v_prev = paged.gather_entries(v_l, bt[:, :nb])
+    j = torch.arange(ring, device=q.device)[None]
+    last = start_pos[:, None] - 1
+    prev_pos = last - torch.remainder(last - j, ring)    # < 0: empty
+    keep = positions >= (start_pos + lengths - ring)[:, None]
+    wpos = torch.where(valid & keep & row_ok[:, None], positions % ring,
+                       torch.full_like(positions, -1))
+    paged.scatter_positions(k_l, bt, wpos, k)
+    paged.scatter_positions(v_l, bt, wpos, v)
+    kpos = torch.cat([prev_pos, torch.where(
+        valid, positions, torch.full_like(positions, -1))], 1)
+    return ML.window_attention(q, torch.cat([k_prev, k], 1),
+                               torch.cat([v_prev, v], 1), positions, kpos,
+                               local_window=cfg.local_window)
+
+
 def build_prefill_step(cfg: ArchConfig, spec: ServeSpec):
     """prefill_step(params, state, tokens, slot_ids, lengths, start_pos,
     rope_start=None) -> last-token logits (P, V).
@@ -304,12 +450,17 @@ def build_prefill_step(cfg: ArchConfig, spec: ServeSpec):
     already cached (the cache-write index of each row's first token);
     rope_start: (P,) the rotary position of that token, defaulting to
     start_pos. The caller must have installed block tables / seq_lens for
-    these slots first. Writes K/V into the pools and seeds the observation
-    window with each row's last ``window`` queries.
+    these slots first. Writes K/V into the pools (a local-window layer:
+    into the ring) and the rows' final recurrent state into their slots,
+    and seeds the observation window with each row's last ``window``
+    queries. A row with ``start_pos`` above 0 continues from its slot's
+    carried state (module docstring).
     """
     lm.check_supported(cfg)
     w_obs = spec.window
     mla = cfg.attn_type == "mla"
+    ring = ring_tokens(cfg, spec)
+    kinds = mixer_kinds(cfg)
 
     def step(params, state, tokens, slot_ids, lengths, start_pos,
              rope_start=None):
@@ -323,6 +474,7 @@ def build_prefill_step(cfg: ArchConfig, spec: ServeSpec):
         valid = ar < lengths[:, None]
         row_ok = slot_ids >= 0
         slot_c = slot_ids.clamp(min=0).long()
+        carry = start_pos > 0
         bt = state["block_tables"][slot_c]
         cache_pos = start_pos[:, None] + ar
         wpos = torch.where(valid & row_ok[:, None], cache_pos,
@@ -332,42 +484,63 @@ def build_prefill_step(cfg: ArchConfig, spec: ServeSpec):
         in_win = valid & (cache_pos >= kv_lens[:, None] - w_obs) \
             & ((qslot >= 0) & row_ok)[:, None]
         qslot_rows = qslot[:, None].expand(P, S)
-        pools, qwin = state["pools"], state["qwin"]
+        pools, qwin = state.get("pools"), state.get("qwin")
         moe_valid = valid & row_ok[:, None]
-        for li, p in enumerate(params["layers"]):
+        rows = torch.arange(P, device=dev)
+        last = (lengths - 1).clamp(min=0).long()
+        for p, (kind, li) in zip(params["layers"], kinds):
             h = apply_norm(cfg, p["ln1"], x)
-            pa = p["attn"]
-            if mla:
-                q_nope, q_rope = ML.mla_queries(cfg, pa, h, positions)
-                c, k_rope = ML.mla_latent(cfg, pa, h, positions)
-                kv_l = pools["kv"][li]
-                paged.scatter_positions(kv_l, bt, wpos,
-                                        torch.cat([c, k_rope], -1))
-                q = torch.cat([_absorb(cfg, pa, q_nope, x.dtype), q_rope],
-                              -1)                         # (P, S, hq, r+dr)
-                o_lat = paged.paged_prefill_attention_mla(
-                    q, kv_l, bt, start_pos, kv_lens, r=cfg.kv_lora_rank,
-                    scale=ML.mla_scale(cfg))
-                o = _expand(cfg, pa, o_lat, x.dtype)
+            if kind == "rglru":
+                out, new = ML.rglru_forward(
+                    cfg, p[kind], h, valid=valid,
+                    state=_carried(state["rec"], li, slot_c, carry),
+                    return_state=True)
+                _store_rec(state["rec"], li, slot_ids, row_ok, new)
+                x = x + out
+            elif kind == "rwkv":
+                st = _carried(state["rec"], li, slot_c, carry)
+                out, S_fin = ML.rwkv_forward(
+                    cfg, p[kind], h, chunk=_rwkv_chunk(S), valid=valid,
+                    state=st, return_state=True)
+                _store_rec(state["rec"], li, slot_ids, row_ok,
+                           {"S": S_fin, "shift": h[rows, last]})
+                x = x + out
             else:
-                q, k, v = ML.attn_qkv(cfg, pa, h)          # (P, S, h, d)
-                q = apply_rope(q, positions, cfg.rope_theta)
-                k = apply_rope(k, positions, cfg.rope_theta)
-                k_l, v_l = pools["k"][li], pools["v"][li]
-                paged.scatter_positions(k_l, bt, wpos, k)
-                paged.scatter_positions(v_l, bt, wpos, v)
-                o = paged.paged_prefill_attention(q, k_l, v_l, bt,
-                                                  start_pos, kv_lens)
-            _write_qwin(qwin[li], in_win, qslot_rows, cache_pos, q)
-            x = x + o.reshape(P, S, -1) @ pa["wo"]
+                pa = p["attn"]
+                if mla:
+                    q_nope, q_rope = ML.mla_queries(cfg, pa, h, positions)
+                    c, k_rope = ML.mla_latent(cfg, pa, h, positions)
+                    kv_l = pools["kv"][li]
+                    paged.scatter_positions(kv_l, bt, wpos,
+                                            torch.cat([c, k_rope], -1))
+                    q = torch.cat([_absorb(cfg, pa, q_nope, x.dtype),
+                                   q_rope], -1)           # (P, S, hq, r+dr)
+                    o_lat = paged.paged_prefill_attention_mla(
+                        q, kv_l, bt, start_pos, kv_lens, r=cfg.kv_lora_rank,
+                        scale=ML.mla_scale(cfg))
+                    o = _expand(cfg, pa, o_lat, x.dtype)
+                else:
+                    q, k, v = ML.attn_qkv(cfg, pa, h)      # (P, S, h, d)
+                    q = apply_rope(q, positions, cfg.rope_theta)
+                    k = apply_rope(k, positions, cfg.rope_theta)
+                    k_l, v_l = pools["k"][li], pools["v"][li]
+                    if ring:
+                        o = _prefill_ring(cfg, spec, q, k, v, k_l, v_l, bt,
+                                          positions, valid, row_ok,
+                                          start_pos, lengths)
+                    else:
+                        paged.scatter_positions(k_l, bt, wpos, k)
+                        paged.scatter_positions(v_l, bt, wpos, v)
+                        o = paged.paged_prefill_attention(
+                            q, k_l, v_l, bt, start_pos, kv_lens)
+                _write_qwin(qwin[li], in_win, qslot_rows, cache_pos, q)
+                x = x + o.reshape(P, S, -1) @ pa["wo"]
             h2 = apply_norm(cfg, p["ln2"], x)
             if "moe" in p:
                 x = x + ML.moe_forward(cfg, p["moe"], h2, valid=moe_valid)
             else:
                 x = x + ML.ffn_forward(cfg, p["ffn"], h2)
         x = apply_norm(cfg, params["final_norm"], x)
-        last = (lengths - 1).clamp(min=0).long()
-        x_last = x[torch.arange(P, device=dev), last]
-        return (x_last @ lm.unembed_matrix(cfg, params)).float()
+        return (x[rows, last] @ lm.unembed_matrix(cfg, params)).float()
 
     return step

@@ -191,7 +191,9 @@ constexpr int kDecodeThreads = 32 * kDecodeWarps;
 constexpr int kDecodeRows = 16;                              // positions a tile
 constexpr int kDecodeWarpRows = kDecodeRows / kDecodeWarps;  // rows of a tile a warp takes
 constexpr int kDecodeStages = 3;
-constexpr int kDecodeMaxG = 8;    // query heads per kv head
+constexpr int kDecodeMaxG = 16;   // query heads per kv head
+// floats of probabilities a warp keeps a tile: its rows x the heads
+constexpr int kDecodeWarpP = kDecodeWarpRows * kDecodeMaxG;
 constexpr int kDecodeMaxD = 256;  // head_dim: two float4 columns a lane
 constexpr int kDecodeTargetBlocks = 1024;
 constexpr int kDecodeMaxChunks = 32;
@@ -523,7 +525,7 @@ __host__ __device__ inline size_t zp_decode_smem_bytes(int G, int ld, int chunk_
   const size_t tbl = (chunk_pages + 3) & ~3;
   const size_t ring = (size_t)esize * 2 * kDecodeStages * kDecodeRows * ld;
   const size_t states = sizeof(float) * (size_t)kDecodeWarps * g * (d + 2);
-  return sizeof(float) * (tbl + kDecodeStages * kDecodeRows + 32 * kDecodeWarps) +
+  return sizeof(float) * (tbl + kDecodeStages * kDecodeRows + kDecodeWarpP * kDecodeWarps) +
          (size_t)esize * G * ld + (ring > states ? ring : states);
 }
 
@@ -550,7 +552,7 @@ __device__ __forceinline__ void zp_decode_chunk(const ZpDecodeArgs<T>& a, float*
   int* tbl_s = reinterpret_cast<int*>(smem);
   int* valid_s = tbl_s + ((a.chunk_pages + 3) & ~3);
   float* p_s = reinterpret_cast<float*>(valid_s + kDecodeStages * kDecodeRows);
-  T* q_s = reinterpret_cast<T*>(p_s + 32 * kDecodeWarps);
+  T* q_s = reinterpret_cast<T*>(p_s + kDecodeWarpP * kDecodeWarps);
   T* kv_s = q_s + G * a.ld;
   const int tile_elems = kDecodeRows * a.ld;  // elements of T a tile
 
@@ -598,7 +600,7 @@ __device__ __forceinline__ void zp_decode_chunk(const ZpDecodeArgs<T>& a, float*
     zp_cp_async_commit();
     const int st = t % kDecodeStages;
     zp_decode_tile<G, DPL, T>(a, kv_s + 2 * st * tile_elems, kv_s + (2 * st + 1) * tile_elems,
-                           valid_s + st * kDecodeRows, q_s, p_s + 32 * warp, m, l, acc, lane,
+                           valid_s + st * kDecodeRows, q_s, p_s + kDecodeWarpP * warp, m, l, acc, lane,
                            warp * kDecodeWarpRows);
   }
   zp_cp_async_wait<0>();  // no copy outlives the block
@@ -658,12 +660,16 @@ template <typename T>
 using ZpDecodeMergeKernel = void (*)(ZpDecodeArgs<T>);
 
 // The chunk kernel's instantiations for storage type T, indexed
-// [log2 G][DPL - 1].
+// [log2 G][DPL - 1]. A g between two powers of two takes the larger G and
+// masks the heads g .. G - 1 (their q rows are zeros, their states never
+// stored): DBRX's g = 6 runs at G = 8, RecurrentGemma's g = 10 at G = 16.
 #define ZP_DECODE_TABLE(kernel, T)                                                   \
   {                                                                                  \
     {kernel<1, 1, T>, kernel<1, 2, T>}, {kernel<2, 1, T>, kernel<2, 2, T>},          \
-        {kernel<4, 1, T>, kernel<4, 2, T>}, {kernel<8, 1, T>, kernel<8, 2, T>}       \
+        {kernel<4, 1, T>, kernel<4, 2, T>}, {kernel<8, 1, T>, kernel<8, 2, T>},      \
+        {kernel<16, 1, T>, kernel<16, 2, T>}                                         \
   }
+constexpr int kDecodeTableG = 5;  // rows of ZP_DECODE_TABLE: G = 1, 2, 4, 8, 16
 
 // Bytes of output at the start of a launch's buffer: B * hq * d elements
 // of T, rounded up to 16 bytes; the fp32 parts (zp_decode_workspace()
@@ -677,7 +683,7 @@ inline long long zp_decode_out_bytes(int batch, int hq, int d, int esize) {
 // At bf16 the rows must take 16-byte copies (d % 8 == 0, 16-byte aligned
 // q and pools); anything else is refused.
 template <typename T>
-static int zp_decode_launch(const ZpDecodeChunkKernel<T> (&table)[4][2],
+static int zp_decode_launch(const ZpDecodeChunkKernel<T> (&table)[kDecodeTableG][2],
                             ZpDecodeMergeKernel<T> merge, const void* q, const void* k_pool,
                             const void* v_pool, const void* block_tables, const void* seq_lens,
                             void* out, int batch, int hkv, int g, int d, int b, int mb,
@@ -707,7 +713,7 @@ static int zp_decode_launch(const ZpDecodeChunkKernel<T> (&table)[4][2],
   a.vec = d % V == 0 && (ptrs & 15) == 0;
   if (!a.vec && !std::is_same<T, float>::value) return (int)cudaErrorInvalidValue;
   a.scale = scale;
-  const int lg = g <= 1 ? 0 : g <= 2 ? 1 : g <= 4 ? 2 : 3;
+  const int lg = g <= 1 ? 0 : g <= 2 ? 1 : g <= 4 ? 2 : g <= 8 ? 3 : 4;
   const int dpl = a.ld <= 128 ? 1 : 2;
   const ZpDecodeChunkKernel<T> kernel = table[lg][dpl - 1];
   const size_t smem = zp_decode_smem_bytes(1 << lg, a.ld, a.chunk_pages, (int)sizeof(T), g, d);

@@ -51,9 +51,9 @@ __global__ void __launch_bounds__(kDecodeThreads) paged_attention_merge_kernel(Z
   zp_decode_merge(a, a.n_chunks);
 }
 
-const ZpDecodeChunkKernel<float> kChunkKernels[4][2] =
+const ZpDecodeChunkKernel<float> kChunkKernels[kDecodeTableG][2] =
     ZP_DECODE_TABLE(paged_attention_chunk_kernel, float);
-const ZpDecodeChunkKernel<zp_bf16> kChunkKernelsBf16[4][2] =
+const ZpDecodeChunkKernel<zp_bf16> kChunkKernelsBf16[kDecodeTableG][2] =
     ZP_DECODE_TABLE(paged_attention_chunk_kernel, zp_bf16);
 }  // namespace
 

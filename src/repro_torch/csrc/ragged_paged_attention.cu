@@ -52,9 +52,9 @@ ragged_paged_attention_merge_kernel(ZpDecodeArgs<T> a) {
   zp_decode_merge(a, min(a.n_chunks, (seq_len + chunk_len - 1) / chunk_len));
 }
 
-const ZpDecodeChunkKernel<float> kChunkKernels[4][2] =
+const ZpDecodeChunkKernel<float> kChunkKernels[kDecodeTableG][2] =
     ZP_DECODE_TABLE(ragged_paged_attention_chunk_kernel, float);
-const ZpDecodeChunkKernel<zp_bf16> kChunkKernelsBf16[4][2] =
+const ZpDecodeChunkKernel<zp_bf16> kChunkKernelsBf16[kDecodeTableG][2] =
     ZP_DECODE_TABLE(ragged_paged_attention_chunk_kernel, zp_bf16);
 }  // namespace
 

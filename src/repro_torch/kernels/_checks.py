@@ -44,7 +44,7 @@ def kv_tensors(name: str, device, **tensors) -> torch.dtype:
 
 #: the decode kernels' limits (csrc/common.cuh: kDecodeMaxG,
 #: kDecodeThreads * kDecodeMaxDpt)
-DECODE_MAX_G, DECODE_MAX_D = 8, 256
+DECODE_MAX_G, DECODE_MAX_D = 16, 256
 
 
 def decode_args(name, q, k_pages, v_pages, block_tables, seq_lens):

@@ -38,6 +38,11 @@ def rms_head_norm(scale, x, eps=1e-6):
 # ----------------------------------------------------------------------
 # activations
 
+def gelu_tanh(x):
+    """``jax.nn.gelu``: its default is the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def ffn_act_fn(name):
     if name == "silu_glu":
         return lambda a, b: F.silu(a) * b

@@ -4,19 +4,27 @@ The JAX package stacks identical layers into scanned units; the port keeps
 a plain list of per-layer dicts, since PyTorch runs the layers eagerly:
 
     {"embed": (V, d), "final_norm": norm, "unembed": (d, V),
-     "layers": [{"ln1": norm, "ln2": norm, "attn": attn,
+     "layers": [{"ln1": norm, "ln2": norm,
+                 "attn": attn or "rglru": rglru or "rwkv": rwkv,
                  "ffn": {"w1", "w2", ["w3"]} or "moe": moe}, ...]}
 
 where attn is {"wq", "wk", "wv", "wo", ["q_norm", "k_norm"], ["bq", "bk",
-"bv"]} (GQA) or {"wq", "w_dkv", "kv_norm", "w_uk", "w_uv", "wo"} (MLA),
+"bv"]} (GQA, local-window GQA) or {"wq", "w_dkv", "kv_norm", "w_uk",
+"w_uv", "wo"} (MLA), rglru is {"wx", "wy_gate", "conv_w": (cw, w),
+"conv_b", "w_in_gate", "w_rec_gate": (h, w/h, w/h), "a_param": (w,),
+"wo"} and rwkv is {"mu": (5, d), "w_r", "w_k", "w_v", "w_g", "w_o",
+"w0": (d,), "w_lora_a": (d, 64), "w_lora_b": (64, d), "u": (h, K),
+"ln_x_scale", "ln_x_bias": (d,)} (the layer kind is the mixer's key),
 moe is {"router": (d, E), "w1", "w3": (E, d, f), "w2": (E, f, d),
 ["shared": ffn]} (the layers at or past ``first_dense_layers`` of a MoE
 config), and a norm is {"scale": (d,)} (rmsnorm), {"scale", "bias": (d,)}
 (layernorm) or {} (nonparam_ln), as ``repro.models.common.init_norm``.
 
 ``repro_torch.convert.params_from_numpy`` maps the JAX package's stacked
-tree onto this layout. Attention layers (GQA or MLA) with dense or MoE
-FFNs are ported; ``check_supported`` names what is not.
+tree onto this layout. Attention layers (GQA, local-window GQA or MLA),
+RG-LRU and RWKV6 layers with dense or MoE FFNs are ported;
+``check_supported`` names what is not (encoder-decoder models and the
+modality frontends).
 
 Dtypes (``cfg.dtype``, float32 or bfloat16): the JAX package keeps fp32
 parameters and casts the matrices, qkv biases, router, experts and
@@ -24,8 +32,10 @@ embeddings to the compute dtype at each use. The port serves from params
 stored at the dtype once, which gives the same values (``cast_params``);
 training keeps fp32 master params, as the JAX package does, and the
 forward casts them at each use, so its gradients and updates are fp32.
-Norm scales and biases, the q/k norm scales and MLA's ``kv_norm`` stay
-fp32 in both, and norms compute in fp32.
+Norm scales and biases, the q/k norm scales, MLA's ``kv_norm`` and the
+parameters the reference uses uncast (RG-LRU's conv taps and bias, gate
+blocks and ``a_param``; RWKV's decay base and LoRA, bonus ``u`` and group
+norm) stay fp32 in both (``FP32_KEYS``), and norms compute in fp32.
 """
 from __future__ import annotations
 
@@ -41,8 +51,11 @@ from repro_torch.models.common import apply_norm, is_gated
 
 #: compute dtypes the port serves (``cfg.dtype``, ``EngineOptions.dtype``)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-#: parameters that stay fp32 whatever the dtype: the norms' scales and biases
-NORM_KEYS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "kv_norm")
+#: parameters that stay fp32 whatever the dtype: the norms' scales and
+#: biases, and what the reference's recurrent mixers use without a cast
+FP32_KEYS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "kv_norm",
+             "conv_w", "conv_b", "w_in_gate", "w_rec_gate", "a_param",
+             "w0", "w_lora_a", "w_lora_b", "u", "ln_x_scale", "ln_x_bias")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -88,12 +101,13 @@ def build_plan(cfg: ArchConfig):
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for any architecture feature the port has not ported yet."""
     unported = []
-    if cfg.attn_type not in ("gqa", "mla"):
+    if cfg.num_attn_layers and cfg.attn_type not in ("gqa", "mla"):
         unported.append(f"attn_type={cfg.attn_type!r}")
-    if any(kind != "attn" for kind, _ in layer_specs(cfg)):
-        unported.append("non-attention mixers")
-    if cfg.local_window:
-        unported.append("local_window attention")
+    kinds = set(cfg.layer_kinds()) - {"attn", "rglru", "rwkv"}
+    if kinds:
+        unported.append(f"mixers {sorted(kinds)}")
+    if cfg.local_window and cfg.attn_type == "mla":
+        unported.append("local_window MLA")
     if cfg.is_enc_dec:
         unported.append("encoder-decoder")
     if cfg.frontend != "none" or cfg.num_prefix_embeds:
@@ -128,7 +142,40 @@ def _init_norm(cfg, d, device):
     raise ValueError(cfg.norm_type)
 
 
-def _init_layer(cfg, generator, device, dt, ffn_kind="dense"):
+def _init_rglru(cfg, dense, dense32, device):
+    d, w, h = cfg.d_model, cfg.lru_width or cfg.d_model, cfg.num_heads
+    wb, cw = w // h, cfg.conv1d_width
+    # constant-time-scale init: a in (0.9, 0.999), a_param = softplus^-1
+    # of -log a
+    a = torch.linspace(0.9, 0.999, w, dtype=torch.float32, device=device)
+    return {"wx": dense((d, w), d),
+            "wy_gate": dense((d, w), d),              # output gate branch
+            "conv_w": dense32((cw, w), cw),
+            "conv_b": torch.zeros(w, dtype=torch.float32, device=device),
+            "w_in_gate": dense32((h, wb, wb), wb),
+            "w_rec_gate": dense32((h, wb, wb), wb),
+            "a_param": torch.log(torch.expm1(-torch.log(a))),
+            "wo": dense((w, d), w)}
+
+
+def _init_rwkv(cfg, dense, dense32, device, dt):
+    d, h, K = cfg.d_model, cfg.num_heads, cfg.head_dim
+    lora = 64                                         # decay LoRA rank
+
+    def full(shape, value, dtype=torch.float32):
+        return torch.full(shape, value, dtype=dtype, device=device)
+    return {"mu": full((5, d), 0.5, dt),    # token-shift mix of r, k, v, g, w
+            "w_r": dense((d, d), d), "w_k": dense((d, d), d),
+            "w_v": dense((d, d), d), "w_g": dense((d, d), d),
+            "w0": full((d,), -6.0),           # base decay, w ~ exp(-exp(w0))
+            "w_lora_a": dense32((d, lora), d),
+            "w_lora_b": dense32((lora, d), lora).mul_(0.1),
+            "u": dense32((h, K), h),          # bonus for the current token
+            "ln_x_scale": full((d,), 1.0), "ln_x_bias": full((d,), 0.0),
+            "w_o": dense((d, d), d)}
+
+
+def _init_layer(cfg, kind, generator, device, dt, ffn_kind="dense"):
     d, hq, hkv, dh, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim, cfg.d_ff)
 
@@ -138,6 +185,9 @@ def _init_layer(cfg, generator, device, dt, ffn_kind="dense"):
     def dense(shape, fan_in):
         return _dense(shape, fan_in, generator, device, dt)
 
+    def dense32(shape, fan_in):
+        return _dense(shape, fan_in, generator, device)
+
     def ffn(width, lead=()):
         e = tuple(lead)
         out = {"w1": dense(e + (d, width), d), "w2": dense(e + (width, d),
@@ -146,7 +196,11 @@ def _init_layer(cfg, generator, device, dt, ffn_kind="dense"):
             out["w3"] = dense(e + (d, width), d)
         return out
 
-    if cfg.attn_type == "mla":
+    if kind == "rglru":
+        mixer = _init_rglru(cfg, dense, dense32, device)
+    elif kind == "rwkv":
+        mixer = _init_rwkv(cfg, dense, dense32, device, dt)
+    elif cfg.attn_type == "mla":
         r, dr, dv = cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.v_head_dim
         attn = {"wq": dense((d, hq * (dh + dr)), d),
                 "w_dkv": dense((d, r + dr), d),   # down: latent + rope key
@@ -166,8 +220,10 @@ def _init_layer(cfg, generator, device, dt, ffn_kind="dense"):
         if cfg.qk_norm:
             attn["q_norm"] = ones(dh)
             attn["k_norm"] = ones(dh)
+    if kind == "attn":
+        mixer = attn
     layer = {"ln1": _init_norm(cfg, d, device),
-             "ln2": _init_norm(cfg, d, device), "attn": attn}
+             "ln2": _init_norm(cfg, d, device), kind: mixer}
     if ffn_kind == "moe":
         moe = {"router": dense((d, cfg.num_experts), d),
                **ffn(cfg.moe_d_ff, (cfg.num_experts,))}
@@ -196,18 +252,19 @@ def init(cfg: ArchConfig, generator: torch.Generator, device, *,
     if not cfg.tie_embeddings:
         params["unembed"] = _dense((cfg.d_model, cfg.vocab_size),
                                    cfg.d_model, generator, device, dt)
-    params["layers"] = [_init_layer(cfg, generator, device, dt, ffn_kind)
-                        for _, ffn_kind in layer_specs(cfg)]
+    params["layers"] = [_init_layer(cfg, kind, generator, device, dt,
+                                    ffn_kind)
+                        for kind, ffn_kind in layer_specs(cfg)]
     return params
 
 
 def cast_params(params, dtype) -> dict:
     """A copy of ``params`` with every matrix, qkv bias and embedding at
-    ``dtype`` and the norms' parameters left fp32 (the JAX package's casts
-    at use, done once). Leaves already at their dtype are shared, not
+    ``dtype`` and the ``FP32_KEYS`` left fp32 (the JAX package's casts at
+    use, done once). Leaves already at their dtype are shared, not
     copied."""
     def walk(t, key=None):
-        if key in NORM_KEYS:
+        if key in FP32_KEYS:
             return t
         if isinstance(t, torch.Tensor):
             return t.to(dtype)
@@ -241,9 +298,19 @@ def param_count(params) -> int:
 # ----------------------------------------------------------------------
 # forward (full sequence; serving runs through repro_torch.core)
 
+def mixer_kind(p) -> str:
+    """The mixer of a layer's params: "attn", "rglru" or "rwkv"."""
+    return next(k for k in ("attn", "rglru", "rwkv") if k in p)
+
+
 def apply_layer(cfg, p, x, positions):
     h = apply_norm(cfg, p["ln1"], x)
-    if cfg.attn_type == "mla":
+    kind = mixer_kind(p)
+    if kind == "rglru":
+        x = x + L.rglru_forward(cfg, p["rglru"], h)
+    elif kind == "rwkv":
+        x = x + L.rwkv_forward(cfg, p["rwkv"], h)
+    elif cfg.attn_type == "mla":
         x = x + L.mla_forward(cfg, p["attn"], h, positions)
     else:
         x = x + L.attn_forward(cfg, p["attn"], h, positions)

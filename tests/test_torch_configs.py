@@ -141,7 +141,11 @@ def test_forward_raises_where_jax_casts_to_the_registered_dtype(name):
     assert bool(jnp.isfinite(out).all())
     tree = jax.tree.map(np.asarray, params)
     bparams = params_from_numpy(tcfg, tree, dtype=torch.bfloat16)
-    assert bparams["layers"][0]["attn"]["wq"].dtype == torch.bfloat16
+    layer0 = bparams["layers"][0]
+    mixer = layer0[lm.mixer_kind(layer0)]        # attn, rglru or rwkv
+    first = next(t for k, t in mixer.items()
+                 if t.dim() == 2 and k not in lm.FP32_KEYS)
+    assert first.dtype == torch.bfloat16
     got = lm.forward(tcfg, bparams, torch.from_numpy(tokens))
     assert got.dtype == torch.bfloat16
     assert bool(torch.isfinite(got).all())

@@ -447,6 +447,31 @@ def test_kernels_match_plain_at_head_layouts(cuda, hq, hkv):
         assert torch.equal(got[n][:, :N].cpu(), want[n][:, :N]), n
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernels_at_recurrentgemma_layout(cuda, dtype):
+    """K1 and B4 at RecurrentGemma-2B's layout (g = 10, h_kv = 1, d = 256,
+    the G = 16 instantiations masking heads 10 .. 15) over a 128-block
+    ring: full and partly filled rings and seq_len 0 rows against the
+    plain versions; dense == ragged bit for bit on live rows."""
+    lens = [2048, 2048, 1999, 777, 17, 1, 0]
+    q, _, k, v, bt, sl = _case(14, lens, hq=10, hkv=1, d=256, mb=128,
+                               n_pages=700)
+    q, k, v = (x.to(cuda, dtype) for x in (q, k, v))
+    bt, sl = bt.to(cuda), sl.to(cuda)
+    ragged = ops.ragged_decode_attention(q, k, v, bt, sl)
+    dense = ops.paged_decode_attention(q, k, v, bt, sl)
+    tol = TOL if dtype == torch.float32 else 2.0 ** -7
+    for got, plain in ((ragged, rpa.ragged_paged_attention_plain),
+                       (dense, pa.paged_attention_plain)):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float().cpu(),
+                                   plain(q, k, v, bt, sl).float().cpu(),
+                                   rtol=tol, atol=tol)
+    live = sl > 0
+    assert torch.equal(dense[live], ragged[live])
+    assert (ragged[~live] == 0).all() and (dense[~live] == 0).all()
+
+
 @pytest.mark.parametrize("hq,hkv", [(16, 16), (32, 8)])
 def test_idle_slots_match_plain(cuda, hq, hkv):
     """What the serve passes for slots that decode nothing: seq_len 1 (a

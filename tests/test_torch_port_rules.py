@@ -292,25 +292,55 @@ def test_dense_decode_and_flash_are_accepted(knob):
 
 
 def test_unported_architectures_raise():
-    """What the port still refuses: local-window attention, recurrent
-    mixers (RG-LRU, RWKV), encoder-decoder models and modality frontends
-    (MLA and MoE layers are ported: the test below)."""
+    """What the port still refuses: encoder-decoder models and modality
+    frontends (MLA and MoE layers, local-window attention and the
+    recurrent mixers are ported: the tests below)."""
     import dataclasses
     tiny = get_config("tiny-lm")
-    cases = {"local_window": dict(local_window=32),
-             "non-attention mixers": dict(block_pattern=("rglru", "rglru",
-                                                         "attn")),
-             "encoder-decoder": dict(encoder_layers=2),
-             "frontend": dict(frontend="vision_stub", num_prefix_embeds=4)}
+    cases = {"encoder-decoder": dict(encoder_layers=2),
+             "frontend": dict(frontend="vision_stub", num_prefix_embeds=4),
+             "local_window MLA": dict(attn_type="mla", local_window=32,
+                                      kv_lora_rank=32, qk_rope_head_dim=8,
+                                      v_head_dim=16)}
     for match, kw in cases.items():
         cfg = dataclasses.replace(tiny, **kw)
         with pytest.raises(NotImplementedError, match=match):
             lm.init(cfg, torch.Generator(), "cpu")
         with pytest.raises(NotImplementedError, match=match):
             lm.check_supported(cfg)
-    cfg = dataclasses.replace(tiny, block_pattern=("rwkv",))
-    with pytest.raises(NotImplementedError, match="non-attention"):
-        lm.check_supported(cfg)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(local_window=32),
+    dict(block_pattern=("rglru", "rglru", "attn")),
+    dict(block_pattern=("rwkv",), attn_type="none", num_kv_heads=0),
+], ids=["local_window", "rglru", "rwkv"])
+def test_recurrent_and_local_window_knobs_are_accepted(kw):
+    """Local-window attention and the recurrent mixers (RG-LRU, RWKV),
+    formerly refused, pass ``lm.check_supported`` and run the forward."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("tiny-lm"), dtype="float32", **kw)
+    lm.check_supported(cfg)
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    out = lm.forward(cfg, params, torch.tensor([[1, 2, 3, 4, 5]]))
+    assert out.shape == (1, 5, cfg.vocab_size)
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "rwkv6-3b"])
+def test_recurrent_configs_are_accepted(name):
+    """RecurrentGemma-2B and RWKV6-3B pass ``lm.check_supported`` and
+    serve through the facade on the CPU at their reduced widths, with
+    compression and prefix caching off, as the JAX engine runs them."""
+    lm.check_supported(get_config(name))
+    z = Zipage.from_config(name, device="cpu", reduce=True, block_size=8,
+                           n_total_blocks=32, max_batch=2, max_model_len=64,
+                           prefill_rows=1, prefill_len=32)
+    outs = z.generate([[1, 2, 3, 4, 5], [9, 8, 7]],
+                      SamplingParams(max_new_tokens=8))
+    assert [len(o.token_ids) for o in outs] == [8, 8]
+    assert z.num_free_blocks == 32
+    assert not z.engine.compression_enabled and not z.engine.prefix_ok
 
 
 @pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "dbrx-132b"])
