@@ -201,6 +201,33 @@ Phases, each fatal on failure (exit code != 0, no result line):
      8 (bit for bit; RWKV6 runs no kernel); (e) ``python -m
      repro_torch.launch.serve --arch`` for both on the card (reduced
      widths, as the launcher serves a non-tiny arch).
+  15. (run last, after 14) the frontend configs (``phase_frontends``):
+     (a) the six kernels at Whisper-tiny's layout (g = 1, h_kv = 6,
+     d = 64) against their plain versions in fp32 and bf16, as phase 3
+     runs them (dense == ragged bit for bit, idle slots, B6 at k = 48 and
+     1024); (b) card vs CPU, fp32, random weights from the seed:
+     Whisper-tiny at full width and depth, a paged prefill over random
+     frames and 6 greedy decode steps (logits within CARD_CPU_TOL, tokens
+     equal), greedy streams through the facade with compression firing
+     (a stream that parts is excused only at a near-tie the CPU serve
+     recorded, ``TieRecorder``), and a graph-replayed decode chunk across
+     a prefill that rewrites the slots' cross KV in place (replay == eager
+     bit for bit); InternVL2-26B at full width and 2 layers (vocabulary
+     capped at CPU_VOCAB), a prefill after 256 random patch embeddings
+     and decode steps, also held against the card's own
+     ``lm.forward(prefix_embeds=)``; (c) ``Zipage.from_config
+     ("whisper-tiny")`` at full width and depth in bf16 under
+     ZIPAGE_SANITIZE=1 with compression on: phase 5's prompts, 8 greedy
+     requests of NEW_TOKENS tokens at ``decode_steps`` 1 and 8 (streams
+     and logprobs bit for bit), 2 through dense decode and flash
+     redundancy, and ``preemption_mode="swap"`` warning and preempting by
+     recompute; K1, K2, K3 and B6 timed at the serve's inputs (rows
+     ``<kernel>_whisper_bf16``); (d) ``Zipage.from_config
+     ("internvl2-26b")`` at full width and depth (48 layers) in bf16, the
+     same requests, sanitizer and K = 1 == K = 8 check, its peak memory
+     under the card's, K1 timed (row ``ragged_paged_attention_internvl2_
+     bf16``); (e) ``python -m repro_torch.launch.serve --arch`` for both
+     on the card (reduced widths), run beside 15b.
 
 The last two lines of standard output are the card's name and power
 limit, and ``{"ok": true, "device": {...}}``; the line before them is the
@@ -5399,17 +5426,23 @@ def recurrent_serve(torch, dev, card, name, errs):
     return out, rows
 
 
-def rec_launchers(label):
-    """14e: ``python -m repro_torch.launch.serve --arch <name>`` for both
-    configs on the card, side by side (the launcher serves a non-tiny
-    arch at its reduced widths, as the JAX package's does): each exits 0
-    with tokens served and no compression. Returns each one's summary."""
+def launch_serves(label, names):
+    """Start ``python -m repro_torch.launch.serve --arch <name>`` for each
+    of ``names`` on the card, side by side (the launcher serves a non-tiny
+    arch at its reduced widths, as the JAX package's does). Returns
+    {name: process}; ``collect_launches`` waits for them."""
     env = _port_env()
-    procs = {name: subprocess.Popen(
+    return {name: subprocess.Popen(
         port_cmd("repro_torch.launch.serve", "--arch", name, "--workload",
                  "mix", "--n-requests", "8"),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=ROOT) for name in (RG_CONFIG, RWKV_CONFIG)}
+        cwd=ROOT) for name in names}
+
+
+def collect_launches(label, procs, compressing=False):
+    """Wait for ``launch_serves``' processes: each exits 0 with tokens
+    served on the card, and no compression unless ``compressing``.
+    Returns each one's summary."""
     out = {}
     try:
         for name, proc in procs.items():
@@ -5418,11 +5451,13 @@ def rec_launchers(label):
                 raise AssertionError(f"{label}: the launcher for {name} "
                                      f"exited {proc.returncode}: {err[-2000:]}")
             res = json.loads(text)
-            assert res["tokens"] > 0 and res["compressions"] == 0, res
+            assert res["tokens"] > 0, res
+            assert compressing or res["compressions"] == 0, res
             assert res["device"].startswith("cuda"), res["device"]
             log(label, f"launch.serve --arch {name} (reduced widths): "
                 f"{res['tokens']} tokens in {res['steps']} steps, "
-                f"{res['tps']:.1f} tok/s, 0 compressions, on {res['device']}")
+                f"{res['tps']:.1f} tok/s, {res['compressions']} "
+                f"compressions, on {res['device']}")
             out[name] = res
     finally:
         for proc in procs.values():
@@ -5430,6 +5465,13 @@ def rec_launchers(label):
                 proc.kill()
                 proc.communicate()
     return out
+
+
+def rec_launchers(label):
+    """14e: the serving launcher for both recurrent configs on the card,
+    side by side: each exits 0 with tokens served and no compression."""
+    return collect_launches(label, launch_serves(
+        label, (RG_CONFIG, RWKV_CONFIG)))
 
 
 def phase_recurrent(torch, dev, card):
@@ -5465,6 +5507,513 @@ def phase_recurrent(torch, dev, card):
                                               for k, v in took.items()))
     return {"kernel_errs": errs, "card_vs_cpu": card_cpu, RG_CONFIG: rg,
             RWKV_CONFIG: rwkv, "launch": launched, "took": took}, rows
+
+
+# ----------------------------------------------------------------------
+# phase 15: the frontend configs (Whisper-tiny, InternVL2-26B)
+
+WHISPER, INTERNVL = "whisper-tiny", "internvl2-26b"
+#: 15b: InternVL2's layers on the card and the CPU (at full width), the
+#: text tokens of its two rows after their 256 patch embeddings, and the
+#: decode steps after each check's prefill
+VLM_CPU_LAYERS = 2
+VLM_TEXT_LENS = (32, 20)
+FRONT_DECODE_STEPS = 6
+#: 15b: Whisper's card-vs-CPU streams, greedy, with compression firing
+WHISPER_STREAM_LENS, WHISPER_STREAM_TOKENS = (70, 96, 81, 110), 48
+#: 15c: the swap engine's pool, too small for the 8 requests at once
+#: without compression (n_max None: the full-KV baseline; with compression
+#: on, the scheduler fits them in 12 blocks without preempting), so that
+#: they preempt, by recompute (Whisper's cross KV is per slot)
+WHISPER_TIGHT_POOL = 32
+
+
+def frontend_embeds(torch, cfg, rows, device, seed):
+    """A frontend's embeddings for ``rows`` rows, drawn from ``seed``:
+    {"frame_embeds": (rows, cross_seq_len, d)} for Whisper, or
+    {"prefix_embeds": (rows, num_prefix_embeds, d)} for InternVL2, fp32."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if cfg.is_enc_dec:
+        key, n = "frame_embeds", cfg.cross_seq_len
+    else:
+        key, n = "prefix_embeds", cfg.num_prefix_embeds
+    a = rng.normal(size=(rows, n, cfg.d_model)).astype(np.float32)
+    return {key: torch.from_numpy(a).to(device)}
+
+
+def frontend_steps(torch, cfg, params, device, seqs, embeds):
+    """15b on one device: one paged prefill of the prompts ``seqs`` (one
+    a row, after their patch prefix or over their frames: ``embeds``),
+    then FRONT_DECODE_STEPS greedy decode steps, each feeding the device's
+    own argmax. Returns the logits of the prefill and of each decode step
+    ((n, rows, V) on the CPU) and the greedy tokens."""
+    from repro_torch.core import serve_model
+
+    P, S = len(seqs), max(len(s) for s in seqs)
+    npx = cfg.num_prefix_embeds if "prefix_embeds" in embeds else 0
+    b = 16
+    mb = -(-(npx + S + FRONT_DECODE_STEPS) // b)
+    spec = serve_model.ServeSpec(
+        n_slots=P, block_size=b, max_blocks=mb, n_total_blocks=P * mb,
+        m_qslots=P, window=4, prefill_rows=P, prefill_len=S,
+        dtype="float32")
+    st = serve_model.make_state(cfg, spec, device)
+    i32 = dict(dtype=torch.int32, device=device)
+    st["block_tables"].copy_(torch.arange(P * mb, **i32).reshape(P, mb))
+    st["qslot"].copy_(torch.arange(P, **i32))
+    lens = [npx + len(s) for s in seqs]
+    st["seq_lens"].copy_(torch.tensor(lens, **i32))
+    prefill = serve_model.build_prefill_step(cfg, spec)
+    decode = serve_model.build_decode_step(cfg, spec)
+    toks = torch.zeros((P, S), dtype=torch.int64)
+    for i, s in enumerate(seqs):
+        toks[i, :len(s)] = torch.tensor(s)
+    logits = prefill(params, st, toks.to(device), torch.arange(P, **i32),
+                     torch.tensor([len(s) for s in seqs], **i32),
+                     torch.zeros(P, **i32),
+                     **{k: v.to(device) for k, v in embeds.items()})
+    outs = [logits.cpu()]
+    st["positions"].copy_(torch.tensor(lens, **i32))
+    active = torch.ones(P, dtype=torch.bool, device=device)
+    tok = outs[0].argmax(-1)
+    toks = [tok]
+    for _ in range(FRONT_DECODE_STEPS):
+        logits = decode(params, st, tok.to(device), active).cpu()
+        outs.append(logits)
+        tok = logits.argmax(-1)
+        toks.append(tok)
+    return torch.stack(outs), torch.stack(toks).T.tolist()
+
+
+def _card_cpu_close(phase, a, b):
+    err = (a - b).abs()
+    if bool((err > CARD_CPU_TOL + CARD_CPU_TOL * a.abs()).any()):
+        raise AssertionError(f"{phase}: card vs cpu logits off by "
+                             f"{float(err.max()):.3e}")
+    return float(err.max())
+
+
+def check_frontend_logits(torch, dev, name):
+    """15b: Whisper-tiny at full width and depth, or InternVL2-26B at full
+    width and VLM_CPU_LAYERS layers (vocabulary capped at CPU_VOCAB),
+    fp32, random weights from the seed, on the card and on the CPU: a
+    paged prefill over random frames (Whisper) or after 256 random patch
+    embeddings (InternVL2), then greedy decode steps; the logits within
+    CARD_CPU_TOL and the greedy tokens equal. InternVL2's prefill is also
+    held against the card's own ``lm.forward(prefix_embeds=)`` last-token
+    logits. Returns (max error, the card's params, the CPU's)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    phase = f"frontends card-vs-cpu[{name}]"
+    cfg = dataclasses.replace(get_config(name), dtype="float32")
+    small = cfg if cfg.is_enc_dec else dataclasses.replace(
+        cfg, num_layers=VLM_CPU_LAYERS,
+        vocab_size=min(cfg.vocab_size, CPU_VOCAB))
+    t = time.monotonic()
+    p_dev = lm.init(small, torch.Generator(dev).manual_seed(SEED), dev)
+    p_cpu = _tree_to(p_dev, "cpu")
+    rng = np.random.default_rng(SEED + 17)
+    lens = (45, 60) if cfg.is_enc_dec else VLM_TEXT_LENS
+    seqs = [[int(x) for x in rng.integers(0, small.vocab_size, n)]
+            for n in lens]
+    embeds = frontend_embeds(torch, small, len(seqs), "cpu", SEED + 18)
+    what = {k: tuple(v.shape) for k, v in embeds.items()}
+    log(phase, f"{small.num_layers} of {cfg.num_layers} layers"
+        + (f" (+ {cfg.encoder_layers} encoder layers)" if cfg.is_enc_dec
+           else "") + f", d_model {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.head_dim}, vocabulary "
+        f"{small.vocab_size} (of {cfg.vocab_size}), "
+        f"{lm.param_count(p_cpu) / 1e9:.3f} B params fp32 on each side, "
+        f"drawn in {time.monotonic() - t:.1f} s; {what}")
+    res = {}
+    for side, device, params in (("cpu", "cpu", p_cpu), ("card", dev, p_dev)):
+        t = time.monotonic()
+        res[side] = frontend_steps(torch, small, params, device, seqs, embeds)
+        log(phase, f"{side}: prefill of {list(lens)} tokens, then "
+            f"{FRONT_DECODE_STEPS} decode steps, in "
+            f"{time.monotonic() - t:.1f} s")
+    err = _card_cpu_close(phase, res["cpu"][0], res["card"][0])
+    if res["cpu"][1] != res["card"][1]:
+        raise AssertionError(f"{phase}: greedy tokens differ: cpu "
+                             f"{res['cpu'][1]}, card {res['card'][1]}")
+    log(phase, f"prefill + {FRONT_DECODE_STEPS} decode steps: "
+        f"max_abs_err={err:.3e} (atol=rtol={CARD_CPU_TOL}), greedy tokens "
+        f"equal ({res['card'][1][0]}) ok")
+    if not cfg.is_enc_dec:
+        pe = embeds["prefix_embeds"].to(dev)
+        for i, s in enumerate(seqs):
+            fwd = lm.forward(small, p_dev, torch.tensor([s], device=dev),
+                             prefix_embeds=pe[i:i + 1])[0, -1].float().cpu()
+            e = _card_cpu_close(f"{phase} forward vs prefill",
+                                fwd, res["card"][0][0, i])
+            log(phase, f"row {i}: {small.num_prefix_embeds} patch embeddings"
+                f" + {len(s)} tokens, the card's lm.forward(prefix_embeds=) "
+                f"last-token logits vs its paged prefill: max_abs_err="
+                f"{e:.3e} ok")
+    return err, p_dev, p_cpu
+
+
+def check_frontend_streams(torch, dev, small, p_cpu, p_dev, phase):
+    """15b: greedy streams of ``small`` through the facade (engine
+    defaults but 4 slots, compression firing), card against CPU; the CPU
+    serve records its near-ties (``TieRecorder``), and a stream that parts
+    is excused only at a gap or margin under TIE_TOL where it parts."""
+    import numpy as np
+    from repro_torch.api import SamplingParams, Zipage
+
+    rng = np.random.default_rng(SEED + 19)
+    prompts = [[int(x) for x in rng.integers(0, small.vocab_size, n)]
+               for n in WHISPER_STREAM_LENS]
+    sp = SamplingParams(max_new_tokens=WHISPER_STREAM_TOKENS)
+    outs = {}
+    rec = TieRecorder()
+
+    def serve(device, params):
+        z = Zipage(small, params, device=device, max_batch=4)
+        assert z.engine.compression_enabled and not z.engine.prefix_ok
+        return z.generate(prompts, sp)
+
+    for side, device, params in (("cpu", "cpu", p_cpu), ("card", dev, p_dev)):
+        t = time.monotonic()
+        if side == "cpu":
+            with rec:                 # the engine is built under it
+                outs[side] = serve(device, params)
+        else:
+            outs[side] = serve(device, params)
+        n_comp = [o.metrics.compression.n_compressions for o in outs[side]]
+        if min(n_comp) == 0:
+            raise AssertionError(f"{phase}: {side}: a request never "
+                                 f"compressed ({n_comp})")
+        log(phase, f"{side}: {len(prompts)} greedy requests of "
+            f"{WHISPER_STREAM_TOKENS} tokens in {time.monotonic() - t:.1f} s,"
+            f" compressions {n_comp}")
+    excused = []
+    for i, (a, b) in enumerate(zip(outs["cpu"], outs["card"])):
+        pos = first_difference(a.token_ids, b.token_ids)
+        if pos is None:
+            continue
+        why = rec.explain(0, a.request_id, pos)
+        if why is None:
+            raise AssertionError(f"{phase}: stream {i} parts at token {pos} "
+                                 f"with no near-tie: cpu {a.token_ids} card "
+                                 f"{b.token_ids}")
+        excused.append((i, pos, why))
+    log(phase, f"{len(prompts)} greedy streams of {WHISPER_STREAM_TOKENS} "
+        f"tokens: card == cpu" + (f" but {excused} (near-ties)" if excused
+                                  else " for all") + " ok")
+    return {"excused": excused}
+
+
+def check_cross_graph(torch, dev, small, p_dev):
+    """A fused decode chunk of 4 of the encoder-decoder ``small`` captured
+    as a CUDA graph, then the slots' cross-attention KV rewritten in place
+    by a prefill over new frames (rows of no tokens: only ``cross_kv``
+    changes), then the chunk replayed and run eagerly on clones of one
+    state: tokens, logprobs and the state (``cross_kv`` included) the same
+    bits, and the logprobs not those of the state before the prefill (the
+    replay read the new cross KV)."""
+    from repro_torch.core import serve_model
+    from repro_torch.core.decode_graphs import DecodeGraphs
+
+    spec = serve_model.ServeSpec(n_slots=8, block_size=16, max_blocks=8,
+                                 n_total_blocks=40, m_qslots=4, window=4,
+                                 prefill_rows=2, prefill_len=16,
+                                 dtype=small.dtype)
+    st0 = _graph_state(torch, dev, small, spec, SEED + 20)
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    for t in st0["cross_kv"].values():
+        t.normal_(generator=g)
+    i32 = dict(dtype=torch.int32, device=dev)
+    inp = [torch.zeros((), **i32), torch.full((8,), 8, **i32),
+           torch.zeros(8, dtype=torch.int64, device=dev),
+           torch.zeros(8, device=dev), torch.zeros(8, **i32),
+           torch.ones(8, device=dev),
+           torch.full((8, 1), -1, dtype=torch.int64, device=dev)]
+    fused = serve_model.build_fused_decode_step(small, spec, 4, greedy=True)
+    prefill = serve_model.build_prefill_step(small, spec)
+    before, eager, replayed = (_tree_clone(st0) for _ in range(3))
+    graphs = DecodeGraphs(lambda k, gr: fused(p_dev, replayed, *inp), inp[1])
+    graphs.capture(4, True, 1)
+    frames = frontend_embeds(torch, small, 2, dev, SEED + 22)
+    for st in (eager, replayed):
+        prefill(p_dev, st, torch.zeros((2, 16), dtype=torch.int64,
+                                       device=dev),
+                torch.tensor([1, 3], **i32), torch.zeros(2, **i32),
+                torch.zeros(2, **i32), **frames)
+    if bool(torch.equal(eager["cross_kv"]["k"], st0["cross_kv"]["k"])):
+        raise AssertionError("cross graphs: the prefill left cross_kv as it "
+                             "was")
+    outs = {"before": fused(p_dev, before, *inp),
+            "eager": fused(p_dev, eager, *inp),
+            "graph": [t.clone() for t in graphs.replay(4, True, 1)]}
+    torch.cuda.synchronize()
+    pairs = [("tokens", outs["eager"][0], outs["graph"][0]),
+             ("logprobs", outs["eager"][1], outs["graph"][1])]
+    for name in ("seq_lens", "positions", "tokens_next"):
+        pairs.append((name, eager[name], replayed[name]))
+    for name in ("k", "v"):
+        pairs.append((f"pools[{name}]", eager["pools"][name][:, :-1],
+                      replayed["pools"][name][:, :-1]))
+        pairs.append((f"cross_kv[{name}]", eager["cross_kv"][name],
+                      replayed["cross_kv"][name]))
+    for name, a, b in pairs:
+        if not bool(torch.equal(_bits(torch, a), _bits(torch, b))):
+            raise AssertionError(f"cross graphs: {name} differs between "
+                                 "eager and replay")
+    moved = [int(r) for r in range(8) if not bool(torch.equal(
+        outs["before"][1][:, r], outs["eager"][1][:, r]))]
+    if not {1, 3} <= set(moved):
+        raise AssertionError(f"cross graphs: rows {moved} read the new cross "
+                             "KV, expected 1 and 3")
+    log("cross graphs", f"chunk of 4 at {small.num_layers} layers of "
+        f"{small.name}, {small.dtype}: captured, cross_kv of slots 1 and 3 "
+        "rewritten in place by a prefill, then replay == eager bit for bit "
+        f"(tokens, logprobs, pools, cross_kv); rows {moved} changed "
+        "against the old cross KV ok")
+
+
+def frontend_rows(torch, name, rec, per_serve, serve, errs, tag):
+    """The kernels-line rows of a frontend serve: K1 at its fullest decode
+    state (``DecodeInputs``), held against its plain version there first,
+    and for Whisper K2 (held against plain too), K3 and B6 at its recorded
+    calls whose live work is largest (bf16), named ``<kernel>_<tag>``."""
+    def pick(op, key):
+        return _pick(rec.calls[op], key)
+
+    def comp_live(a):
+        return _live_entries(a[1], a[2], a[0].shape[1])
+
+    def score_live(a):
+        return _live_entries(a[2], a[3], a[1].shape[1])
+
+    specs = [decode_spec(torch, "ragged_paged_attention", rec.decode_args)]
+    if name == WHISPER:
+        specs += [score_spec(torch, *pick("score_logits", score_live)),
+                  redundancy_spec(torch, "lightning_redundancy",
+                                  *pick("lightning_redundancy", comp_live)),
+                  compaction_spec(torch, pick("compact", _live_rows)[0])]
+    rows = []
+    for spec in specs:
+        if spec["name"] in ("ragged_paged_attention", "paged_score"):
+            tol = BF16_OUT_TOL if spec["name"] == "ragged_paged_attention" \
+                else BF16_TOL
+            e = max_err(torch, spec["kernel"](), spec["plain"](),
+                        f"{spec['name']}[{tag} serve input]", tol)
+            errs[spec["name"]] = max(errs.get(spec["name"], 0.0), e)
+        rows.append(dict(_row(torch, spec, per_serve, serve, errs,
+                              label=f"{spec['name']}_{tag}"),
+                         shapes=spec["shapes"]))
+    return rows
+
+
+def whisper_swap(torch, card, cfg, params, prompts, sps, audits):
+    """15c: ``preemption_mode="swap"`` on Whisper warns and preempts by
+    recompute, as the JAX engine does (the cross KV is per slot): on a
+    pool of WHISPER_TIGHT_POOL blocks without compression the 8 requests
+    preempt, every one still runs to its length, the sanitizer reports
+    nothing, and the pool drains clean."""
+    import warnings
+
+    from repro_torch.api import Zipage
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        z = _sanitized(lambda: Zipage(cfg, params, dtype="bfloat16",
+                                      preemption_mode="swap",
+                                      swap_space_blocks=24, n_max=None,
+                                      n_total_blocks=WHISPER_TIGHT_POOL))
+    if not any("cannot swap" in str(w.message) for w in caught):
+        raise AssertionError("whisper swap: no warning that it cannot swap")
+    eng = z.engine
+    assert eng.scheduler.p.preemption_mode == "recompute"
+    assert eng.swap_pool is None and eng.bm.swap_space_blocks == 0
+    audits.steps.clear()
+    s0, m0 = eng.step_count, len(eng.metrics)
+    outs = z.generate(prompts, sps)
+    torch.cuda.synchronize()
+    if audits.steps != list(range(s0 + 1, eng.step_count + 1)):
+        raise AssertionError("whisper swap: a step went unaudited")
+    n_pre = sum(m["n_preempted"] for m in eng.metrics[m0:])
+    assert all(len(o.token_ids) == sp.max_new_tokens
+               for o, sp in zip(outs, sps)), "whisper swap: short output"
+    if n_pre == 0:
+        raise AssertionError(f"whisper swap: {WHISPER_TIGHT_POOL} blocks "
+                             "never preempted")
+    z.bm.check_invariants()
+    if z.num_free_blocks != WHISPER_TIGHT_POOL:
+        raise AssertionError("whisper swap: blocks leaked")
+    log("frontends whisper swap", f"preemption_mode='swap' warned and "
+        f"recomputes: {n_pre} preemptions on a pool of "
+        f"{WHISPER_TIGHT_POOL} blocks (no compression), {len(outs)} "
+        f"requests to their length, {len(audits.steps)} audits, 0 "
+        f"violations, pool drained clean, on {card} ok")
+    del z, eng
+    return n_pre
+
+
+def frontend_serve(torch, card, name, errs_bf16):
+    """15c / 15d: ``name`` at full width and depth in bf16 through
+    ``Zipage.from_config`` at the engine defaults under ZIPAGE_SANITIZE=1,
+    with compression on as the JAX engine runs it: phase 5's prompts, 8
+    greedy requests of NEW_TOKENS tokens with logprobs (``run_serve``:
+    compression fires, every compression goes through B6, K1, K2, K3 and
+    B6 launch, no plain version runs, the sanitizer reports nothing), and
+    again at ``decode_steps`` 8 (streams and logprobs equal bit for bit).
+    Whisper also serves 2 requests through dense decode and flash
+    redundancy and checks that swap warns and recomputes. Returns
+    (summary, rows)."""
+    from repro_torch.api import SamplingParams, Zipage
+    from repro_torch.core.compression import CompressOptions
+    from repro_torch.models import lm
+
+    phase = f"frontends[{name}]"
+    whisper = name == WHISPER
+    tag = "whisper_bf16" if whisper else "internvl2_bf16"
+    took, t = {}, time.monotonic()
+
+    def lap(what):
+        nonlocal t
+        took[what] = time.monotonic() - t
+        t = time.monotonic()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    z = _sanitized(lambda: Zipage.from_config(name, param_seed=SEED,
+                                              dtype="bfloat16"))
+    torch.cuda.synchronize()
+    eng, cfg = z.engine, z.cfg
+    assert eng.sanitize, "the engine did not read ZIPAGE_SANITIZE"
+    assert eng.compression_enabled and eng.prefix_ok == (not whisper)
+    assert ("cross_kv" in eng.state) == whisper
+    n_params = lm.param_count(eng.params)
+    log(phase, f"{cfg.num_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder layers over {cfg.cross_seq_len}"
+           " frames (zero frame embeddings, as the JAX engine)" if whisper
+           else f" (the backbone, served on text)") + f", d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim} (g = {cfg.num_heads // cfg.num_kv_heads}), vocab "
+        f"{cfg.vocab_size}; {n_params / 1e9:.3f} B params bf16 on the card")
+    lap("build")
+    prompts = make_prompts(cfg)
+    sps = [SamplingParams(max_new_tokens=NEW_TOKENS, logprobs=True)] * \
+        N_REQUESTS
+    served, launches = {}, {}
+    with Audits() as audits:
+        rec, launches[1], served[1], outs1 = sanitized_serve(
+            torch, card, z, f"{phase} K=1 sanitized", prompts, sps,
+            MAIN_PATH, audits)
+        lap("serve")
+        z8 = _sanitized(lambda: Zipage(cfg, eng.params, dtype="bfloat16",
+                                       decode_steps=8))
+        _, launches[8], served[8], outs8 = sanitized_serve(
+            torch, card, z8, f"{phase} K=8 sanitized", prompts, sps,
+            MAIN_PATH, audits)
+        del z8
+        if _streams(outs1) != _streams(outs8):
+            diff = [i for i, (a, b) in enumerate(zip(outs1, outs8))
+                    if _streams([a]) != _streams([b])]
+            raise AssertionError(f"{phase}: decode_steps 1 and 8 differ "
+                                 f"(requests {diff})")
+        log(phase, f"decode_steps 1 and 8: {len(prompts)} streams and their "
+            "logprobs equal bit for bit ok")
+        lap("serve K=8")
+        if whisper:
+            zd = _sanitized(lambda: Zipage(
+                cfg, eng.params, dtype="bfloat16", decode_kernel="dense",
+                compress=CompressOptions(window=eng.opts.window,
+                                         redundancy="flash")))
+            _, launches["dense"], served["dense"], _ = sanitized_serve(
+                torch, card, zd, f"{phase} dense+flash sanitized",
+                prompts[:2], sps[:2], ALG34_PATH, audits)
+            del zd
+            lap("serve dense+flash")
+            served["swap"] = {"preemptions": whisper_swap(
+                torch, card, cfg, eng.params, prompts, sps, audits)}
+            lap("swap")
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    if peak >= total:
+        raise AssertionError(f"{phase}: peak {peak} of {total} bytes")
+    log(phase, f"peak memory allocated {peak / 1e9:.2f} GB of "
+        f"{total / 1e9:.2f} GB on {card}")
+    per_serve = {}
+    for k, counts in launches.items():
+        for n, c in counts.items():
+            per_serve.setdefault(n, {})[f"{name} K={k}" if k in (1, 8)
+                                        else f"{name} {k}"] = c
+    rows = frontend_rows(torch, name, rec, per_serve, f"{name} K=1",
+                         dict(errs_bf16), tag)
+    del rec
+    lap("timing")
+    out = {"layers": cfg.num_layers, "params": n_params, "peak_bytes": peak,
+           "serves": {str(k): v for k, v in served.items()},
+           "k1_equals_k8": True, "took": took}
+    del z, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, rows
+
+
+def phase_frontends(torch, dev, card):
+    """Phase 15: 15a the six kernels at Whisper's layout (g 1, h_kv 6,
+    d 64) in fp32 and bf16, 15b card vs CPU (Whisper at full width and
+    depth, InternVL2 at full width and 2 layers with 256 patch embeddings)
+    and a graph-replayed Whisper chunk across a cross-KV rewrite, 15c
+    Whisper-tiny and 15d InternVL2-26B served at full width and depth in
+    bf16, 15e the serving launcher on both (started with 15b, collected
+    after it). Returns (summary, rows)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import EngineOptions
+
+    took, t = {}, time.monotonic()
+
+    def lap(what):
+        nonlocal t
+        took[what] = time.monotonic() - t
+        t = time.monotonic()
+
+    wcfg = dataclasses.replace(get_config(WHISPER), dtype="float32")
+    opts = EngineOptions()
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "" if dtype == torch.float32 else " bf16"
+        errs[str(dtype)] = phase_kernels(
+            torch, dev, wcfg, opts, phase=f"frontends kernels{tag}[{WHISPER}"
+            f": g = 1, h_kv = {wcfg.num_kv_heads}, d = {wcfg.head_dim}]",
+            dtype=dtype)
+        torch.cuda.empty_cache()
+    lap("15a")
+    launchers = launch_serves("frontends launch", (WHISPER, INTERNVL))
+    card_cpu = {}
+    card_cpu[WHISPER], p_dev, p_cpu = check_frontend_logits(torch, dev,
+                                                            WHISPER)
+    streams = check_frontend_streams(torch, dev, wcfg, p_cpu, p_dev,
+                                     f"frontends card-vs-cpu[{WHISPER}]")
+    check_cross_graph(torch, dev, wcfg, p_dev)
+    del p_dev, p_cpu
+    card_cpu[INTERNVL], p_dev, p_cpu = check_frontend_logits(torch, dev,
+                                                             INTERNVL)
+    del p_dev, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("15b")
+    launched = collect_launches("frontends launch", launchers,
+                                compressing=True)
+    lap("15e")
+    whisper, rows = frontend_serve(torch, card, WHISPER,
+                                   errs[str(torch.bfloat16)])
+    lap("15c")
+    vlm, rows_vlm = frontend_serve(torch, card, INTERNVL,
+                                   errs[str(torch.bfloat16)])
+    lap("15d")
+    log("frontends", "passed in " + ", ".join(f"{k} {v:.1f} s"
+                                              for k, v in took.items()))
+    return {"kernel_errs": errs, "card_vs_cpu": card_cpu,
+            "whisper_streams": streams, WHISPER: whisper, INTERNVL: vlm,
+            "launch": launched, "took": took}, rows + rows_vlm
 
 
 def main():
@@ -5543,19 +6092,24 @@ def main():
     lap("moe+mla")
     recurrent, rows_rec = phase_recurrent(torch, dev, card)
     lap("recurrent")
+    frontends, rows_front = phase_frontends(torch, dev, card)
+    lap("frontends")
     log("done", f"all phases passed in {time.monotonic() - t0:.1f} s ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")")
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "serve": summary, "serve_alg34": summary34,
-                   "kernels": rows + rows_bf16 + rows_mla + rows_rec,
+                   "kernels": rows + rows_bf16 + rows_mla + rows_rec
+                   + rows_front,
                    "profile": prof,
                    "paired": paired, "http": served, "memory": memory,
                    "bf16": bf16,
                    "dense": dense, "train_eval": train_eval,
                    "moe_mla": moe_mla, "recurrent": recurrent,
+                   "frontends": frontends,
                    "took_s": took}, f, indent=1)
-    print(json.dumps({"kernels": rows + rows_bf16 + rows_mla + rows_rec}))
+    print(json.dumps({"kernels": rows + rows_bf16 + rows_mla + rows_rec
+                      + rows_front}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

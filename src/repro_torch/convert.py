@@ -13,6 +13,11 @@ carried as matrices; MLA's ``kv_norm`` stays fp32, as the norms do, and
 so do the recurrent mixers' parameters that the JAX package uses uncast
 (``lm.FP32_KEYS``). RecurrentGemma's 26 layers come as 8 stacked
 (rglru, rglru, attn) units and a (rglru, rglru) tail, in layer order.
+An encoder-decoder config (Whisper) carries its ``encoder`` tree, whose
+layers are one stacked unit ``"0"`` with a leading ``encoder_layers``
+axis, and each decoder layer's cross attention (``cross``, its norm
+``ln_x`` in fp32). A prefix-embedding config (InternVL2) has no
+parameters of its frontend: the forward takes its embeddings.
 """
 from __future__ import annotations
 
@@ -56,4 +61,11 @@ def params_from_numpy(cfg, tree, device="cpu", dtype=torch.float32) -> dict:
            "layers": layers}
     if not cfg.tie_embeddings:
         out["unembed"] = _tensor(tree["unembed"], device, dtype)
+    if cfg.is_enc_dec:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "layers": [_layer_tree(enc["layers"]["0"], device, dtype, u)
+                       for u in range(cfg.encoder_layers)],
+            "final_norm": _layer_tree(enc["final_norm"], device,
+                                      torch.float32)}
     return out

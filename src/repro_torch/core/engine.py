@@ -17,12 +17,17 @@ The graphs read fixed addresses, so the device state and the decode
 inputs are buffers allocated once: every host push, and ``restore()``,
 copies into them.
 
-Ported so far: attention models (GQA, and DeepSeek's MLA on a latent
-pool) with dense or MoE FFNs, local-window attention over a ring of pages
-beside RG-LRU layers (RecurrentGemma) and the attention-free RWKV6, whose
+Ported: attention models (GQA, and DeepSeek's MLA on a latent pool) with
+dense or MoE FFNs, local-window attention over a ring of pages beside
+RG-LRU layers (RecurrentGemma) and the attention-free RWKV6, whose
 per-slot recurrent state lives in the device state (``rec``): these two
 run without compression and without prefix caching, as in the JAX
-package, and preempt by recompute; compression with lightning or flash
+package, and preempt by recompute; the encoder-decoder Whisper, which
+compresses its decoder's self-attention KV and keeps each slot's
+cross-attention KV in the device state (``cross_kv``, written by every
+prefill call from zero frame embeddings, as the JAX engine does), without
+prefix caching and preempting by recompute; InternVL2's backbone, served
+on text as the JAX engine serves it; compression with lightning or flash
 redundancy, the ragged and the dense decode kernel, recompute, swap and
 auto preemption with the host swap tier (a pinned host pool on the card),
 block-level prefix caching of raw KV and of compressed prefixes, fused and
@@ -171,7 +176,7 @@ class ZipageEngine:
             prefill_len=opts.prefill_len, dtype=opts.dtype,
             decode_kernel=opts.decode_kernel)
         self.prefix_ok = (opts.prefix_caching and not cfg.attention_free
-                          and not cfg.local_window)
+                          and not cfg.local_window and not cfg.is_enc_dec)
         self._ring = (self.spec.ring_blocks(cfg) if cfg.local_window
                       else 0)
         if self._ring > self.max_blocks:
@@ -183,11 +188,13 @@ class ZipageEngine:
         self.state = serve_model.make_state(cfg, self.spec, self.device)
         # host swap tier: only archs whose request state is all in the
         # paged pools can vacate a slot and resume in another; a ring's
-        # pages and the recurrent state are per slot, so those archs
-        # preempt by recompute, with the JAX engine's warning
+        # pages, the recurrent state and the cross-attention KV are per
+        # slot, so those archs preempt by recompute, with the JAX engine's
+        # warning
         self._swap_ok = (opts.swap_space_blocks > 0
                          and "pools" in self.state and not self._ring
-                         and "rec" not in self.state)
+                         and "rec" not in self.state
+                         and "cross_kv" not in self.state)
         if opts.swap_space_blocks > 0 and not self._swap_ok:
             warnings.warn(
                 f"preemption_mode={opts.preemption_mode!r} cannot swap on "
@@ -233,6 +240,13 @@ class ZipageEngine:
                          prefix_cache_policy=opts.prefix_cache_policy,
                          prefix_cache_watermark=opts.prefix_cache_watermark))
         self._prefill = serve_model.build_prefill_step(cfg, self.spec)
+        # an encoder-decoder model's frontend is a stub: every prefill
+        # call encodes zero frame embeddings, as the JAX engine's does
+        self._prefill_kw = {}
+        if cfg.is_enc_dec:
+            self._prefill_kw["frame_embeds"] = torch.zeros(
+                (opts.prefill_rows, cfg.cross_seq_len, cfg.d_model),
+                dtype=torch.float32, device=self.device)
         self._decode = serve_model.build_decode_step(cfg, self.spec)
         self._fused_fns: Dict[tuple, callable] = {}
         self._compress_fns: Dict[int, callable] = {}
@@ -480,7 +494,7 @@ class ZipageEngine:
             logits = self._prefill(
                 self.params, self.state, self._dev(toks), self._dev(slot_ids),
                 self._dev(lengths), self._dev(start),
-                rope_start=self._dev(rope))
+                rope_start=self._dev(rope), **self._prefill_kw)
             if final:
                 row_reqs: List[Optional[Request]] = [None] * P
                 for i, r, _n in final:

@@ -1,7 +1,8 @@
 """Serving-time model execution over the paged KV pool
-(``repro.core.serve_model`` for the layer kinds the port serves:
-attention, GQA or MLA, local-window GQA over a ring of pages, and the
-recurrent mixers RG-LRU and RWKV6, with dense or MoE FFNs).
+(``repro.core.serve_model`` for every layer kind: attention, GQA or MLA,
+local-window GQA over a ring of pages, the recurrent mixers RG-LRU and
+RWKV6, with dense or MoE FFNs, and an encoder-decoder model's cross
+attention).
 
 State layout (a dict of tensors on one device; the steps update it in
 place where the JAX package returned a new state, and never replace a
@@ -19,6 +20,10 @@ recurrent ones; a config with no attention layer has no pools and no qwin.
            dtype}                                               [RG-LRU]
           or {"S": (L_rec, B, h, K, K) fp32, "shift": (L_rec, B, d) at
            the dtype}                                           [RWKV6]
+  cross_kv: {"k", "v": (L, B, cross_seq_len, h_kv, d) at the dtype}, each
+           slot's cross-attention keys and values over the encoder's
+           output, which every prefill call writes for its rows and
+           every decode layer reads                             [enc-dec]
 The extra last page of the pools and the extra last query slot are sinks:
 nothing maps them, and writes that must be dropped land there
 (``paged.sink_page``).
@@ -157,6 +162,9 @@ def make_state(cfg: ArchConfig, spec: ServeSpec, device) -> dict:
             K = cfg.head_dim
             st["rec"] = {"S": zeros((L_rec, B, cfg.num_heads, K, K), f32),
                          "shift": zeros((L_rec, B, cfg.d_model), dt)}
+    if cfg.is_enc_dec:
+        shape = (cfg.num_layers, B, cfg.cross_seq_len, h, d)
+        st["cross_kv"] = {"k": zeros(shape, dt), "v": zeros(shape, dt)}
     st.update(tokens_next=zeros(B, torch.int64),
               active_mask=zeros(B, torch.bool),
               sample_counters=zeros(B, i32))
@@ -239,8 +247,9 @@ def build_decode_step(cfg: ArchConfig, spec: ServeSpec):
             attend_len = seq + 1
         live_q = (qslot >= 0) & active
         pools, qwin = state.get("pools"), state.get("qwin")
+        cross = state.get("cross_kv")
         B = x.shape[0]
-        for p, (kind, li) in zip(params["layers"], kinds):
+        for l, (p, (kind, li)) in enumerate(zip(params["layers"], kinds)):
             h = apply_norm(cfg, p["ln1"], x)
             if kind != "attn":
                 x = x + _decode_rec(cfg, p[kind], kind, h, state["rec"], li,
@@ -281,6 +290,10 @@ def build_decode_step(cfg: ArchConfig, spec: ServeSpec):
                                                         attend_len)
                 _write_qwin(qwin[li], live_q, qslot, seq, q)
                 x = x + o.reshape(B, -1) @ pa["wo"]
+            if cross is not None:
+                x = x + ML.cross_attend(
+                    cfg, p["cross"], apply_norm(cfg, p["ln_x"], x)[:, None],
+                    cross["k"][l], cross["v"][l])[:, 0]
             h2 = apply_norm(cfg, p["ln2"], x)
             if "moe" in p:
                 x = x + ML.moe_forward(cfg, p["moe"], h2[:, None],
@@ -443,7 +456,8 @@ def _prefill_ring(cfg, spec, q, k, v, k_l, v_l, bt, positions, valid,
 
 def build_prefill_step(cfg: ArchConfig, spec: ServeSpec):
     """prefill_step(params, state, tokens, slot_ids, lengths, start_pos,
-    rope_start=None) -> last-token logits (P, V).
+    rope_start=None, frame_embeds=None, prefix_embeds=None) -> last-token
+    logits (P, V).
 
     tokens: (P, S) padded prompts; slot_ids: (P,) destination slots (-1 =
     padding row); lengths: (P,) valid length; start_pos: (P,) KV entries
@@ -455,6 +469,14 @@ def build_prefill_step(cfg: ArchConfig, spec: ServeSpec):
     and seeds the observation window with each row's last ``window``
     queries. A row with ``start_pos`` above 0 continues from its slot's
     carried state (module docstring).
+
+    An encoder-decoder config needs ``frame_embeds`` (P, Sm, d): the
+    encoder runs over each row's, every decoder layer attends its output
+    after the self-attention, and the rows' cross keys and values are
+    written into their slots' ``cross_kv``, in place. ``prefix_embeds``
+    (P, n, d) go before every row's tokens, whatever its ``start_pos``, as
+    the JAX package's code does, and lengthen every row by n: the
+    positions, the cache writes and the observation window count them.
     """
     lm.check_supported(cfg)
     w_obs = spec.window
@@ -463,10 +485,20 @@ def build_prefill_step(cfg: ArchConfig, spec: ServeSpec):
     kinds = mixer_kinds(cfg)
 
     def step(params, state, tokens, slot_ids, lengths, start_pos,
-             rope_start=None):
-        P, S = tokens.shape
+             rope_start=None, frame_embeds=None, prefix_embeds=None):
         dev = tokens.device
         x = params["embed"][tokens]
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], 1)
+            lengths = lengths + prefix_embeds.shape[1]
+        P, S = x.shape[:2]
+        memory = None
+        if cfg.is_enc_dec:
+            if frame_embeds is None:
+                raise ValueError("enc-dec arch requires frame_embeds")
+            memory = lm.encode(cfg, params, frame_embeds)
+            cross = state["cross_kv"]
+            store = slot_ids[slot_ids >= 0].long()
         if rope_start is None:
             rope_start = start_pos
         ar = torch.arange(S, device=dev)[None]
@@ -488,7 +520,7 @@ def build_prefill_step(cfg: ArchConfig, spec: ServeSpec):
         moe_valid = valid & row_ok[:, None]
         rows = torch.arange(P, device=dev)
         last = (lengths - 1).clamp(min=0).long()
-        for p, (kind, li) in zip(params["layers"], kinds):
+        for l, (p, (kind, li)) in enumerate(zip(params["layers"], kinds)):
             h = apply_norm(cfg, p["ln1"], x)
             if kind == "rglru":
                 out, new = ML.rglru_forward(
@@ -535,6 +567,13 @@ def build_prefill_step(cfg: ArchConfig, spec: ServeSpec):
                             q, k_l, v_l, bt, start_pos, kv_lens)
                 _write_qwin(qwin[li], in_win, qslot_rows, cache_pos, q)
                 x = x + o.reshape(P, S, -1) @ pa["wo"]
+            if memory is not None:
+                pc = p["cross"]
+                ck, cv = ML.cross_kv(cfg, pc, memory)
+                x = x + ML.cross_attend(
+                    cfg, pc, apply_norm(cfg, p["ln_x"], x), ck, cv)
+                cross["k"][l].index_copy_(0, store, ck[row_ok])
+                cross["v"][l].index_copy_(0, store, cv[row_ok])
             h2 = apply_norm(cfg, p["ln2"], x)
             if "moe" in p:
                 x = x + ML.moe_forward(cfg, p["moe"], h2, valid=moe_valid)

@@ -1,7 +1,7 @@
-"""Attention (GQA, local-window GQA and DeepSeek's MLA), the recurrent
-mixers RG-LRU (RecurrentGemma) and RWKV6 time mixing, FFN and MoE layers
-(``repro.models.layers`` for the layer kinds the port serves). Params are
-plain dicts of tensors.
+"""Attention (GQA, local-window GQA and DeepSeek's MLA), encoder-decoder
+cross attention, the recurrent mixers RG-LRU (RecurrentGemma) and RWKV6
+time mixing, FFN and MoE layers (``repro.models.layers`` for every layer
+kind). Params are plain dicts of tensors.
 
 The recurrent mixers come in a full-sequence form (``rglru_forward``,
 ``rwkv_forward``), which the serve's prefill also runs, and a one-token
@@ -89,6 +89,37 @@ def attn_forward(cfg, p, x, positions, *, local_window=None):
     lw = cfg.local_window if local_window is None else local_window
     o = causal_attention(q, k, v, local_window=lw)
     return o.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"]
+
+
+# ----------------------------------------------------------------------
+# encoder-decoder cross attention (Whisper): unmasked, no RoPE, no bias
+
+def cross_kv(cfg, p, memory):
+    """The keys and values of ``memory`` (B, Sm, d): two (B, Sm, h_kv, d)
+    tensors, what a slot's cross-attention state holds."""
+    B = memory.shape[0]
+    k = (memory @ p["wk"]).reshape(B, -1, cfg.num_kv_heads, cfg.head_dim)
+    v = (memory @ p["wv"]).reshape(B, -1, cfg.num_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def cross_attend(cfg, p, x, k, v):
+    """Queries of ``x`` (B, S, d) over every key of k, v (B, Sm, h_kv, d),
+    through the output projection: (B, S, d). The scores, the softmax and
+    the product are fp32, cast back to x's dtype."""
+    B, S, _ = x.shape
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    qg = (x @ p["wq"]).reshape(B, S, hkv, hq // hkv, dh).float()
+    s = torch.einsum("bshgd,bmhd->bhgsm", qg, k.float()) / math.sqrt(dh)
+    o = torch.einsum("bhgsm,bmhd->bshgd", torch.softmax(s, -1), v.float())
+    return o.reshape(B, S, hq * dh).to(x.dtype) @ p["wo"]
+
+
+def cross_attn_forward(cfg, p, x, memory):
+    """Encoder-decoder cross attention of x (B, S, d) over memory (B, Sm,
+    d); the encoder's bidirectional self-attention is the case memory =
+    x."""
+    return cross_attend(cfg, p, x, *cross_kv(cfg, p, memory))
 
 
 # ----------------------------------------------------------------------

@@ -6,7 +6,10 @@ a plain list of per-layer dicts, since PyTorch runs the layers eagerly:
     {"embed": (V, d), "final_norm": norm, "unembed": (d, V),
      "layers": [{"ln1": norm, "ln2": norm,
                  "attn": attn or "rglru": rglru or "rwkv": rwkv,
-                 "ffn": {"w1", "w2", ["w3"]} or "moe": moe}, ...]}
+                 "ffn": {"w1", "w2", ["w3"]} or "moe": moe,
+                 ["ln_x": norm, "cross": cross]}, ...],
+     ["encoder": {"layers": [{"ln1", "ln2", "attn", "ffn"}, ...],
+                  "final_norm": norm}]}
 
 where attn is {"wq", "wk", "wv", "wo", ["q_norm", "k_norm"], ["bq", "bk",
 "bv"]} (GQA, local-window GQA) or {"wq", "w_dkv", "kv_norm", "w_uk",
@@ -17,14 +20,21 @@ where attn is {"wq", "wk", "wv", "wo", ["q_norm", "k_norm"], ["bq", "bk",
 "ln_x_scale", "ln_x_bias": (d,)} (the layer kind is the mixer's key),
 moe is {"router": (d, E), "w1", "w3": (E, d, f), "w2": (E, f, d),
 ["shared": ffn]} (the layers at or past ``first_dense_layers`` of a MoE
-config), and a norm is {"scale": (d,)} (rmsnorm), {"scale", "bias": (d,)}
-(layernorm) or {} (nonparam_ln), as ``repro.models.common.init_norm``.
+config), cross is {"wq", "wk", "wv", "wo"} (no bias: an encoder-decoder
+config's decoder layers, with the ``encoder`` tree of ``encoder_layers``
+attention layers), and a norm is {"scale": (d,)} (rmsnorm), {"scale",
+"bias": (d,)} (layernorm) or {} (nonparam_ln), as
+``repro.models.common.init_norm``.
 
 ``repro_torch.convert.params_from_numpy`` maps the JAX package's stacked
 tree onto this layout. Attention layers (GQA, local-window GQA or MLA),
-RG-LRU and RWKV6 layers with dense or MoE FFNs are ported;
-``check_supported`` names what is not (encoder-decoder models and the
-modality frontends).
+RG-LRU and RWKV6 layers with dense or MoE FFNs, the encoder-decoder
+backbone (Whisper: ``encode`` over frame embeddings, cross attention in
+every decoder layer) and the prefix embeddings of a vision frontend
+(InternVL2) are ported; ``check_supported`` names what is not
+(local-window MLA, dtypes other than fp32 and bf16). The frontends
+themselves are stubs in both packages: the forward takes their
+embeddings.
 
 Dtypes (``cfg.dtype``, float32 or bfloat16): the JAX package keeps fp32
 parameters and casts the matrices, qkv biases, router, experts and
@@ -53,9 +63,10 @@ from repro_torch.models.common import apply_norm, is_gated
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: parameters that stay fp32 whatever the dtype: the norms' scales and
 #: biases, and what the reference's recurrent mixers use without a cast
-FP32_KEYS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "kv_norm",
-             "conv_w", "conv_b", "w_in_gate", "w_rec_gate", "a_param",
-             "w0", "w_lora_a", "w_lora_b", "u", "ln_x_scale", "ln_x_bias")
+FP32_KEYS = ("ln1", "ln2", "ln_x", "final_norm", "q_norm", "k_norm",
+             "kv_norm", "conv_w", "conv_b", "w_in_gate", "w_rec_gate",
+             "a_param", "w0", "w_lora_a", "w_lora_b", "u", "ln_x_scale",
+             "ln_x_bias")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -108,10 +119,6 @@ def check_supported(cfg: ArchConfig) -> None:
         unported.append(f"mixers {sorted(kinds)}")
     if cfg.local_window and cfg.attn_type == "mla":
         unported.append("local_window MLA")
-    if cfg.is_enc_dec:
-        unported.append("encoder-decoder")
-    if cfg.frontend != "none" or cfg.num_prefix_embeds:
-        unported.append(f"frontend={cfg.frontend!r}")
     if cfg.dtype not in DTYPES:
         unported.append(f"dtype={cfg.dtype!r}")
     if unported:
@@ -175,7 +182,8 @@ def _init_rwkv(cfg, dense, dense32, device, dt):
             "w_o": dense((d, d), d)}
 
 
-def _init_layer(cfg, kind, generator, device, dt, ffn_kind="dense"):
+def _init_layer(cfg, kind, generator, device, dt, ffn_kind="dense",
+                with_cross=False):
     d, hq, hkv, dh, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim, cfg.d_ff)
 
@@ -196,6 +204,20 @@ def _init_layer(cfg, kind, generator, device, dt, ffn_kind="dense"):
             out["w3"] = dense(e + (d, width), d)
         return out
 
+    def gqa(cross=False):
+        attn = {"wq": dense((d, hq * dh), d),
+                "wk": dense((d, hkv * dh), d),
+                "wv": dense((d, hkv * dh), d),
+                "wo": dense((hq * dh, d), hq * dh)}
+        if cfg.qkv_bias and not cross:
+            for name, n in (("bq", hq * dh), ("bk", hkv * dh),
+                            ("bv", hkv * dh)):
+                attn[name] = torch.zeros(n, dtype=dt, device=device)
+        if cfg.qk_norm:
+            attn["q_norm"] = ones(dh)
+            attn["k_norm"] = ones(dh)
+        return attn
+
     if kind == "rglru":
         mixer = _init_rglru(cfg, dense, dense32, device)
     elif kind == "rwkv":
@@ -209,17 +231,7 @@ def _init_layer(cfg, kind, generator, device, dt, ffn_kind="dense"):
                 "w_uv": dense((r, hq * dv), r),
                 "wo": dense((hq * dv, d), hq * dv)}
     else:
-        attn = {"wq": dense((d, hq * dh), d),
-                "wk": dense((d, hkv * dh), d),
-                "wv": dense((d, hkv * dh), d),
-                "wo": dense((hq * dh, d), hq * dh)}
-        if cfg.qkv_bias:
-            for name, n in (("bq", hq * dh), ("bk", hkv * dh),
-                            ("bv", hkv * dh)):
-                attn[name] = torch.zeros(n, dtype=dt, device=device)
-        if cfg.qk_norm:
-            attn["q_norm"] = ones(dh)
-            attn["k_norm"] = ones(dh)
+        attn = gqa()
     if kind == "attn":
         mixer = attn
     layer = {"ln1": _init_norm(cfg, d, device),
@@ -232,6 +244,9 @@ def _init_layer(cfg, kind, generator, device, dt, ffn_kind="dense"):
         layer["moe"] = moe
     else:
         layer["ffn"] = ffn(f)
+    if with_cross:
+        layer["ln_x"] = _init_norm(cfg, d, device)
+        layer["cross"] = gqa(cross=True)
     return layer
 
 
@@ -253,8 +268,13 @@ def init(cfg: ArchConfig, generator: torch.Generator, device, *,
         params["unembed"] = _dense((cfg.d_model, cfg.vocab_size),
                                    cfg.d_model, generator, device, dt)
     params["layers"] = [_init_layer(cfg, kind, generator, device, dt,
-                                    ffn_kind)
+                                    ffn_kind, with_cross=cfg.is_enc_dec)
                         for kind, ffn_kind in layer_specs(cfg)]
+    if cfg.is_enc_dec:
+        params["encoder"] = {
+            "layers": [_init_layer(cfg, "attn", generator, device, dt)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": _init_norm(cfg, cfg.d_model, device)}
     return params
 
 
@@ -303,7 +323,10 @@ def mixer_kind(p) -> str:
     return next(k for k in ("attn", "rglru", "rwkv") if k in p)
 
 
-def apply_layer(cfg, p, x, positions):
+def apply_layer(cfg, p, x, positions, memory=None):
+    """One decoder layer; ``memory`` is the encoder's output (B, Sm, d),
+    which the layer's cross attention reads after its mixer (an
+    encoder-decoder config), or None."""
     h = apply_norm(cfg, p["ln1"], x)
     kind = mixer_kind(p)
     if kind == "rglru":
@@ -314,46 +337,83 @@ def apply_layer(cfg, p, x, positions):
         x = x + L.mla_forward(cfg, p["attn"], h, positions)
     else:
         x = x + L.attn_forward(cfg, p["attn"], h, positions)
+    if memory is not None and "cross" in p:
+        x = x + L.cross_attn_forward(cfg, p["cross"],
+                                     apply_norm(cfg, p["ln_x"], x), memory)
     h2 = apply_norm(cfg, p["ln2"], x)
     if "moe" in p:
         return x + L.moe_forward(cfg, p["moe"], h2)
     return x + L.ffn_forward(cfg, p["ffn"], h2)
 
 
-def _cast_apply_layer(cfg, p, x, positions):
+def _cast_apply_layer(cfg, p, x, positions, memory=None):
     """``apply_layer`` on the layer's params cast to the compute dtype
     (no copy where they are at it already), as the reference's
     ``astype`` at each use: inside a checkpointed layer the cast copy
     lives only while the layer runs."""
     return apply_layer(cfg, cast_params(p, torch_dtype(cfg.dtype)), x,
-                       positions)
+                       positions, memory)
+
+
+def _encoder_layer(cfg, p, x):
+    p = cast_params(p, torch_dtype(cfg.dtype))
+    h = apply_norm(cfg, p["ln1"], x)
+    x = x + L.cross_attn_forward(cfg, p["attn"], h, h)   # unmasked self
+    return x + L.ffn_forward(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))
+
+
+def encode(cfg: ArchConfig, params, frame_embeds, *, remat=False):
+    """The Whisper encoder: bidirectional self-attention over frame
+    embeddings (B, Sm, d), cast to ``cfg.dtype``, then its final norm.
+    ``remat=True`` checkpoints each layer, as ``forward_hidden``."""
+    x = frame_embeds.to(torch_dtype(cfg.dtype))
+    enc = params["encoder"]
+    for p in enc["layers"]:
+        if remat:
+            x = checkpoint(_encoder_layer, cfg, p, x, use_reentrant=False)
+        else:
+            x = _encoder_layer(cfg, p, x)
+    return apply_norm(cfg, enc["final_norm"], x)
 
 
 def forward_hidden(cfg: ArchConfig, params, tokens, *, positions=None,
-                   remat=False):
-    """Token ids (B, S) -> final hidden states (B, S, d) at ``cfg.dtype``,
-    as the JAX package's: the residual stream, matrices and products at
-    the dtype, norms, RoPE and attention in fp32, cast back. ``params``
-    are at the dtype or fp32 masters, cast at each use.
+                   prefix_embeds=None, frame_embeds=None, remat=False):
+    """Token ids (B, S) -> final hidden states (B, P + S, d) at
+    ``cfg.dtype``, as the JAX package's: the residual stream, matrices and
+    products at the dtype, norms, RoPE and attention in fp32, cast back.
+    ``params`` are at the dtype or fp32 masters, cast at each use.
+
+    ``prefix_embeds`` (B, P, d), a vision frontend's patch embeddings,
+    go before the tokens' embeddings (P = 0 without them). An
+    encoder-decoder config needs ``frame_embeds`` (B, Sm, d): the encoder
+    runs over them, and each decoder layer attends its output.
 
     ``remat=True`` checkpoints each layer: its activations are recomputed
     in the backward pass instead of kept (the reference's ``remat``, which
     ``lm_loss`` turns on). It changes no value."""
     check_supported(cfg)
     check_params_dtype(cfg, params)
+    dt = torch_dtype(cfg.dtype)
     # the gather of params["embed"].astype(dt)[tokens], whose backward
     # sums each row's gradients in a fixed order (indexing's accumulates
     # in any)
-    x = F.embedding(tokens, params["embed"].to(torch_dtype(cfg.dtype)))
+    x = F.embedding(tokens, params["embed"].to(dt))
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(dt), x], 1)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
+    memory = None
+    if cfg.is_enc_dec:
+        if frame_embeds is None:
+            raise ValueError("enc-dec arch requires frame_embeds")
+        memory = encode(cfg, params, frame_embeds, remat=remat)
     for p in params["layers"]:
         if remat:
-            x = checkpoint(_cast_apply_layer, cfg, p, x, positions,
+            x = checkpoint(_cast_apply_layer, cfg, p, x, positions, memory,
                            use_reentrant=False)
         else:
-            x = _cast_apply_layer(cfg, p, x, positions)
+            x = _cast_apply_layer(cfg, p, x, positions, memory)
     return apply_norm(cfg, params["final_norm"], x)
 
 
@@ -399,9 +459,16 @@ def chunked_xent(cfg, params, hidden, labels, *, chunk=256, ignore_id=-100):
 
 
 def lm_loss(cfg, params, batch, *, vocab_chunk=256):
-    """batch: {"tokens": (B, S), "labels": (B, S)}; the mean loss over the
-    labels that are not ``-100``."""
-    hidden = forward_hidden(cfg, params, batch["tokens"].long(), remat=True)
+    """batch: {"tokens": (B, S), "labels": (B, S)}, with a frontend's
+    ``prefix_embeds`` (B, P, d) or ``frame_embeds`` (B, Sm, d); the mean
+    loss over the labels that are not ``-100``, at the text positions
+    only."""
+    hidden = forward_hidden(cfg, params, batch["tokens"].long(),
+                            prefix_embeds=batch.get("prefix_embeds"),
+                            frame_embeds=batch.get("frame_embeds"),
+                            remat=True)
+    if "prefix_embeds" in batch:
+        hidden = hidden[:, batch["prefix_embeds"].shape[1]:]
     loss_sum, n = chunked_xent(cfg, params, hidden, batch["labels"],
                                chunk=vocab_chunk)
     return loss_sum / torch.clamp(n, min=1)

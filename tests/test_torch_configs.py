@@ -125,13 +125,25 @@ def test_forward_raises_where_jax_casts_to_the_registered_dtype(name):
     JAX package's cast at use) and return bf16 logits within a relative L2
     of 2e-2 (bf16 rounds at other places in the two frameworks: the JAX
     package's own bf16 forward is 1e-2 from its fp32 one); at fp32 they
-    agree to TOL."""
+    agree to TOL. A frontend's embeddings (Whisper's frames, InternVL2's
+    patch prefix) go to both forwards: the JAX forward of an
+    encoder-decoder config raises without frames."""
     jcfg = reduced(jget_config, name, dtype=None)
     tcfg = reduced(get_config, name, dtype=None)
     assert tcfg.dtype == jcfg.dtype == "bfloat16"
     params = jlm.init(jcfg, jax.random.key(2))
-    tokens = np.random.default_rng(2).integers(0, jcfg.vocab_size, (2, 9))
-    out = jlm.forward(jcfg, params, jnp.asarray(tokens))
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, jcfg.vocab_size, (2, 9))
+    embeds = {}
+    if jcfg.is_enc_dec:
+        embeds["frame_embeds"] = rng.standard_normal(
+            (2, jcfg.cross_seq_len, jcfg.d_model)).astype(np.float32)
+    if jcfg.num_prefix_embeds:
+        embeds["prefix_embeds"] = rng.standard_normal(
+            (2, jcfg.num_prefix_embeds, jcfg.d_model)).astype(np.float32)
+    jkw = {k: jnp.asarray(v) for k, v in embeds.items()}
+    tkw = {k: torch.from_numpy(v) for k, v in embeds.items()}
+    out = jlm.forward(jcfg, params, jnp.asarray(tokens), **jkw)
     # the JAX package's MLA layer divides its bf16 queries by np.sqrt(..),
     # a float64 numpy scalar, which promotes them to fp32: its MLA forward
     # (DeepSeek-V2-Lite) returns fp32 logits (ROADMAP §C); the port's
@@ -146,16 +158,16 @@ def test_forward_raises_where_jax_casts_to_the_registered_dtype(name):
     first = next(t for k, t in mixer.items()
                  if t.dim() == 2 and k not in lm.FP32_KEYS)
     assert first.dtype == torch.bfloat16
-    got = lm.forward(tcfg, bparams, torch.from_numpy(tokens))
+    got = lm.forward(tcfg, bparams, torch.from_numpy(tokens), **tkw)
     assert got.dtype == torch.bfloat16
     assert bool(torch.isfinite(got).all())
     g, w = got.double().numpy(), np.asarray(out, np.float64)
     assert np.linalg.norm(g - w) / np.linalg.norm(w) <= 2e-2
     tparams = params_from_numpy(tcfg, tree)
     f32 = dataclasses.replace(jcfg, dtype="float32")
-    want = np.asarray(jlm.forward(f32, params, jnp.asarray(tokens)))
+    want = np.asarray(jlm.forward(f32, params, jnp.asarray(tokens), **jkw))
     got = lm.forward(dataclasses.replace(tcfg, dtype="float32"), tparams,
-                     torch.from_numpy(tokens))
+                     torch.from_numpy(tokens), **tkw)
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
 
 

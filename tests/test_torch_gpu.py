@@ -660,6 +660,43 @@ def test_memory_checks_on_card(cuda, tiny, check):
 
 
 # ----------------------------------------------------------------------
+# Whisper-tiny's layout (g = 1, h_kv = 6, d = 64) and its cross-attention
+# state under CUDA graphs (chip_smoke.py phase 15)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain_at_whisper_layout(cuda, dtype):
+    """chip_smoke.py's 15a: all six kernels against their plain versions
+    at Whisper-tiny's layout (g = 1, h_kv = 6, d = 64) over the phase 3
+    length mixes, B4 == K1 bit for bit on live rows and on idle slots, B6
+    bit for bit at k = 48 and 1024."""
+    import dataclasses
+
+    from repro_torch.core.engine import EngineOptions
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_config("whisper-tiny"), dtype="float32")
+    assert (cfg.num_heads // cfg.num_kv_heads, cfg.num_kv_heads,
+            cfg.head_dim) == (1, 6, 64)
+    before = dict(ops.launch_counts)
+    cs.phase_kernels(torch, cuda, cfg, EngineOptions(),
+                     phase=f"whisper {dtype}", dtype=dtype)
+    assert all(ops.launch_counts[k] > before[k] for k in ops.KERNELS)
+
+
+def test_whisper_graph_replay_across_a_cross_kv_rewrite(cuda):
+    """chip_smoke.py's 15b graph check at Whisper-tiny's full width and
+    depth, fp32: a fused chunk of 4 captured, the cross-attention KV of
+    two live slots rewritten in place by a prefill over new frames, then
+    replay == eager bit for bit (tokens, logprobs, pools, cross_kv), and
+    those slots' logprobs moved: the replay read the new cross KV."""
+    import dataclasses
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_config("whisper-tiny"), dtype="float32")
+    params = lm.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    cs.check_cross_graph(torch, cuda, cfg, params)
+
+
+# ----------------------------------------------------------------------
 # bfloat16: the kernels' bf16 variants and the bf16 serve
 
 

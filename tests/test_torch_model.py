@@ -42,7 +42,8 @@ def jax_params(jcfg, seed=0):
 
 @pytest.mark.parametrize("name", ["qwen3-8b", "tiny-lm", "llama3-8b",
                                   "qwen2.5-3b", "olmo-1b", "nemotron-4-15b",
-                                  "recurrentgemma-2b", "rwkv6-3b"])
+                                  "recurrentgemma-2b", "rwkv6-3b",
+                                  "whisper-tiny", "internvl2-26b"])
 def test_config_copies_match(name):
     """The port keeps its own copies of the configs; they must describe
     the same networks."""

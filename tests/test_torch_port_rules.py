@@ -292,14 +292,13 @@ def test_dense_decode_and_flash_are_accepted(knob):
 
 
 def test_unported_architectures_raise():
-    """What the port still refuses: encoder-decoder models and modality
-    frontends (MLA and MoE layers, local-window attention and the
-    recurrent mixers are ported: the tests below)."""
+    """What the port still refuses: local-window MLA, which no config
+    uses (MLA and MoE layers, local-window attention, the recurrent
+    mixers, encoder-decoder models and the frontends' embeddings are
+    ported: the tests below)."""
     import dataclasses
     tiny = get_config("tiny-lm")
-    cases = {"encoder-decoder": dict(encoder_layers=2),
-             "frontend": dict(frontend="vision_stub", num_prefix_embeds=4),
-             "local_window MLA": dict(attn_type="mla", local_window=32,
+    cases = {"local_window MLA": dict(attn_type="mla", local_window=32,
                                       kv_lora_rank=32, qk_rope_head_dim=8,
                                       v_head_dim=16)}
     for match, kw in cases.items():
@@ -341,6 +340,28 @@ def test_recurrent_configs_are_accepted(name):
     assert [len(o.token_ids) for o in outs] == [8, 8]
     assert z.num_free_blocks == 32
     assert not z.engine.compression_enabled and not z.engine.prefix_ok
+
+
+@pytest.mark.parametrize("name", ["whisper-tiny", "internvl2-26b"])
+def test_frontend_configs_are_accepted(name):
+    """Whisper-tiny (encoder-decoder) and InternVL2-26B (a vision
+    frontend's prefix embeddings), formerly refused, pass
+    ``lm.check_supported`` and serve through the facade on the CPU at
+    their reduced widths, with compression on, as the JAX engine runs
+    them; Whisper without prefix caching."""
+    cfg = get_config(name)
+    lm.check_supported(cfg)
+    assert cfg.is_enc_dec or cfg.num_prefix_embeds
+    z = Zipage.from_config(name, device="cpu", reduce=True, block_size=8,
+                           n_total_blocks=32, max_batch=2, max_model_len=64,
+                           prefill_rows=1, prefill_len=32)
+    outs = z.generate([[1, 2, 3, 4, 5], [9, 8, 7]],
+                      SamplingParams(max_new_tokens=8))
+    assert [len(o.token_ids) for o in outs] == [8, 8]
+    assert z.num_free_blocks == 32
+    assert z.engine.compression_enabled
+    assert z.engine.prefix_ok == (not cfg.is_enc_dec)
+    assert ("cross_kv" in z.engine.state) == cfg.is_enc_dec
 
 
 @pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "dbrx-132b"])

@@ -230,6 +230,58 @@ def test_loss_and_gradient_match_jax(jax_init, what):
         assert rel < 1e-5 or float(ref_grad.abs().max()) == 0.0
 
 
+#: the architectures of tests/test_models_smoke.py
+SMOKE_ARCHS = [
+    "recurrentgemma-2b", "deepseek-v2-lite-16b", "dbrx-132b", "llama3-8b",
+    "nemotron-4-15b", "olmo-1b", "qwen2.5-3b", "rwkv6-3b", "whisper-tiny",
+    "internvl2-26b",
+]
+
+
+@pytest.mark.parametrize("arch", SMOKE_ARCHS)
+def test_loss_gradients_match_jax_on_every_architecture(arch):
+    """Each architecture's reduced config in fp32, on the JAX package's
+    init: the port's ``lm_loss`` and its gradient by every leaf against
+    ``jax.value_and_grad`` of the JAX ``lm_loss`` (relative L2 1e-4 per
+    leaf), with the frontend's embeddings where the config has one. This
+    holds training on the recurrent mixers (RG-LRU, RWKV6), MoE, MLA and
+    the encoder-decoder and prefix paths."""
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(),
+                               dtype="float32")
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 16)),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 16))}
+    if cfg.frontend == "vision_stub":
+        batch["prefix_embeds"] = (0.02 * rng.standard_normal(
+            (2, cfg.num_prefix_embeds, cfg.d_model))).astype(np.float32)
+    if cfg.frontend == "audio_stub":
+        batch["frame_embeds"] = (0.02 * rng.standard_normal(
+            (2, cfg.cross_seq_len, cfg.d_model))).astype(np.float32)
+    params = jax.jit(jax_lm.init, static_argnums=0)(jcfg, jax.random.key(0))
+    jl, jg = jax.jit(jax.value_and_grad(
+        lambda p: jax_lm.lm_loss(jcfg, p, jax.tree.map(jnp.asarray, batch),
+                                 vocab_chunk=8)))(params)
+    p = convert.params_from_numpy(cfg, _np(params))
+    xs = opt.tree_leaves(p)
+    for x in xs:
+        x.requires_grad_(True)
+    loss = lm.lm_loss(cfg, p, {k: torch.from_numpy(v)
+                               for k, v in batch.items()}, vocab_chunk=8)
+    grads = torch.autograd.grad(loss, xs, allow_unused=True)
+    assert float(loss.detach()) == pytest.approx(float(jl), rel=1e-5)
+    ref = opt.tree_leaves(convert.params_from_numpy(cfg, _np(jg)))
+    assert len(ref) == len(xs)
+    bad = []
+    for i, (g, r) in enumerate(zip(grads, ref)):
+        g = torch.zeros_like(r) if g is None else g
+        rn = float(r.norm())
+        rel = float((g - r).norm()) / rn if rn else float(g.norm())
+        if not rel < 1e-4:
+            bad.append((i, tuple(r.shape), rel))
+    assert bad == []
+
+
 def test_remat_changes_no_value(jax_init):
     p = _port_params(jax_init)
     tokens = torch.tensor(_labels_with_ignores(24, 2)[0]).long()
