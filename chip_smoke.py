@@ -228,6 +228,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
      under the card's, K1 timed (row ``ragged_paged_attention_internvl2_
      bf16``); (e) ``python -m repro_torch.launch.serve --arch`` for both
      on the card (reduced widths), run beside 15b.
+  16. (run after 10, before 7, on the Qwen3-8B weights cast to fp16,
+     norms fp32) float16 (``phase_fp16``): (a) the six kernels' ``_f16``
+     entries against their plain versions at the shapes of phases 3, 13b,
+     14a and 15a (g = 1, 4, 6, 8, 10; d = 64, 128, 256; MLA's 512- and
+     576-wide entries): fp32 outputs within FP16_TOL, fp16 outputs within
+     one fp16 ulp, B6 and dense vs ragged bit for bit; (b) card vs CPU at
+     2 layers of Qwen3-8B widths in fp16: logits within a relative L2 of
+     FP16_REL_L2 (vocabulary capped at CPU_VOCAB; the CPU's fp16 products
+     formed in fp32 and rounded once, ``cpu_fp16_gemm``), a
+     graph-replayed chunk == eager bit for bit, the card's K = 8 streams
+     == its K = 1 streams; (c) Qwen3-8B at full width and
+     36 layers in fp16: the engine defaults under ZIPAGE_SANITIZE=1, dense
+     decode with flash redundancy, and ``decode_steps=8`` (streams and
+     logprobs equal to the K = 1 serve's), each launch resolving a
+     ``_f16`` entry and all six kernels launching; the largest |hidden
+     state| against fp16's 65504 (nothing clamped); the six kernels timed
+     at the serves' inputs and the long inputs (rows ``<kernel>_f16``).
 
 The last two lines of standard output are the card's name and power
 limit, and ``{"ok": true, "device": {...}}``; the line before them is the
@@ -262,13 +279,23 @@ CARD_CPU_TOL = 1e-3   # atol = rtol for card-vs-CPU logits of a 4096-wide
 #                       different order on each device
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
-#: H100 SXM dense bf16 on the tensor cores: the least time for products of
-#: bf16 inputs (the port's bf16 kernels form them in fp32 on CUDA cores)
+#: H100 SXM dense bf16 (and fp16) on the tensor cores: the least time for
+#: products of 16-bit inputs (the port's bf16 and fp16 kernels form them
+#: in fp32 on CUDA cores)
 BF16_FLOPS_PER_S = 989e12
 #: relative L2 of bf16 logits, card against CPU (and the port against the
 #: JAX package on the CPU): cuBLAS and the CPU sum bf16 products in other
 #: orders, and bf16 rounds every stored result
 BF16_REL_L2 = 2e-2
+#: the same at fp16 inputs: fp32 outputs to 1e-5, fp16 outputs to one
+#: fp16 ulp (11 significant bits)
+FP16_TOL, FP16_OUT_TOL = 1e-5, 2.0 ** -10
+#: relative L2 of fp16 logits, card against CPU: twice the 1.5e-3 that the
+#: JAX package's own fp16 forward lies from its fp32 one at Qwen3-8B's
+#: reduced widths (tests/test_torch_fp16.py holds the port to it there)
+FP16_REL_L2 = 3e-3
+#: the largest finite fp16 value: a hidden state past it overflows
+FP16_MAX = 65504.0
 N_REQUESTS = 8
 NEW_TOKENS = 128
 #: the long inputs of phase 6: table width and seq_lens of K2, K3 and B5,
@@ -448,7 +475,21 @@ def kernel_tols(torch, dtype):
     kernels against their plain versions at inputs of ``dtype``."""
     if dtype == torch.bfloat16:
         return BF16_TOL, BF16_OUT_TOL
+    if dtype == torch.float16:
+        return FP16_TOL, FP16_OUT_TOL
     return TOL, TOL
+
+
+def dtype_tag(torch, dtype):
+    """A phase label's suffix for inputs of ``dtype``: "", " bf16" or
+    " fp16"."""
+    return {torch.bfloat16: " bf16", torch.float16: " fp16"}.get(dtype, "")
+
+
+def half_rel_l2(dtype):
+    """The relative L2 bound of a 16-bit serve dtype's logits, card
+    against CPU."""
+    return {"bfloat16": BF16_REL_L2, "float16": FP16_REL_L2}[dtype]
 
 
 def phase_kernels(torch, dev, cfg, opts, phase="kernels", dtype=None):
@@ -783,19 +824,52 @@ def phase_card_vs_cpu(torch, dev, cfg):
     return worst
 
 
+def cpu_fp16_gemm(torch, dtype):
+    """A context for the CPU side of a card-vs-CPU check at ``dtype``. At
+    float16 it forms every product of CPU fp16 tensors (``@``, matmul, mm,
+    bmm, linear) as the fp32 product of the same fp16 values, rounded once
+    to fp16: the fp32 accumulation and single rounding of PyTorch's CPU
+    fp16 GEMM (the same logits bit for bit where that GEMM is fast,
+    tests/test_torch_fp16.py), at its fp32 speed: the CPU beside the card
+    may have no fast fp16 GEMM, and there phase 16b did not finish within
+    the script's time limit. Any other dtype: no change."""
+    import contextlib
+    if dtype != "float16":
+        return contextlib.nullcontext()
+    from torch.overrides import TorchFunctionMode
+    gemms = {torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__,
+             torch.mm, torch.bmm, torch.nn.functional.linear}
+
+    def fp16_cpu(a):
+        return isinstance(a, torch.Tensor) and a.dtype == torch.float16 \
+            and a.device.type == "cpu"
+
+    class Fp16GemmInFp32(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func in gemms and args and all(
+                    fp16_cpu(a) for a in args
+                    if isinstance(a, torch.Tensor)):
+                return func(*(a.float() if isinstance(a, torch.Tensor)
+                              else a for a in args), **kwargs).half()
+            return func(*args, **kwargs)
+
+    return Fp16GemmInFp32()
+
+
 def check_logits(torch, dev, small, p_cpu, p_dev, phase, what):
     """One paged prefill and six decode steps of ``small`` on the CPU and
     on the card, at ``small.dtype``: the logits within CARD_CPU_TOL in
-    fp32, within a relative L2 of BF16_REL_L2 in bf16. Returns the max
-    error (the largest relative L2 in bf16)."""
+    fp32, within a relative L2 of BF16_REL_L2 in bf16 and of FP16_REL_L2
+    in fp16. Returns the max error (the largest relative L2 at the 16-bit
+    dtypes)."""
     from repro_torch.core import serve_model
 
     spec = serve_model.ServeSpec(n_slots=4, block_size=16, max_blocks=8,
                                  n_total_blocks=32, m_qslots=4, window=4,
                                  prefill_rows=2, prefill_len=64,
                                  dtype=small.dtype)
-    results = {}
-    for name, device, params in (("cpu", "cpu", p_cpu), ("card", dev, p_dev)):
+    def run(device, params):
         st = serve_model.make_state(small, spec, device)
         i32 = dict(dtype=torch.int32, device=device)
         st["block_tables"][0, :4] = torch.tensor([3, 5, 7, 9], **i32)
@@ -816,18 +890,22 @@ def check_logits(torch, dev, small, p_cpu, p_dev, phase, what):
         for i in range(6):
             outs.append(decode(params, st, tok, active)[:2])
             tok = (tok + 1000 * (i + 1)) % small.vocab_size
-        results[name] = [o.cpu() for o in outs]
+        return [o.cpu() for o in outs]
+
+    with cpu_fp16_gemm(torch, small.dtype):
+        results = {"cpu": run("cpu", p_cpu)}
+    results["card"] = run(dev, p_dev)
     errs = []
-    bf16 = small.dtype == "bfloat16"
+    half = small.dtype in ("bfloat16", "float16")
     for a, b in zip(results["cpu"], results["card"]):
         if a.dtype != torch.float32 or b.dtype != torch.float32:
             raise AssertionError(f"{phase}: logits are not fp32")
         err = (a - b).abs()
-        if bf16:
+        if half:
             rel = float((a - b).double().norm() / a.double().norm())
-            if not rel <= BF16_REL_L2:
-                raise AssertionError(f"{phase}: card vs cpu bf16 logits at "
-                                     f"a relative L2 of {rel:.3e}")
+            if not rel <= half_rel_l2(small.dtype):
+                raise AssertionError(f"{phase}: card vs cpu {small.dtype} "
+                                     f"logits at a relative L2 of {rel:.3e}")
             errs.append(rel)
             continue
         if bool((err > CARD_CPU_TOL + CARD_CPU_TOL * a.abs()).any()):
@@ -835,8 +913,8 @@ def check_logits(torch, dev, small, p_cpu, p_dev, phase, what):
                                  f"{float(err.max()):.3e}")
         errs.append(float(err.max()))
     worst = max(errs)
-    bar = (f"relative L2 {worst:.3e} (at most {BF16_REL_L2})" if bf16 else
-           f"max_abs_err={worst:.3e} (atol=rtol={CARD_CPU_TOL})")
+    bar = (f"relative L2 {worst:.3e} (at most {half_rel_l2(small.dtype)})"
+           if half else f"max_abs_err={worst:.3e} (atol=rtol={CARD_CPU_TOL})")
     log(phase, f"{what}, 2 layers, {small.dtype}: prefill + 6 decode steps,"
         f" {bar} ok; per output {', '.join(f'{e:.1e}' for e in errs)}")
     return worst
@@ -905,9 +983,11 @@ def phase_card_vs_cpu_bf16(torch, dev, cfg):
 
 def check_streams_bf16(torch, dev, small, p_cpu, p_dev,
                        phase="card-vs-cpu bf16"):
-    """Two greedy and two seeded streams with logprobs at bf16, compression
-    firing: the card at ``decode_steps`` 1 and 8 equal bit for bit, tokens
-    and logprobs; the CPU's measured against the card's."""
+    """Two greedy and two seeded streams with logprobs at ``small.dtype``
+    (bf16, or fp16 in phase 16), compression firing: the card at
+    ``decode_steps`` 1 and 8 equal bit for bit, tokens and logprobs; the
+    CPU's (its fp16 products through ``cpu_fp16_gemm``) measured against
+    the card's."""
     import numpy as np
     from repro_torch.api import SamplingParams, Zipage
 
@@ -923,11 +1003,13 @@ def check_streams_bf16(torch, dev, small, p_cpu, p_dev,
             ("card K=8", dev, p_dev, dict(decode_steps=8)),
             ("cpu", "cpu", p_cpu, {})):
         z = Zipage(small, params, device=device, max_batch=4,
-                   dtype="bfloat16", **mode)
-        if z.engine.state["pools"]["k"].dtype != torch.bfloat16:
-            raise AssertionError(f"{phase}: {name}: the pools are not bf16")
-        outs[name] = [(o.token_ids, o.logprobs)
-                      for o in z.generate(prompts, sps)]
+                   dtype=small.dtype, **mode)
+        if z.engine.state["pools"]["k"].dtype != getattr(torch, small.dtype):
+            raise AssertionError(f"{phase}: {name}: the pools are not "
+                                 f"{small.dtype}")
+        with cpu_fp16_gemm(torch, small.dtype if device == "cpu" else None):
+            outs[name] = [(o.token_ids, o.logprobs)
+                          for o in z.generate(prompts, sps)]
         if not sum(m["n_compressing"] for m in z.metrics):
             raise AssertionError(f"{phase}: {name}: no compression")
         if mode and max(m["decode_horizon"] for m in z.metrics) < 2:
@@ -1180,10 +1262,10 @@ SWAP_SHAPES = dict(block_size=8, n_total_blocks=10, max_batch=4, m_qslots=4,
 
 def _bits(torch, t):
     """A float tensor's bits, as integers of its width (numpy has no
-    bf16, and -0 / NaN compare as bits)."""
+    bf16, and -0 / NaN compare as bits at any width)."""
     if t.dtype == torch.float32:
         return t.view(torch.int32)
-    if t.dtype == torch.bfloat16:
+    if t.dtype in (torch.bfloat16, torch.float16):
         return t.view(torch.int16)
     return t
 
@@ -1658,37 +1740,55 @@ def time_ms(torch, fn, n=50):
 
 def device_ms(torch, fn, n=20, windows=5):
     """Per call, the self device time of each CUDA kernel that ``n`` calls
-    of ``fn`` ran, under torch.profiler: {kernel name: ms}. Now and then
-    the profiler records no kernel at all in a window (seen on the H100
-    with torch 2.11, right after the same calls had been timed by events);
-    such a window is profiled again, up to ``windows`` in all, and if none
-    records any, the device time is not measured (None): all the windows
-    of a call after phase 12 have been seen to record nothing, in a run
-    whose twin on another machine recorded them."""
+    of ``fn`` ran, under torch.profiler: {kernel name: ms}, each kernel's
+    mean time per recorded launch times its launches per call.
+
+    The profiler (torch 2.11 on the H100) drops launches from a window: of
+    20 calls it has recorded a kernel's launches 19, 14, 9 or 1 times, and
+    now and then none at all. A dropped launch leaves the mean per launch
+    as it was but not the sum, so the sum over ``n`` calls is never used
+    (on an NVIDIA H100 80GB HBM3 at 700 W it once put fp16 compaction at
+    0.11 ms, under its 0.18 ms byte bound). A window whose every kernel counts within a tenth of a whole
+    number of launches per call ends the profiling; else another window
+    is profiled, up to ``windows`` in all, and the means pooled over them
+    are scaled by the launches per call of each kernel's fullest count
+    (at least one). If no window records a kernel, the device time is not
+    measured (None)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    total, counts, fullest = {}, {}, {}
     for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        by_kernel = {}
+        window = {}
         for ev in prof.key_averages():
             us = getattr(ev, "self_device_time_total", None)
             if us is None:
                 us = getattr(ev, "self_cuda_time_total", 0.0)
             if us and str(ev.device_type).endswith("CUDA"):
                 name = _kernel_name(ev.key)
-                by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3 / n
-        if by_kernel:
-            return by_kernel
-        log("timing", "the profiler recorded no device time; profiling "
-            "again")
-    log("timing", f"the profiler recorded no device time in {windows} "
-        "windows: the device time is not measured")
-    return None
+                total[name] = total.get(name, 0.0) + us / 1e3
+                counts[name] = counts.get(name, 0) + ev.count
+                window[name] = window.get(name, 0) + ev.count
+        for name, c in window.items():
+            fullest[name] = max(fullest.get(name, 0), c)
+        if window and set(window) == set(total) and all(
+                round(c / n) >= 1 and abs(c / n - round(c / n))
+                <= 0.1 * round(c / n) for c in window.values()):
+            break
+        log("timing", "the profiler recorded launches " + (
+            f"{window} of {n} calls" if window else "of no kernel")
+            + "; profiling again")
+    if not total:
+        log("timing", f"the profiler recorded no device time in {windows} "
+            "windows: the device time is not measured")
+        return None
+    return {name: total[name] / counts[name] * max(1, round(fullest[name] / n))
+            for name in total}
 
 
 def _kernel_name(key):
@@ -1721,12 +1821,12 @@ def fmt_ms(x):
     return "not measured" if x is None else f"{x:.4f}"
 
 
-def bound(nbytes, flops, bf16=False):
+def bound(nbytes, flops, half=False):
     """The least time: bytes over HBM bandwidth or operations over the
-    peak of their type (fp32 CUDA cores, or the bf16 tensor cores for
-    products of bf16 inputs), whichever is larger."""
+    peak of their type (fp32 CUDA cores, or the tensor cores' bf16 and
+    fp16 peak for products of 16-bit inputs), whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / (BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S) * 1e3
+    t_ops = flops / (BF16_FLOPS_PER_S if half else FP32_FLOPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1841,8 +1941,9 @@ def phase_timing(torch, rec, rec34, launches, launches34, errs,
 
 def row_name(torch, name, dtype):
     """A kernel row's name: the kernel's, with ``_bf16`` for its bf16
-    variant."""
-    return name + ("_bf16" if dtype == torch.bfloat16 else "")
+    variant and ``_f16`` for its fp16 one (its entry points' suffixes)."""
+    return name + {torch.bfloat16: "_bf16", torch.float16: "_f16"}.get(
+        dtype, "")
 
 
 def decode_spec(torch, name, args):
@@ -2016,7 +2117,7 @@ def _row(torch, spec, per_serve, serve, errs, label=None):
     t = times(torch, spec["kernel"], spec["library"])
     plain_ms = time_ms(torch, spec["plain"], n=10)
     bound_ms, bound_by = bound(spec["nbytes"], spec["flops"],
-                               dtype == torch.bfloat16)
+                               dtype in (torch.bfloat16, torch.float16))
     log("timing", f"{label}: {t['ms']:.4f} ms = device "
         f"{fmt_ms(t['device_ms'])} + host {fmt_ms(t['host_ms'])} (plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}, "
@@ -2181,7 +2282,7 @@ def time_at(torch, dev, cfg, opts, names, comp=(LONG_TABLE, LONG_LENS),
             del got
         t = times(torch, spec["kernel"], spec["library"])
         b_ms, b_by = bound(spec["nbytes"], spec["flops"],
-                           dtype == torch.bfloat16)
+                           dtype in (torch.bfloat16, torch.float16))
         out[name] = {**t, "bound_ms": b_ms, "bound_by": b_by,
                      "max_abs_err": errs[name], **extra.get(name, {}),
                      **spec["shapes"]}
@@ -3201,6 +3302,271 @@ def phase_bf16(torch, dev, card, z_main, fp32_outs, errs):
     gc.collect()
     torch.cuda.empty_cache()
     log("bf16", "passed: " + ", ".join(f"{k} {v:.1f} s"
+                                       for k, v in took.items()))
+    return rows, record
+
+
+# ----------------------------------------------------------------------
+# phase 16: float16
+
+
+class EntrySpy:
+    """While on, records the entry point each kernel launch resolves
+    (``native.launcher``, by symbol name), so a serve shows which storage
+    type's entries it launched."""
+
+    def __init__(self):
+        from repro_torch.kernels import native
+        self.native = native
+        self.entries = {}
+
+    def __enter__(self):
+        orig = self.orig = self.native.launcher
+
+        def spying(lib, fn, dtype):
+            entry = orig(lib, fn, dtype)
+            self.entries[entry.__name__] = \
+                self.entries.get(entry.__name__, 0) + 1
+            return entry
+
+        self.native.launcher = spying
+        return self
+
+    def __exit__(self, *exc):
+        self.native.launcher = self.orig
+
+
+class HiddenRange:
+    """While on, records the largest |x| of every input to a norm of
+    ``lm`` (the residual stream entering each layer's ln1 and ln2 and the
+    final norm) and the largest |logit|, per forward."""
+
+    def __init__(self, torch):
+        from repro_torch.models import lm
+        self.torch, self.lm = torch, lm
+        self.stream, self.logits = [], []
+
+    def __enter__(self):
+        norm = self.orig = self.lm.apply_norm
+
+        def recording(cfg, p, x, *a, **kw):
+            self.stream.append(x.detach().abs().amax().float())
+            return norm(cfg, p, x, *a, **kw)
+
+        self.lm.apply_norm = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.lm.apply_norm = self.orig
+
+    def forward(self, cfg, params, tokens):
+        logits = self.lm.forward(cfg, params, tokens)
+        self.logits.append(logits.abs().amax().float())
+        return logits
+
+    def peaks(self):
+        return (float(self.torch.stack(self.stream).max()),
+                float(self.torch.stack(self.logits).max()))
+
+
+def phase_fp16_kernels(torch, dev, cfg, opts):
+    """16a: the six kernels' fp16 entries against their plain versions on
+    the card at the shapes of phases 3 (Qwen3-8B's g = 4 and the layouts
+    g = 1, 6, 8 at d = 128), 13b (MLA's 576-wide entries through K2's
+    d-tiled kernel, its 512-wide latents through K3 and B5, B6 with no V
+    at d = 576), 14a (g = 10, d = 256: the G = 16 decode row) and 15a
+    (g = 1, d = 64): fp32 outputs within FP16_TOL, fp16 outputs within one
+    fp16 ulp, B6 and dense vs ragged bit for bit. Returns the largest
+    error of each kernel."""
+    from repro_torch.configs import get_config
+
+    fp16 = torch.float16
+    worst = {}
+
+    def merge(errs):
+        for k, v in errs.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+
+    for name in ("qwen3-8b",) + LAYOUT_CONFIGS + (WHISPER,):
+        lcfg = cfg if name == "qwen3-8b" else dataclasses.replace(
+            get_config(name), dtype="float32")
+        merge(phase_kernels(
+            torch, dev, lcfg, opts, phase=f"fp16 kernels[{name}: g = "
+            f"{lcfg.num_heads // lcfg.num_kv_heads}, h_kv = "
+            f"{lcfg.num_kv_heads}, d = {lcfg.head_dim}]", dtype=fp16))
+        torch.cuda.empty_cache()
+    merge(check_mla_kernels(torch, dev, get_config(MLA_CONFIG), fp16))
+    merge(check_rec_kernels(torch, dev, get_config(RG_CONFIG), fp16))
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_fp16_card_vs_cpu(torch, dev, cfg):
+    """16b: 2 layers of ``cfg``'s widths with weights drawn at fp16 (norms
+    fp32), the vocabulary capped at CPU_VOCAB, on the card and on the
+    CPU (its fp16 products through ``cpu_fp16_gemm``): the logits of a
+    paged prefill and six decode steps within a relative L2 of
+    FP16_REL_L2; on the card a graph-replayed chunk == the eager chunk bit
+    for bit, and the card's K = 8 streams == its K = 1 streams, tokens
+    and logprobs, the CPU's measured against them. Returns the largest
+    relative L2."""
+    from repro_torch.models import lm
+
+    small = dataclasses.replace(cfg, num_layers=2, dtype="float16",
+                                vocab_size=min(cfg.vocab_size, CPU_VOCAB))
+    log("fp16 card-vs-cpu", f"vocabulary capped at {small.vocab_size} of "
+        f"{cfg.vocab_size} for the CPU side")
+    p_cpu = lm.init(small, torch.Generator("cpu").manual_seed(SEED), "cpu")
+    if p_cpu["layers"][0]["attn"]["wq"].dtype != torch.float16 or \
+            p_cpu["final_norm"]["scale"].dtype != torch.float32:
+        raise AssertionError("fp16: lm.init did not draw fp16 matrices "
+                             "beside fp32 norms")
+    p_dev = _tree_to(p_cpu, dev)
+    worst = check_logits(torch, dev, small, p_cpu, p_dev, "fp16 card-vs-cpu",
+                         f"{cfg.name} widths")
+    check_graph_vs_eager(torch, dev, small, p_dev, True)
+    check_streams_bf16(torch, dev, small, p_cpu, p_dev,
+                       phase="fp16 card-vs-cpu")
+    del p_dev, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_fp16(torch, dev, card, z_main, fp32_outs):
+    """Phase 16: float16. (a) ``phase_fp16_kernels``; (b)
+    ``phase_fp16_card_vs_cpu``; (c) Qwen3-8B at full width and all 36
+    layers in fp16, on the main serve's fp32 weights cast once (norms fp32;
+    phase 10's bf16 copy is freed by then): the main serve at the engine
+    defaults under ZIPAGE_SANITIZE=1 (4 greedy and 4 seeded requests with
+    logprobs; where each greedy stream leaves its fp32 twin is logged),
+    dense decode with flash redundancy (B4 and B5 in an fp16 serve), then
+    ``decode_steps=8`` on the same requests, whose streams and logprobs
+    must equal the K = 1 serve's; every launch of the three serves
+    resolves a ``_f16`` entry and all six kernels launch; the six kernels
+    timed at the serves' inputs and the long inputs (rows ``<kernel>_f16``);
+    the largest |hidden state| and |logit| of an eager forward over every
+    served sequence, against fp16's largest finite value. Returns (the
+    fp16 kernel rows, the phase's record)."""
+    from repro_torch.api import SamplingParams, Zipage
+    from repro_torch.core.compression import CompressOptions
+    from repro_torch.core.engine import EngineOptions
+    from repro_torch.models import lm
+
+    fp16 = torch.float16
+    took, t = {}, time.monotonic()
+
+    def lap(what):
+        nonlocal t
+        took[what] = time.monotonic() - t
+        t = time.monotonic()
+
+    cfg32 = dataclasses.replace(z_main.cfg, dtype="float32")
+    errs = phase_fp16_kernels(torch, dev, cfg32, EngineOptions())
+    lap("16a")
+    card_cpu = phase_fp16_card_vs_cpu(torch, dev, cfg32)
+    lap("16b")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(z_main.cfg, dtype="float16")
+    params = lm.cast_params(z_main.engine.params, fp16)
+    if params["layers"][0]["attn"]["wq"].dtype != fp16 or \
+            params["final_norm"]["scale"].dtype != torch.float32 or \
+            params["layers"][0]["ln1"]["scale"].dtype != torch.float32:
+        raise AssertionError("fp16: the cast did not give fp16 matrices "
+                             "beside fp32 norms")
+    prompts = make_prompts(cfg)
+    half = N_REQUESTS // 2
+    sps = [SamplingParams(max_new_tokens=NEW_TOKENS, logprobs=True)] * half \
+        + [SamplingParams(max_new_tokens=NEW_TOKENS, seed=SEED + i,
+                          logprobs=True, **THINKING)
+           for i in range(N_REQUESTS - half)]
+    with EntrySpy() as spy:
+        z = _sanitized(lambda: Zipage(cfg, params, dtype="float16"))
+        eng = z.engine
+        assert eng.sanitize, "the engine did not read ZIPAGE_SANITIZE"
+        pools = eng.state["pools"]
+        if (pools["k"].dtype, pools["v"].dtype, eng.state["qwin"].dtype,
+                pools["f"].dtype) != (fp16, fp16, fp16, torch.float32):
+            raise AssertionError("fp16: the state is not fp16 K/V/qwin with "
+                                 "fp32 F")
+        with Audits() as audits:
+            rec, launches, summary, outs = sanitized_serve(
+                torch, card, z, "fp16 serve", prompts, sps, MAIN_PATH,
+                audits)
+        lap("16c serve")
+        z34 = Zipage(cfg, params, dtype="float16", decode_kernel="dense",
+                     compress=CompressOptions(window=4, redundancy="flash"))
+        rec34, launches34, summary34, _ = run_serve(
+            torch, card, z34, "fp16 serve-alg34", prompts, sps, ALG34_PATH)
+        del z34
+        lap("16c serve-alg34")
+        z8 = Zipage(cfg, params, dtype="float16", decode_steps=8)
+        summary8, outs8 = run_serve(torch, card, z8, "fp16 serve[K=8]",
+                                    prompts, sps, MAIN_PATH)[2:]
+        del z8
+        lap("16c K=8")
+    peak = torch.cuda.max_memory_allocated()
+    ref = [(o.token_ids, o.logprobs) for o in outs]
+    for i, (a, b) in enumerate(zip(ref, [(o.token_ids, o.logprobs)
+                                         for o in outs8])):
+        if a != b:
+            raise AssertionError(f"fp16 serve[K=8]: request {i} differs "
+                                 f"from K = 1 at {_first_difference(a, b)}")
+    if summary8["horizon_max"] < 2:
+        raise AssertionError("fp16 serve[K=8]: the horizon never passed 1")
+    entries = dict(spy.entries)
+    f16 = {n + "_launch_f16" for n in REPLACES}
+    if set(entries) != f16:
+        raise AssertionError(f"fp16: the serves resolved the entries "
+                             f"{sorted(entries)}, not the six _f16 ones")
+    for name in REPLACES:
+        if launches[name] + launches34[name] <= 0:
+            raise AssertionError(f"fp16: {name}_launch_f16 never launched")
+    firsts = [next((j for j, (x, y) in enumerate(zip(a.token_ids,
+                                                     b.token_ids)) if x != y),
+                   len(a.token_ids))
+              for a, b in zip(fp32_outs[:half], outs[:half])]
+    log("fp16 serve", f"{cfg.name} at full width, {cfg.num_layers} layers: "
+        f"{summary['tok_per_s']:.1f} tok/s (K = 1, sanitized), "
+        f"{summary8['tok_per_s']:.1f} tok/s (K = 8), streams and logprobs "
+        f"of K = 8 == K = 1 ok; entries resolved {entries}; launches "
+        f"main {launches}, alg34 {launches34}; peak {peak / 1e9:.2f} GB "
+        f"allocated on {card}; each greedy stream leaves its fp32 twin at "
+        f"position {firsts} (measured, not gated)")
+    summary.update(first_difference_from_fp32=firsts, peak_bytes=peak)
+
+    with HiddenRange(torch) as hr:
+        with torch.no_grad():
+            for p_, o in zip(prompts, outs):
+                seq = torch.tensor([p_ + o.token_ids], device=dev)
+                if not bool(torch.isfinite(hr.forward(cfg, params,
+                                                      seq)).all()):
+                    raise AssertionError("fp16: a forward over a served "
+                                         "sequence gave a non-finite logit")
+    h_max, logit_max = hr.peaks()
+    log("fp16 range", f"largest |hidden state| {h_max:.1f} and |logit| "
+        f"{logit_max:.2f} over the {len(prompts)} served sequences (eager "
+        f"forward, {cfg.num_layers} layers), against fp16's largest finite "
+        f"{FP16_MAX:.0f}: headroom {FP16_MAX / h_max:.1f}x; nothing is "
+        "clamped or rescaled")
+    lap("16c range")
+
+    rows = phase_timing(torch, rec, rec34, launches, launches34, errs,
+                        dtype=fp16)
+    del rec, rec34
+    torch.cuda.empty_cache()
+    phase_long(torch, dev, cfg, eng.opts, rows, dtype=fp16)
+    lap("16c timing")
+    record = {"kernel_errs": errs, "card_vs_cpu_rel_l2": card_cpu,
+              "serve": summary, "serve_alg34": summary34, "serve_k8": summary8,
+              "entries": entries, "hidden_max": h_max,
+              "logit_max": logit_max, "took": took}
+    del z, eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("fp16", "passed: " + ", ".join(f"{k} {v:.1f} s"
                                        for k, v in took.items()))
     return rows, record
 
@@ -4734,7 +5100,7 @@ def check_mla_kernels(torch, dev, cfg, dtype):
     from repro_torch.kernels import paged_score as ps
     from repro_torch.kernels import redundancy as red
 
-    phase = "mla kernels" + (" bf16" if dtype == torch.bfloat16 else "")
+    phase = "mla kernels" + dtype_tag(torch, dtype)
     tol = kernel_tols(torch, dtype)[0]
     r = cfg.kv_lora_rank
     e = r + cfg.qk_rope_head_dim
@@ -5080,8 +5446,7 @@ def check_rec_kernels(torch, dev, cfg, dtype):
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ragged_paged_attention as rpa
 
-    phase = "recurrent kernels" + (" bf16" if dtype == torch.bfloat16
-                                   else "")
+    phase = "recurrent kernels" + dtype_tag(torch, dtype)
     out_tol = kernel_tols(torch, dtype)[1]
     b = 16
     ring = cfg.local_window // b
@@ -6073,6 +6438,8 @@ def main():
     lap("timing")
     rows_bf16, bf16 = phase_bf16(torch, dev, card, z, main_outs, errs_bf16)
     lap("bf16")
+    rows_fp16, fp16 = phase_fp16(torch, dev, card, z, main_outs)
+    lap("fp16")
     prof = phase_profile(torch, z, card)
     lap("profile")
     paired = phase_paired(torch, card, z)
@@ -6099,17 +6466,17 @@ def main():
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "serve": summary, "serve_alg34": summary34,
-                   "kernels": rows + rows_bf16 + rows_mla + rows_rec
-                   + rows_front,
+                   "kernels": rows + rows_bf16 + rows_fp16 + rows_mla
+                   + rows_rec + rows_front,
                    "profile": prof,
                    "paired": paired, "http": served, "memory": memory,
-                   "bf16": bf16,
+                   "bf16": bf16, "fp16": fp16,
                    "dense": dense, "train_eval": train_eval,
                    "moe_mla": moe_mla, "recurrent": recurrent,
                    "frontends": frontends,
                    "took_s": took}, f, indent=1)
-    print(json.dumps({"kernels": rows + rows_bf16 + rows_mla + rows_rec
-                      + rows_front}))
+    print(json.dumps({"kernels": rows + rows_bf16 + rows_fp16 + rows_mla
+                      + rows_rec + rows_front}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -126,7 +126,7 @@ class ModelRunnerConfig:
     """Fixed device-step shapes and numerics."""
     prefill_rows: int = 4
     prefill_len: int = 128
-    dtype: str = "float32"           # float32 | bfloat16
+    dtype: str = "float32"           # float32 | bfloat16 | float16
     measure_phases: bool = False     # block per phase for timing benches
     # kernel dispatch (repro_torch.kernels.ops): kernels follow the
     # tensors' device; only "auto" is accepted

@@ -32,9 +32,9 @@ redundancy, the ragged and the dense decode kernel, recompute, swap and
 auto preemption with the host swap tier (a pinned host pool on the card),
 block-level prefix caching of raw KV and of compressed prefixes, fused and
 unfused decode at any ``decode_steps``, and ``snapshot()`` /
-``restore()``, in float32 or bfloat16 (``EngineOptions.dtype``: the K/V
-pools, the observation windows and the model's matrices at that dtype, the
-global scores F and the logits in fp32); other dtypes raise
+``restore()``, in float32, bfloat16 or float16 (``EngineOptions.dtype``:
+the K/V pools, the observation windows and the model's matrices at that
+dtype, the global scores F and the logits in fp32); other dtypes raise
 ``NotImplementedError``.
 
 Setting ``n_max=None`` disables compression (plain PagedAttention).

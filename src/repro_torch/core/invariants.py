@@ -413,8 +413,8 @@ def _qwin_ownership(engine, out: List[str]) -> None:
     if not quiet:
         return
     qwin = engine.state["qwin"][:, quiet].cpu()  # (L, len(quiet), w, h, d)
-    if qwin.dtype == torch.bfloat16:              # numpy has no bf16: bits
-        qwin = qwin.view(torch.int16)
+    if qwin.dtype.itemsize == 2:   # bits: numpy has no bf16, and fp16 by
+        qwin = qwin.view(torch.int16)  # value has -0.0 == 0.0, NaN != NaN
     rows = qwin.numpy()
     for i, q in enumerate(quiet):
         row = rows[:, i]

@@ -3,12 +3,12 @@ port's copy of ``repro.core.memory_planner``.
 
 The byte counts take the serve dtype's size, ``dtype_bytes``
 (``dtype_bytes_of``): 4 at float32, the port's default, and 2 at
-bfloat16, the JAX package's default; at a given ``dtype_bytes`` every
-figure equals the JAX package's. That accounting counts the global score
+bfloat16, the JAX package's default, and at float16; at a given
+``dtype_bytes`` every figure equals the JAX package's. That accounting counts the global score
 F at ``dtype_bytes`` too, though both packages keep F in fp32: at float32
 ``bytes_per_kv_block`` is the bytes one block takes in the port's K, V and
 F pools (``repro_torch.core.serve_model.make_state``), over all layers (the
-sink page is not a block); at bfloat16 it is below them by
+sink page is not a block); at the 16-bit dtypes it is below them by
 ``L * b * h_kv * 2`` bytes, and ``pool_bytes_per_kv_block`` gives the
 pools' real figure.
 
@@ -40,7 +40,7 @@ class MemoryPlan:
 
 def dtype_bytes_of(dtype: str) -> int:
     """Bytes of one K/V element at a serve dtype."""
-    return {"float32": 4, "bfloat16": 2}[dtype]
+    return {"float32": 4, "bfloat16": 2, "float16": 2}[dtype]
 
 
 def bytes_per_kv_block(cfg, block_size, *, dtype_bytes=4, with_global=True):

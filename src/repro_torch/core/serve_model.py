@@ -77,7 +77,7 @@ class ServeSpec:
     prefill_len: int = 256      # padded prefill length
     # compute dtype of the residual stream, the K/V pools and the windows:
     # float32 (the port's default and parity baseline; the JAX package
-    # defaults to bfloat16) or bfloat16. The params must be at it.
+    # defaults to bfloat16), bfloat16 or float16. The params must be at it.
     dtype: str = "float32"
     # decode attention: "ragged" reads each slot's live pages only,
     # "dense" every entry of its table (the baseline); live rows agree

@@ -1,18 +1,21 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
 // Every kernel is a template on the storage type T of its key, value and
-// query tensors: float, or __nv_bfloat16 (zp_bf16). Tiles are staged in T,
-// by the same 16-byte copies (4 floats or 8 bf16 elements), and widened to
-// fp32 when read into registers: every product, sum and softmax runs in
-// fp32 whatever T is, and a bf16 output is rounded once, when it is
-// written. Scores (window logits, redundancy, F) are fp32 at either T.
+// query tensors: float, __nv_bfloat16 (zp_bf16) or __half (zp_f16). Tiles
+// are staged in T, by the same 16-byte copies (4 floats or 8 16-bit
+// elements), and widened to fp32 when read into registers: every product,
+// sum and softmax runs in fp32 whatever T is, and a 16-bit output is
+// rounded once, when it is written. Scores (window logits, redundancy, F)
+// are fp32 at any T.
 #pragma once
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
 using zp_bf16 = __nv_bfloat16;
+using zp_f16 = __half;
 
 // Elements of T in one 16-byte copy; rows of T must hold a whole number of
 // them (d % kVecOf<T> == 0) to be copied by 16-byte cp.async.
@@ -20,7 +23,7 @@ template <typename T>
 constexpr int kVecOf = 16 / (int)sizeof(T);
 
 // Four consecutive elements widened to fp32 (16-byte aligned for float,
-// 8-byte for bf16); the widening is exact.
+// 8-byte for the 16-bit types); the widening is exact.
 __device__ __forceinline__ float4 zp_load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -30,10 +33,18 @@ __device__ __forceinline__ float4 zp_load4(const zp_bf16* p) {
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
 }
+__device__ __forceinline__ float4 zp_load4(const zp_f16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 
-// An fp32 result stored as T: rounded to nearest even for bf16.
+// An fp32 result stored as T: rounded to nearest even for the 16-bit types
+// (fp16 overflows to +-inf past 65504, as a rounding cast does).
 __device__ __forceinline__ void zp_store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void zp_store(zp_bf16* p, float x) { *p = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void zp_store(zp_f16* p, float x) { *p = __float2half_rn(x); }
 
 #define ZP_NEG_INF (-1e30f)
 
@@ -680,8 +691,8 @@ inline long long zp_decode_out_bytes(int batch, int hq, int d, int esize) {
 
 // Launch a decode: the chunk kernel, then the merge kernel, on one stream.
 // `out` is one buffer: the output (zp_decode_out_bytes()), then the parts.
-// At bf16 the rows must take 16-byte copies (d % 8 == 0, 16-byte aligned
-// q and pools); anything else is refused.
+// At a 16-bit T the rows must take 16-byte copies (d % 8 == 0, 16-byte
+// aligned q and pools); anything else is refused.
 template <typename T>
 static int zp_decode_launch(const ZpDecodeChunkKernel<T> (&table)[kDecodeTableG][2],
                             ZpDecodeMergeKernel<T> merge, const void* q, const void* k_pool,

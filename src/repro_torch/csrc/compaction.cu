@@ -232,3 +232,13 @@ extern "C" int compaction_launch_bf16(void* k_pool, void* v_pool, void* f_pool,
   return launch<zp_bf16>(k_pool, v_pool, f_pool, new_f, src_bt, src_cache, dest_flat, L, n, h,
                          d, b, mb, k, S, T, stream);
 }
+
+// ... or in fp16 (the same moves of 16-byte units, bit for bit); F is fp32.
+extern "C" int compaction_launch_f16(void* k_pool, void* v_pool, void* f_pool,
+                                     const void* new_f, const void* src_bt,
+                                     const void* src_cache, const void* dest_flat, int L, int n,
+                                     int h, int d, int b, int mb, int k, int S, int T,
+                                     void* stream) {
+  return launch<zp_f16>(k_pool, v_pool, f_pool, new_f, src_bt, src_cache, dest_flat, L, n, h,
+                        d, b, mb, k, S, T, stream);
+}

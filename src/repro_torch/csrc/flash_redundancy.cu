@@ -289,8 +289,12 @@ int strip_tile(int d) {
 // Floats of scratch that a launch needs after its n * T * h outputs: the
 // strips' partial row sums, n * h * ceil(T / tile) * T of them, or none
 // when the table is one strip wide. The tile follows d and the keys'
-// element size (esize bytes).
+// element size (esize bytes) alone: strip_smem<R, E> reads E only through
+// sizeof(E) and kKeyPadOf<E> (16 bytes of padding), so bf16 and fp16 keys
+// take the same tile, and strip_tile<zp_bf16> stands for both.
 extern "C" long long flash_redundancy_workspace(int n, int h, int d, int b, int mb, int esize) {
+  static_assert(sizeof(zp_bf16) == sizeof(zp_f16) && kKeyPadOf<zp_bf16> == kKeyPadOf<zp_f16>,
+                "the 16-bit types share the strip tile");
   const int tile = esize == 2 ? strip_tile<zp_bf16>(d) : strip_tile<float>(d);
   if (tile == 0) return 0;
   const long long T = (long long)mb * b;
@@ -348,4 +352,12 @@ extern "C" int flash_redundancy_launch_bf16(const void* k_pool, const void* bloc
                                             const void* seq_lens, void* out, int n, int h, int d,
                                             int b, int mb, float p_thresh, void* stream) {
   return launch<zp_bf16>(k_pool, block_tables, seq_lens, out, n, h, d, b, mb, p_thresh, stream);
+}
+
+// ... or in fp16 (staged in fp16, widened to fp32 as they are read); the
+// output is fp32.
+extern "C" int flash_redundancy_launch_f16(const void* k_pool, const void* block_tables,
+                                           const void* seq_lens, void* out, int n, int h, int d,
+                                           int b, int mb, float p_thresh, void* stream) {
+  return launch<zp_f16>(k_pool, block_tables, seq_lens, out, n, h, d, b, mb, p_thresh, stream);
 }

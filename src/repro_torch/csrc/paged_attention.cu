@@ -55,6 +55,8 @@ const ZpDecodeChunkKernel<float> kChunkKernels[kDecodeTableG][2] =
     ZP_DECODE_TABLE(paged_attention_chunk_kernel, float);
 const ZpDecodeChunkKernel<zp_bf16> kChunkKernelsBf16[kDecodeTableG][2] =
     ZP_DECODE_TABLE(paged_attention_chunk_kernel, zp_bf16);
+const ZpDecodeChunkKernel<zp_f16> kChunkKernelsF16[kDecodeTableG][2] =
+    ZP_DECODE_TABLE(paged_attention_chunk_kernel, zp_f16);
 }  // namespace
 
 // Floats of workspace (the chunks' fp32 parts) a launch needs after its
@@ -82,4 +84,14 @@ extern "C" int paged_attention_launch_bf16(
   return zp_decode_launch<zp_bf16>(kChunkKernelsBf16, paged_attention_merge_kernel<zp_bf16>, q,
                                    k_pool, v_pool, block_tables, seq_lens, out, batch, hkv, g,
                                    d, b, mb, scale, stream);
+}
+
+// ... or in fp16 (the same, the output rounded once to fp16).
+extern "C" int paged_attention_launch_f16(
+    const void* q, const void* k_pool, const void* v_pool, const void* block_tables,
+    const void* seq_lens, void* out, int batch, int hkv, int g, int d, int b, int mb,
+    float scale, void* stream) {
+  return zp_decode_launch<zp_f16>(kChunkKernelsF16, paged_attention_merge_kernel<zp_f16>,
+                                  q, k_pool, v_pool, block_tables, seq_lens, out, batch, hkv,
+                                  g, d, b, mb, scale, stream);
 }

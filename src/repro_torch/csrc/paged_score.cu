@@ -348,3 +348,12 @@ extern "C" int paged_score_launch_bf16(const void* q_win, const void* k_pool,
   return launch_any<zp_bf16>(q_win, k_pool, block_tables, seq_lens, out, n, hkv, g, w, d, b,
                              mb, scale, stream);
 }
+
+// ... or in fp16 (widened to fp32 as they are read); the logits are fp32.
+extern "C" int paged_score_launch_f16(const void* q_win, const void* k_pool,
+                                      const void* block_tables, const void* seq_lens,
+                                      void* out, int n, int hkv, int g, int w, int d, int b,
+                                      int mb, float scale, void* stream) {
+  return launch_any<zp_f16>(q_win, k_pool, block_tables, seq_lens, out, n, hkv, g, w, d, b, mb,
+                            scale, stream);
+}

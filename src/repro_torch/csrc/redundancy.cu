@@ -243,3 +243,11 @@ extern "C" int lightning_redundancy_launch_bf16(const void* k_pool, const void* 
                                                 void* stream) {
   return launch<zp_bf16>(k_pool, block_tables, seq_lens, out, n, h, d, b, mb, p_thresh, stream);
 }
+
+// ... or in fp16 (widened to fp32 as they are normalised); the output is fp32.
+extern "C" int lightning_redundancy_launch_f16(const void* k_pool, const void* block_tables,
+                                               const void* seq_lens, void* out, int n, int h,
+                                               int d, int b, int mb, float p_thresh,
+                                               void* stream) {
+  return launch<zp_f16>(k_pool, block_tables, seq_lens, out, n, h, d, b, mb, p_thresh, stream);
+}

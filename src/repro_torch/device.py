@@ -4,8 +4,8 @@ Entry points run on the card unless the caller asks for the CPU: with no
 ``device`` they take ``cuda`` and raise when no card is present — there is
 no silent CPU fallback. On a card, float32 matmuls and convolutions are
 pinned to full float32 (no TF32), the precision the port is held to, and
-bfloat16 matmuls reduce in fp32 (no bf16 split-K reductions), as the JAX
-package's accumulate.
+bfloat16 and float16 matmuls reduce in fp32 (no 16-bit split-K
+reductions), as the JAX package's accumulate.
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul \
             .allow_bf16_reduced_precision_reduction = False
+        torch.backends.cuda.matmul \
+            .allow_fp16_reduced_precision_reduction = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -11,7 +11,7 @@ def require(cond: bool, name: str, msg: str) -> None:
 
 #: storage types of the K/V pools, queries and decode outputs that the
 #: kernels take (each has its own entry point, ``native.launcher``)
-KV_DTYPES = (torch.float32, torch.bfloat16)
+KV_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def cuda_tensor(name: str, arg: str, t: torch.Tensor, dtype, device) -> None:
@@ -24,21 +24,22 @@ def cuda_tensor(name: str, arg: str, t: torch.Tensor, dtype, device) -> None:
 
 def kv_tensors(name: str, device, **tensors) -> torch.dtype:
     """Check the K/V-typed arguments of a kernel: CUDA, contiguous, one
-    dtype among KV_DTYPES across all of them; at bf16 the rows take
-    16-byte copies only, so head_dim (the last dim) must be a multiple of
-    8 and every tensor 16-byte aligned. Returns the dtype."""
+    dtype among KV_DTYPES across all of them; at a 16-bit dtype (bf16,
+    fp16) the rows take 16-byte copies only, so head_dim (the last dim)
+    must be a multiple of 8 and every tensor 16-byte aligned. Returns the
+    dtype."""
     dtype = next(iter(tensors.values())).dtype
     require(dtype in KV_DTYPES, name,
             f"K/V tensors must be one of {KV_DTYPES}, got {dtype}")
     for arg, t in tensors.items():
         cuda_tensor(name, arg, t, dtype, device)
-    if dtype == torch.bfloat16:
+    if dtype.itemsize == 2:
         d = next(iter(tensors.values())).shape[-1]
         require(d % 8 == 0, name,
-                f"head_dim {d}: bf16 rows need a multiple of 8")
+                f"head_dim {d}: {dtype} rows need a multiple of 8")
         for arg, t in tensors.items():
             require(t.data_ptr() % 16 == 0, name,
-                    f"{arg} must be 16-byte aligned at bf16")
+                    f"{arg} must be 16-byte aligned at {dtype}")
     return dtype
 
 

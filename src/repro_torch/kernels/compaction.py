@@ -13,8 +13,8 @@ has no V); new_f (L, n, T, h) the post-global scores in cache order;
 src_bt (n, mb) int32 source tables (-1 padded); src_cache (L, n, h, k)
 survivor cache positions per head, in destination order; dest_flat (n, k)
 destination flat slots (sink-page slots where nothing is to be written).
-K and V are float32 or bfloat16 (one dtype: their bits are moved); F and
-new_f are float32.
+K and V are float32, bfloat16 or float16 (one dtype: their bits are
+moved); F and new_f are float32.
 
 Precondition, which the engine's compression planning guarantees
 (``core/scheduler.py``, ``plan_compression``: ``dest = r.blocks[:nb]``, or
@@ -74,8 +74,8 @@ def compact_cuda(k_pool, v_pool, f_pool, new_f, src_bt, src_cache,
                  dest_flat):
     """Launch ``csrc/compaction.cu`` on the current stream (one launch for
     all layers). Any budget k is taken; the kernel moves rows by 16-byte
-    copies, so head_dim must be a multiple of 4 (8 at bf16) and the pools
-    16-byte aligned. ``v_pool=None`` moves K and F only."""
+    copies, so head_dim must be a multiple of 4 (8 at bf16 and fp16) and
+    the pools 16-byte aligned. ``v_pool=None`` moves K and F only."""
     dev = k_pool.device
     kv = {"k_pool": k_pool} if v_pool is None else \
         {"k_pool": k_pool, "v_pool": v_pool}

@@ -10,9 +10,10 @@ is reused. Nothing here runs at import time: modules that import this one
 also run on machines without ``nvcc`` or a card.
 
 Each kernel has an entry point for each storage type of its K/V (and
-query) tensors: ``<name>_launch`` for float32 and ``<name>_launch_bf16``
-for bfloat16, with the same arguments; ``launcher`` picks one by a
-tensor's dtype. Scores and the other fp32 tensors are fp32 at either.
+query) tensors: ``<name>_launch`` for float32, ``<name>_launch_bf16`` for
+bfloat16 and ``<name>_launch_f16`` for float16, with the same arguments;
+``launcher`` picks one by a tensor's dtype. Scores and the other fp32
+tensors are fp32 at any of them.
 
 The launch counters live here too: each kernel wrapper adds one to its
 kernel's count right after a successful launch, and a replay of a captured
@@ -50,6 +51,10 @@ launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_logs: Dict[str, str] = {}
 
+#: the storage types the kernels read: the suffix of each one's entry point
+DTYPE_SUFFIX = {"torch.float32": "", "torch.bfloat16": "_bf16",
+                "torch.float16": "_f16"}
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C functions and their argument types; each returns an int (a CUDA error
 #: code for a launch), unless listed in _RESTYPES
@@ -70,20 +75,19 @@ _ARGTYPES = {
     "compaction_launch":
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
-_ARGTYPES.update({f"{fn}_bf16": argtypes for fn, argtypes in _ARGTYPES.items()
-                  if fn.endswith("_launch")})
+_ARGTYPES.update({fn + suffix: argtypes for fn, argtypes in _ARGTYPES.items()
+                  if fn.endswith("_launch")
+                  for suffix in DTYPE_SUFFIX.values() if suffix})
 _RESTYPES = {name: ctypes.c_longlong for name in (
     "flash_redundancy_workspace", "ragged_paged_attention_workspace",
     "paged_attention_workspace")}
 
 
-#: the storage types the kernels read: the suffix of each one's entry point
-DTYPE_SUFFIX = {"torch.float32": "", "torch.bfloat16": "_bf16"}
-
-
 def launcher(lib: ctypes.CDLL, fn: str, dtype):
     """The entry point ``fn`` of ``lib`` for tensors of ``dtype``
-    (``<fn>`` at float32, ``<fn>_bf16`` at bfloat16)."""
+    (``<fn>`` at float32, ``<fn>_bf16`` at bfloat16, ``<fn>_f16`` at
+    float16). A library without that entry raises (AttributeError): no
+    other entry or plain version stands in for it."""
     return getattr(lib, fn + DTYPE_SUFFIX[str(dtype)])
 
 

@@ -8,9 +8,9 @@ attention over each slot's first seq_len cache entries, computed over every
 entry of the table (a -1 entry reads page 0: masked past seq_len, read as
 page 0 below it, as the TPU kernel's clamp does), as the baseline the
 ragged kernel is measured against. Live rows equal the ragged kernel's bit
-for bit; rows with seq_len == 0 are zeros. q and the pools are float32 or
-bfloat16 (one dtype); the math is fp32 and the output, in q's dtype, is
-rounded once.
+for bit; rows with seq_len == 0 are zeros. q and the pools are float32,
+bfloat16 or float16 (one dtype); the math is fp32 and the output, in q's
+dtype, is rounded once.
 """
 from __future__ import annotations
 

@@ -7,8 +7,8 @@ Contract: q_win (n, w, h_q, d) chronological window queries; pool
 logits (n, h_kv, g, w, mb*b) float32, Q_win·Kᵀ·scale where
 kpos <= seq_len - w + u and kpos < seq_len, and -1e30 elsewhere; ``scale``
 is 1/√d unless given (MLA scores its 576-wide entries at
-1/√(head_dim + qk_rope_head_dim)). q_win and the pool are float32 or
-bfloat16 (one dtype); the logits are fp32 either way.
+1/√(head_dim + qk_rope_head_dim)). q_win and the pool are float32,
+bfloat16 or float16 (one dtype); the logits are fp32 at any of them.
 """
 from __future__ import annotations
 
@@ -43,9 +43,9 @@ def paged_score_logits_plain(q_win, k_pages, block_tables, seq_lens,
 def paged_score_logits_cuda(q_win, k_pages, block_tables, seq_lens,
                             scale=None):
     """Launch ``csrc/paged_score.cu`` on the current stream. Needs
-    ``d % 4 == 0`` at fp32 and ``d % 8 == 0`` at bf16 (16-byte copies);
-    any d and window otherwise (the kernel tiles d where whole rows would
-    not fit its shared memory)."""
+    ``d % 4 == 0`` at fp32 and ``d % 8 == 0`` at bf16 and fp16 (16-byte
+    copies); any d and window otherwise (the kernel tiles d where whole
+    rows would not fit its shared memory)."""
     dev = q_win.device
     dtype = kv_tensors(NAME, dev, q_win=q_win, k_pages=k_pages)
     for arg, t in (("block_tables", block_tables), ("seq_lens", seq_lens)):

@@ -8,8 +8,8 @@ block_tables (B, mb) int32 padded with -1; seq_lens (B,) int32. Returns
 entries, a -1 table entry among them reading page 0 (the TPU kernel's
 clamp: a slot that decodes nothing attends seq_len + 1 entries over an
 empty table); rows with seq_len == 0 are exact zeros. q and the pools are
-float32 or bfloat16 (one dtype); the math is fp32 and the output, in q's
-dtype, is rounded once.
+float32, bfloat16 or float16 (one dtype); the math is fp32 and the output,
+in q's dtype, is rounded once.
 """
 from __future__ import annotations
 

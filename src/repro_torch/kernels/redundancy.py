@@ -13,7 +13,7 @@ file: the same over the whole sequence instead of page by page, with row
 sums divided by ``max(seq_len, 1)`` (``scoring.redundancy_full`` of the JAX
 package, batched over requests).
 
-Both take float32 or bfloat16 keys and return float32.
+Both take float32, bfloat16 or float16 keys and return float32.
 """
 from __future__ import annotations
 
@@ -88,7 +88,7 @@ def _launch(name, launch, k_pages, block_tables, seq_lens, p_thresh,
 def lightning_redundancy_cuda(k_pages, block_tables, seq_lens, *,
                               p_thresh=0.8):
     """Launch ``csrc/redundancy.cu`` on the current stream. Needs
-    ``d % 4 == 0`` (16-byte copies; ``d % 8 == 0`` at bf16)."""
+    ``d % 4 == 0`` (16-byte copies; ``d % 8 == 0`` at bf16 and fp16)."""
     d = k_pages.shape[-1]
     require(d % 4 == 0, NAME, f"head_dim {d}: needs a multiple of 4")
     return _launch(NAME, "lightning_redundancy_launch", k_pages,
@@ -129,7 +129,7 @@ def flash_redundancy_plain(k_pages, block_tables, seq_lens, *,
 
 def flash_redundancy_cuda(k_pages, block_tables, seq_lens, *, p_thresh=0.8):
     """Launch ``csrc/flash_redundancy.cu`` on the current stream. Needs
-    ``d % 4 == 0`` (16-byte copies; ``d % 8 == 0`` at bf16) and
+    ``d % 4 == 0`` (16-byte copies; ``d % 8 == 0`` at bf16 and fp16) and
     ``d <= FLASH_MAX_D`` (shared memory)."""
     d = k_pages.shape[-1]
     require(d % 4 == 0 and d <= FLASH_MAX_D, FLASH_NAME,

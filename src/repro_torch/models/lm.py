@@ -32,12 +32,12 @@ RG-LRU and RWKV6 layers with dense or MoE FFNs, the encoder-decoder
 backbone (Whisper: ``encode`` over frame embeddings, cross attention in
 every decoder layer) and the prefix embeddings of a vision frontend
 (InternVL2) are ported; ``check_supported`` names what is not
-(local-window MLA, dtypes other than fp32 and bf16). The frontends
+(local-window MLA, dtypes other than fp32, bf16 and fp16). The frontends
 themselves are stubs in both packages: the forward takes their
 embeddings.
 
-Dtypes (``cfg.dtype``, float32 or bfloat16): the JAX package keeps fp32
-parameters and casts the matrices, qkv biases, router, experts and
+Dtypes (``cfg.dtype``, float32, bfloat16 or float16): the JAX package
+keeps fp32 parameters and casts the matrices, qkv biases, router, experts and
 embeddings to the compute dtype at each use. The port serves from params
 stored at the dtype once, which gives the same values (``cast_params``);
 training keeps fp32 master params, as the JAX package does, and the
@@ -60,7 +60,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.common import apply_norm, is_gated
 
 #: compute dtypes the port serves (``cfg.dtype``, ``EngineOptions.dtype``)
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 #: parameters that stay fp32 whatever the dtype: the norms' scales and
 #: biases, and what the reference's recurrent mixers use without a cast
 FP32_KEYS = ("ln1", "ln2", "ln_x", "final_norm", "q_norm", "k_norm",

@@ -4,7 +4,8 @@
   crash mid-save never corrupts the previous checkpoint;
 * one ``.npy`` file per leaf plus a JSON manifest with the tree's paths,
   dtypes and shapes. numpy has no bfloat16, so a bf16 leaf is stored as
-  its 16-bit pattern (int16), with ``bfloat16`` in the manifest;
+  its 16-bit pattern (int16), with ``bfloat16`` in the manifest; float16
+  leaves are stored as numpy's own float16;
 * step-tagged directories with retention, ``latest_step`` resolution.
 
 The reference's manifest also names each leaf's sharding spec, for
@@ -24,7 +25,7 @@ import torch
 
 #: dtypes a leaf may have, by the name the manifest gives them
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "int32": torch.int32}
+          "float16": torch.float16, "int32": torch.int32}
 #: the integer type whose bits stand in for a dtype numpy lacks
 _BITS = {torch.bfloat16: torch.int16}
 

@@ -281,7 +281,7 @@ def test_bf16_wrapper_checks_refuse_cpu_and_other_dtypes():
         _checks.kv_tensors("k", torch.device("cpu"), q=q)
     with pytest.raises(ValueError, match="one of"):
         _checks.kv_tensors("k", torch.device("cpu"),
-                           q=q.to(torch.float16))
+                           q=q.to(torch.float64))
 
 
 # ----------------------------------------------------------------------

@@ -8,7 +8,9 @@ same engine on the CPU. They skip without a card and nvcc (decided in the
 Tolerance: atol = rtol = 1e-4 (fp32; the kernels sum in another order
 than PyTorch's reductions). Card-vs-CPU logits: 1e-3. At bf16 inputs
 (chip_smoke.kernel_tols): fp32 outputs 1e-5, bf16 outputs one ulp
-(2**-7); card-vs-CPU bf16 logits a relative L2 of 2e-2.
+(2**-7); card-vs-CPU bf16 logits a relative L2 of 2e-2. At fp16 inputs:
+fp32 outputs 1e-5, fp16 outputs one fp16 ulp (2**-10); card-vs-CPU fp16
+logits a relative L2 of 3e-3.
 
 The head layouts of the other dense configs (g = 1 at h_kv 16, g = 6 at
 h_kv 8, g = 8 at h_kv 2, d = 128) have kernel checks of their own, and each
@@ -768,6 +770,63 @@ def test_ties_go_to_the_lowest_id_on_card(cuda):
     tok, _ = sample_batch(x.to(cuda), uniforms, ones,
                           torch.ones(4, dtype=torch.int32, device=cuda), ones)
     assert torch.equal(tok.cpu(), want)
+
+
+# ----------------------------------------------------------------------
+# float16: the kernels' fp16 entries and the fp16 serve (chip_smoke.py
+# phase 16)
+
+
+def test_kernels_match_plain_at_fp16(cuda):
+    """chip_smoke.py's 16a: the six kernels' ``_f16`` entries against their
+    plain versions at the shapes of phases 3, 13b, 14a and 15a (g = 1, 4,
+    6, 8 and 10; d = 64, 128 and 256; MLA's 512- and 576-wide entries):
+    fp32 outputs to 1e-5, fp16 outputs to one fp16 ulp (2**-10), B6 and
+    B4 == K1 bit for bit; every launch resolves an ``_f16`` entry."""
+    import dataclasses
+
+    from repro_torch.core.engine import EngineOptions
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_config("qwen3-8b"), dtype="float32")
+    before = dict(ops.launch_counts)
+    with cs.EntrySpy() as spy:
+        errs = cs.phase_fp16_kernels(torch, cuda, cfg, EngineOptions())
+    assert all(ops.launch_counts[k] > before[k] for k in ops.KERNELS)
+    assert set(spy.entries) == {k + "_launch_f16" for k in ops.KERNELS}
+    assert set(errs) == set(ops.KERNELS)
+
+
+@pytest.mark.parametrize("greedy", [True, False])
+def test_graph_replay_equals_eager_at_fp16(cuda, greedy):
+    """The fused chunk's graph replay against the eager chunk, bit for bit,
+    at 2 layers of Qwen3-8B widths with fp16 weights, pools and windows."""
+    import dataclasses
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=2,
+                              dtype="float16")
+    params = lm.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    assert params["layers"][0]["ffn"]["w1"].dtype == torch.float16
+    assert params["final_norm"]["scale"].dtype == torch.float32
+    cs.check_graph_vs_eager(torch, cuda, cfg, params, greedy)
+
+
+def test_card_matches_cpu_at_fp16(cuda):
+    """2 layers of Qwen3-8B widths at fp16 (vocabulary capped at 65536 for
+    the CPU side): logits card against CPU within a relative L2 of 3e-3;
+    the card's K = 8 streams equal its K = 1 streams bit for bit. The
+    CPU's fp16 products go through ``chip_smoke.cpu_fp16_gemm``."""
+    import dataclasses
+    cs = _chip_smoke()
+    cfg = get_config("qwen3-8b")
+    small = dataclasses.replace(cfg, num_layers=2, dtype="float16",
+                                vocab_size=min(cfg.vocab_size, 65536))
+    p_cpu = lm.init(small, torch.Generator().manual_seed(0), "cpu")
+    assert p_cpu["layers"][0]["attn"]["wq"].dtype == torch.float16
+    p_dev = _to(p_cpu, cuda)
+    worst = cs.check_logits(torch, cuda, small, p_cpu, p_dev, "fp16",
+                            "qwen3-8b widths")
+    assert worst <= cs.FP16_REL_L2
+    cs.check_streams_bf16(torch, cuda, small, p_cpu, p_dev, phase="fp16")
 
 
 # ----------------------------------------------------------------------

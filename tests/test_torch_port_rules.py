@@ -190,7 +190,7 @@ def test_training_and_eval_entry_points_on_the_cpu_when_asked(
 
 
 @pytest.mark.parametrize("knob", [
-    dict(dtype="float16"),
+    dict(dtype="float64"),
 ])
 def test_unported_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -214,6 +214,27 @@ def test_dtype_knob_is_accepted():
     assert params["embed"].dtype == torch.bfloat16
     assert params["layers"][0]["attn"]["wq"].dtype == torch.bfloat16
     assert params["final_norm"]["scale"].dtype == torch.float32
+    assert z.num_free_blocks == 16
+
+
+def test_float16_knob_is_accepted():
+    """float16 serves on the CPU: the K/V pools, the observation windows
+    and the model's matrices at fp16, the global scores F and the norms'
+    scales in fp32 (tests/test_torch_fp16.py holds it against the JAX
+    package)."""
+    z = Zipage.from_config("tiny-lm", device="cpu", block_size=8,
+                           n_total_blocks=16, max_batch=2, max_model_len=64,
+                           prefill_rows=1, prefill_len=32, dtype="float16")
+    outs = z.generate([[1, 2, 3], [4, 5]], SamplingParams(max_new_tokens=12))
+    assert [len(o.token_ids) for o in outs] == [12, 12]
+    st, params = z.engine.state, z.engine.params
+    assert st["pools"]["k"].dtype == st["pools"]["v"].dtype == torch.float16
+    assert st["qwin"].dtype == torch.float16
+    assert st["pools"]["f"].dtype == torch.float32
+    assert params["embed"].dtype == torch.float16
+    assert params["layers"][0]["attn"]["wq"].dtype == torch.float16
+    assert params["final_norm"]["scale"].dtype == torch.float32
+    assert params["layers"][0]["ln1"]["scale"].dtype == torch.float32
     assert z.num_free_blocks == 16
 
 
